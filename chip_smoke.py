@@ -5,20 +5,31 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. card identity (nvidia-smi name and power limit);
-  2. build the fused window filter kernel from dss_tpu_torch/csrc;
+  2. build every kernel of dss_tpu_torch/csrc with one nvcc call;
   3. load 1M operational intents (8 level-13 cells each over a 200k-cell
      metro region, 8M postings) into a CudaSpatialIndex on the card and
-     into a device="cpu" twin that runs the plain versions;
-  4. the kernel against its plain version on the card: edge cases
-     (lane 31, empty windows, pad windows, overflow) and one 8192-query
-     batch at the main path's shapes, with timings and the bound;
+     into a device="cpu" twin that runs the plain versions; every table
+     carries the exact block columns and the quantized p3 columns;
+  4. B1, the fused window filter, against its plain version on the card:
+     edge cases (lane 31, empty windows, pad windows, overflow) and one
+     8192-query batch at the main path's shapes, with timings and the
+     bound;
   5. the main path with launch counts reset: batches of 8192 conflict
      queries through DarTable.query_many, single CudaSpatialIndex
      requests, >= 1k upserts and removes, a minor fold, a compaction and
      more batches — every answer held exactly against the CPU twin, a
      sample against the oracle;
-  6. the kernels line, with the count of comparisons made and of those
-     that disagreed; then the ok line, or exit 1 if any disagreed.
+  6. the legacy quantized-mask path on the compacted 1M-intent L0 table:
+     B2 against its plain version (edge cases + the headline batch);
+     4 batches of 8192 queries through FastTable.query_batch on both
+     routes (B2 kernel and the matmul words) and exact_filter, held
+     against each other, the CPU twin, the fused path's pair set and the
+     oracle; B3's and B4's own entries driven on each batch's first 512
+     windows against the twin; then B3 and B4 against their plain
+     versions, with timings and bounds;
+  7. the kernels line (four kernels), with each kernel's count of
+     comparisons made and of those that disagreed; then the ok line, or
+     exit 1 if any disagreed or a kernel of a path never launched.
 Runs the port only: imports neither jax nor the reference package.
 """
 
@@ -39,6 +50,8 @@ from dss_tpu_torch.dar.index import CudaSpatialIndex
 from dss_tpu_torch.dar.oracle import Record
 from dss_tpu_torch.dar.pack import pack_records
 from dss_tpu_torch.geo import s2cell
+from dss_tpu_torch.ops import cuda_build
+from dss_tpu_torch.ops import fastpath_cuda as fc
 from dss_tpu_torch.ops import fused_filter as ff
 from dss_tpu_torch.ops.fastpath import FastTable, pow2_bucket
 
@@ -50,7 +63,19 @@ KPE = 8  # level-13 cells per intent
 BATCH = 8192
 WIDTH = 8  # cells per conflict query
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
-KERNEL_REPLACES = "dss_tpu/ops/fastpath_pallas.py:120"
+LEGACY_BATCHES = 4
+GRIDLESS = fc.GRIDLESS_MAX_WINDOWS
+# kernel -> (its CUDA source, the TPU kernel it replaces)
+KERNELS = {
+    "fused_window_filter": ("dss_tpu_torch/csrc/fused_filter.cu",
+                            "dss_tpu/ops/fastpath_pallas.py:120"),
+    "filter_windows": ("dss_tpu_torch/csrc/window_mask.cu",
+                       "dss_tpu/ops/fastpath_pallas.py:36"),
+    "filter_windows_gridless": ("dss_tpu_torch/csrc/window_mask.cu",
+                                "dss_tpu/ops/fastpath_pallas.py:251"),
+    "fused_filter_gridless": ("dss_tpu_torch/csrc/fused_filter.cu",
+                              "dss_tpu/ops/fastpath_pallas.py:300"),
+}
 
 
 def log(msg: str) -> None:
@@ -122,10 +147,13 @@ def kernel_args(ft, q):
 
 
 class Tally:
-    """Counts every comparison the smoke makes and the ones that
-    disagree; main() fails the run when any did."""
+    """Counts the comparisons made on one kernel's behalf (its kernel
+    against its plain version, and its path's answers against the twin
+    and the oracle) and the ones that disagree; main() fails the run
+    when any did."""
 
-    def __init__(self):
+    def __init__(self, name):
+        self.name = name
         self.compared = 0
         self.mismatches = 0
 
@@ -133,10 +161,11 @@ class Tally:
         self.compared += 1
         if not equal:
             self.mismatches += 1
-            print(f"MISMATCH: {what}", file=sys.stderr, flush=True)
+            print(f"MISMATCH ({self.name}): {what}", file=sys.stderr,
+                  flush=True)
 
 
-TALLY = Tally()
+TALLY = {name: Tally(name) for name in KERNELS}
 
 
 def check_kernel(ft, q, name, max_words=None):
@@ -148,8 +177,9 @@ def check_kernel(ft, q, name, max_words=None):
     want = ff.fused_window_filter_torch(*args, max_words=mw)
     torch.cuda.synchronize()
     err = int((got.long() - want.long()).abs().max())
-    TALLY.check(err == 0 and torch.equal(got, want),
-                f"kernel case {name}: max abs err {err}")
+    TALLY["fused_window_filter"].check(
+        err == 0 and torch.equal(got, want),
+        f"kernel case {name}: max abs err {err}")
     return err, int(want[0])
 
 
@@ -186,21 +216,44 @@ def edge_cases(dev):
     ]
 
 
-def bound_ms(q, nw, wins, max_words):
-    """Least time on the card for this batch: the bytes it must move
-    over the memory rate.  Those are 24 B of columns for each distinct
-    (block, lane) that some window's [start, end) covers (queries that
-    share a cell read the same lanes, which count once), the window
-    list, the query bounds and the flat output.  -> (ms, bytes)."""
-    blk = wins[0, :nw].astype(np.int64)
-    meta = wins[1, :nw].astype(np.int64)
+def distinct_lanes(blk, meta) -> int:
+    """Distinct (block, lane) pairs that the windows' [start, end)
+    ranges cover: queries that share a cell read the same lanes, which
+    count once."""
+    blk = np.asarray(blk, np.int64)
+    meta = np.asarray(meta, np.int64)
     start = meta & 0xFF
-    n = ((meta >> 8) & 0xFF) - start
+    n = np.maximum(((meta >> 8) & 0xFF) - start, 0)
     first = np.repeat(blk * 128 + start, n)
     within = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
-    lanes = len(np.unique(first + within))
+    return len(np.unique(first + within))
+
+
+def bound_ms(q, nw, wins, max_words):
+    """B1's least time on the card for this batch: the bytes it must
+    move over the memory rate.  Those are 24 B of columns for each
+    distinct (block, lane) of the windows, the window list, the query
+    bounds and the flat output.  -> (ms, bytes)."""
+    lanes = distinct_lanes(wins[0, :nw], wins[1, :nw])
     nbytes = (lanes * 24 + wins.nbytes + len(q[0]) * 24
               + (1 + 2 * max_words) * 4)
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def window_mask_bound_ms(win_blk):
+    """B2's and B3's least time: 2,560 B of p3 for each distinct block,
+    then 24 B of scalars in and 128 B of mask out per window.
+    -> (ms, bytes)."""
+    nbytes = len(np.unique(win_blk)) * 2560 + len(win_blk) * (24 + 128)
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def exact_mask_bound_ms(win_blk, meta):
+    """B4's least time: 24 B of columns for each distinct (block, lane)
+    of the windows' ranges, then 32 B of scalars in and 128 B of mask
+    out per window.  -> (ms, bytes)."""
+    nbytes = (distinct_lanes(win_blk, meta) * 24
+              + len(win_blk) * (32 + 128))
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
 
@@ -242,22 +295,233 @@ def run_batch(idx, twin, q, orc=None, sample=0):
     t3 = time.perf_counter()
     stages = {"submit": t1 - t0, "device_wait": t2 - t1, "collect": t3 - t2}
     want = twin.table.query_many(keys_list, alo, ahi, ts, te, now=NOW)
-    TALLY.check(len(got) == len(want), "batch length: card != twin")
+    tally = TALLY["fused_window_filter"]
+    tally.check(len(got) == len(want), "batch length: card != twin")
     for i, (g, w) in enumerate(zip(got, want)):
-        TALLY.check(g == w, f"card != twin at query {i}")
+        tally.check(g == w, f"card != twin at query {i}")
     for i in range(sample):
-        TALLY.check(got[i] == orc.ids(keys[i], alo[i], ahi[i], ts[i], te[i]),
+        tally.check(got[i] == orc.ids(keys[i], alo[i], ahi[i], ts[i], te[i]),
                     f"card != oracle at query {i}")
     return stages, sum(len(g) for g in got)
 
 
-def run(dev, smi) -> dict:
-    """Phases 2-5 on `dev`; -> the kernel's entry of the kernels line."""
+def entry(name, launches, max_err, k_ms, p_ms, b_ms) -> dict:
+    """One kernel's entry of the kernels line."""
+    source, replaces = KERNELS[name]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "compared": TALLY[name].compared,
+        "mismatches": TALLY[name].mismatches,
+    }
+
+
+def check_mask(name, got, want, what) -> int:
+    """A mask kernel's output against its reference, tallied on the
+    kernel's behalf.  -> max abs error."""
+    if got.is_cuda or want.is_cuda:
+        torch.cuda.synchronize()
+    got, want = got.cpu(), want.cpu()
+    err = int((got.int() - want.int()).abs().max()) if got.numel() else 0
+    TALLY[name].check(
+        got.shape == want.shape and err == 0 and torch.equal(got, want),
+        f"{what}: max abs err {err}")
+    return err
+
+
+def same_arrays(name, a, b, what) -> None:
+    TALLY[name].check(
+        len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b)),
+        what)
+
+
+def pair_set(qidx, slots) -> set:
+    return set(zip(np.asarray(qidx).tolist(), np.asarray(slots).tolist()))
+
+
+def gridless_args(ft, q):
+    """B3's and B4's inputs for batch q on ft: the first <= 512 windows
+    of the legacy window list (B3), and of the fused path's window list
+    with qidx masked off and the bounds gathered per window (B4).  ->
+    (B3 args, B4 args, B1's plain filter args on B4's windows)."""
+    qkeys, alo, ahi, ts, te = q
+    _, _, args = ft._legacy_inputs(*q)
+    b3 = tuple(a[:GRIDLESS] for a in args)
+    wins, win_q, _, nw = ft._pack_windows(qkeys)
+    k = min(nw, GRIDLESS)
+    wq = win_q[:k]
+    dev = ft.device
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    b4 = (up(wins[0, :k]), up(wins[1, :k] & 0xFFFF), up(alo[wq]),
+          up(ahi[wq]), up(np.maximum(ts, np.int64(NOW))[wq]), up(te[wq]))
+    full = (up(wins[:, :k]), up(alo), up(ahi),
+            up(np.maximum(ts, np.int64(NOW))), up(te))
+    return b3, b4, full
+
+
+def unpacked_words(words: torch.Tensor) -> torch.Tensor:
+    """(NW, 4) i32 hit words -> (NW, 128) int8 lane mask."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words[:, :, None] >> shifts) & 1
+    return bits.reshape(len(words), 128).to(torch.int8)
+
+
+def legacy_phase(idx, twin, cases, orc, smi) -> list:
+    """Phase 6 on the compacted L0 table; -> the kernels line entries
+    of B2, B3 and B4."""
+    ft = idx.table._state.snap.fast
+    twin_ft = twin.table._state.snap.fast
+    snap = idx.table._state.snap
+    TALLY["filter_windows"].check(
+        torch.equal(ft.p3.cpu(), twin_ft.p3), "p3: card != twin")
+
+    # -- B2 against its plain version -----------------------------------
+    b2_err = 0
+    hq = make_batch(100, BATCH, N_CELLS, WIDTH)
+    for name, case_ft, q in cases + [("headline", ft, hq)]:
+        _, _, args = case_ft._legacy_inputs(*q)
+        b2_err = max(b2_err, check_mask(
+            "filter_windows", fc.filter_windows(case_ft.p3, *args),
+            fc.filter_windows_torch(case_ft.p3, *args), f"B2 case {name}"))
+    win_q, win_blk, args = ft._legacy_inputs(*hq)
+    b2_ms = cuda_ms(lambda: fc.filter_windows(ft.p3, *args))
+    b2_plain = cuda_ms(lambda: fc.filter_windows_torch(ft.p3, *args))
+    b2_bound, nbytes = window_mask_bound_ms(args[0].cpu().numpy())
+    log(f"B2 headline: {len(win_blk)} windows (bucket {args[0].shape[0]}), "
+        f"kernel {b2_ms:.4f} ms, plain {b2_plain:.4f} ms, "
+        f"bound {b2_bound:.4f} ms ({nbytes} B) [{smi}]")
+
+    # -- the legacy path at full scale, launch counts from zero -----------
+    tally = TALLY["filter_windows"]
+    se = ft.slot_exact
+    cols = (se["alt_lo"], se["alt_hi"], se["t0"], se["t1"], se["live"])
+    batches = [make_batch(500 + i, BATCH, N_CELLS, WIDTH)
+               for i in range(LEGACY_BATCHES)]
+    fc.filter_windows.launches = 0
+    batch_s, answers, hits = [], [], 0
+    for i, q in enumerate(batches):
+        keys, alo, ahi, ts, te = q
+        t0 = time.perf_counter()
+        kq = ft.query_batch(*q, now=NOW, use_kernel=True)
+        exact = ft.exact_filter(*kq, *cols, alo, ahi, ts, te, now=NOW)
+        batch_s.append(time.perf_counter() - t0)
+        answers.append(kq)
+        hits += len(exact[0])
+        same_arrays("filter_windows", kq,
+                    ft.query_batch(*q, now=NOW, use_kernel=False),
+                    f"legacy batch {i}: kernel route != words route")
+        same_arrays("filter_windows", kq,
+                    twin_ft.query_batch(*q, now=NOW, use_kernel=bool(i % 2)),
+                    f"legacy batch {i}: card != twin")
+        tally.check(pair_set(*exact) == pair_set(*ft.query_fused(*q, now=NOW)),
+                    f"legacy batch {i}: exact pairs != fused pairs")
+        for j in range(64 if i == 0 else 0):
+            got = sorted({snap.ids[s] for s in exact[1][exact[0] == j]})
+            tally.check(got == orc.ids(keys[j], alo[j], ahi[j], ts[j], te[j]),
+                        f"legacy batch {i}: card != oracle at query {j}")
+    b2_launches = fc.filter_windows.launches
+
+    # the kernel route's stages, timed apart (launches not counted)
+    stages = []
+    for q, kq in zip(batches, answers):
+        _, alo, ahi, ts, te = q
+        t0 = time.perf_counter()
+        wq, wb, a = ft._legacy_inputs(*q)
+        t1 = time.perf_counter()
+        out = ft._legacy_filter(a, len(wb), True)
+        t2 = time.perf_counter()
+        pairs = ft._legacy_pairs(wq, wb, out, True)
+        t3 = time.perf_counter()
+        ft.exact_filter(*pairs, *cols, alo, ahi, ts, te, now=NOW)
+        t4 = time.perf_counter()
+        stages.append({"expand": t1 - t0, "launch_d2h": t2 - t1,
+                       "decode": t3 - t2, "exact_filter": t4 - t3})
+        same_arrays("filter_windows", pairs, kq, "staged run != query_batch")
+    log(json.dumps({"legacy_path": {
+        "entities": N_ENTITIES, "batch": BATCH, "batches": len(batch_s),
+        "hits_after_exact_filter": hits,
+        "batches_per_s": len(batch_s) / sum(batch_s),
+        "p50_batch_ms": statistics.median(batch_s) * 1e3,
+        "p50_stage_ms": {k: statistics.median(st[k] for st in stages) * 1e3
+                         for k in stages[0]},
+        "b2_launches": b2_launches,
+        "card": smi,
+    }}))
+
+    # -- B3's and B4's own entries, launch counts from zero ----------------
+    fc.filter_windows_gridless.launches = 0
+    fc.fused_filter_gridless.launches = 0
+    cols4 = (ft.b_alo, ft.b_ahi, ft.b_t0, ft.b_t1)
+    twin_cols4 = (twin_ft.b_alo, twin_ft.b_ahi, twin_ft.b_t0, twin_ft.b_t1)
+    for i, q in enumerate(batches + [hq]):
+        b3, b4, _ = gridless_args(ft, q)
+        tb3, tb4, _ = gridless_args(twin_ft, q)
+        check_mask("filter_windows_gridless",
+                   fc.filter_windows_gridless(ft.p3, *b3),
+                   fc.filter_windows_gridless(twin_ft.p3, *tb3),
+                   f"B3 batch {i}: card != twin")
+        check_mask("fused_filter_gridless",
+                   fc.fused_filter_gridless(*cols4, *b4),
+                   fc.fused_filter_gridless(*twin_cols4, *tb4),
+                   f"B4 batch {i}: card != twin")
+    b3_launches = fc.filter_windows_gridless.launches
+    b4_launches = fc.fused_filter_gridless.launches
+
+    # -- B3 and B4 against their plain versions ----------------------------
+    b3, b4, full = gridless_args(ft, hq)
+    b3_err = check_mask("filter_windows_gridless",
+                        fc.filter_windows_gridless(ft.p3, *b3),
+                        fc.filter_windows_torch(ft.p3, *b3), "B3 headline")
+    mask4 = fc.fused_filter_gridless(*cols4, *b4)
+    b4_err = max(
+        check_mask("fused_filter_gridless", mask4,
+                   fc.fused_filter_mask_torch(*cols4, *b4), "B4 headline"),
+        check_mask("fused_filter_gridless", mask4,
+                   unpacked_words(ff.filter_pack_torch(*cols4, *full)),
+                   "B4 headline != B1's plain filter"),
+    )
+    b3_ms = cuda_ms(lambda: fc.filter_windows_gridless(ft.p3, *b3))
+    b3_plain = cuda_ms(lambda: fc.filter_windows_torch(ft.p3, *b3))
+    b3_bound, b3_bytes = window_mask_bound_ms(b3[0].cpu().numpy())
+    b4_ms = cuda_ms(lambda: fc.fused_filter_gridless(*cols4, *b4))
+    b4_plain = cuda_ms(lambda: fc.fused_filter_mask_torch(*cols4, *b4))
+    b4_bound, b4_bytes = exact_mask_bound_ms(b4[0].cpu().numpy(),
+                                             b4[1].cpu().numpy())
+    log(f"B3 headline: {b3[0].shape[0]} windows, kernel {b3_ms:.4f} ms, "
+        f"plain {b3_plain:.4f} ms, bound {b3_bound:.6f} ms ({b3_bytes} B); "
+        f"B4: {b4[0].shape[0]} windows, kernel {b4_ms:.4f} ms, "
+        f"plain {b4_plain:.4f} ms, bound {b4_bound:.6f} ms ({b4_bytes} B) "
+        f"[{smi}]")
+    return [
+        entry("filter_windows", b2_launches, b2_err, b2_ms, b2_plain,
+              b2_bound),
+        entry("filter_windows_gridless", b3_launches, b3_err, b3_ms,
+              b3_plain, b3_bound),
+        entry("fused_filter_gridless", b4_launches, b4_err, b4_ms, b4_plain,
+              b4_bound),
+    ]
+
+
+def run(dev, smi) -> list:
+    """Phases 2-6 on `dev`; -> the entries of the kernels line."""
     t_all = time.perf_counter()
 
     t = time.perf_counter()
-    lib = ff.build()
-    log(f"build: {lib.name} in {time.perf_counter() - t:.2f} s")
+    lib = cuda_build.build()
+    log(f"build: {lib.name} ({len(cuda_build.sources())} sources, one nvcc "
+        f"call) in {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
     recs, keys = make_records(N_ENTITIES, N_CELLS, KPE)
@@ -273,11 +537,14 @@ def run(dev, smi) -> dict:
     twin.table.bulk_load(recs)
     log(f"load (cpu twin): {time.perf_counter() - t:.2f} s")
     ft = idx.table._state.snap.fast
-    log(f"L0: {ft.n_postings} postings in {ft.n_blocks} blocks")
+    log(f"L0: {ft.n_postings} postings in {ft.n_blocks} blocks; "
+        f"p3 {ft.p3.numel() * 4 / 2**20:.1f} MiB, exact columns "
+        f"{ft.n_blocks * 128 * 24 / 2**20:.1f} MiB")
 
     # -- the kernel against its plain version ---------------------------
     max_err = 0
-    for name, case_ft, q, mw in edge_cases(dev):
+    cases = edge_cases(dev)
+    for name, case_ft, q, mw in cases:
         err, n_words = check_kernel(case_ft, q, name, mw)
         max_err = max(max_err, err)
         log(f"kernel case {name}: max abs err {err} ({n_words} words)")
@@ -303,8 +570,9 @@ def run(dev, smi) -> dict:
                           orc, sample=64 if i == 0 else 0)
         lat.append(st)
         hits += h
-    log(f"8 batches x {BATCH}: {hits} hits; {TALLY.mismatches} mismatches "
-        f"of {TALLY.compared} comparisons so far")
+    tally = TALLY["fused_window_filter"]
+    log(f"8 batches x {BATCH}: {hits} hits; {tally.mismatches} mismatches "
+        f"of {tally.compared} comparisons so far")
 
     rng = np.random.default_rng(1)
     singles = make_batch(300, 32, N_CELLS, WIDTH)
@@ -312,9 +580,9 @@ def run(dev, smi) -> dict:
         cells = s2cell.dar_key_to_cell(singles[0][i])
         a = [singles[j][i] for j in range(1, 5)]
         got = idx.query_ids(cells, *a, now=NOW)
-        TALLY.check(got == twin.query_ids(cells, *a, now=NOW),
+        tally.check(got == twin.query_ids(cells, *a, now=NOW),
                     f"single query {i}: card != twin")
-        TALLY.check(got == orc.ids(singles[0][i], *a),
+        tally.check(got == orc.ids(singles[0][i], *a),
                     f"single query {i}: card != oracle")
     log("32 single query_ids compared with the twin and the oracle")
 
@@ -357,8 +625,6 @@ def run(dev, smi) -> dict:
     launches = ff.fused_window_filter.launches
     log(f"compaction: batches compared; "
         f"stats {json.dumps(idx.table.stats(), sort_keys=True)}")
-    if launches <= 0:
-        raise AssertionError("the main path never launched the kernel")
     total = [sum(st.values()) for st in lat]
     log(json.dumps({"main_path_first_slice": {
         "entities": N_ENTITIES, "batch": BATCH, "batches": len(lat),
@@ -371,23 +637,14 @@ def run(dev, smi) -> dict:
         "card": smi,
         "seconds_total": time.perf_counter() - t_all,
     }}))
+    legacy = legacy_phase(
+        idx, twin, [(name, f, q) for name, f, q, mw in cases if mw is None],
+        orc, smi)
+    log(f"seconds_total: {time.perf_counter() - t_all:.2f}")
     idx.close()
     twin.close()
-    return {
-        "name": "fused_window_filter",
-        "route": "cuda",
-        "source": "dss_tpu_torch/csrc/fused_filter.cu",
-        "replaces": KERNEL_REPLACES,
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": b_ms,
-        "bound_by": "bytes",
-        "library_ms": None,
-        "compared": TALLY.compared,
-        "mismatches": TALLY.mismatches,
-    }
+    return [entry("fused_window_filter", launches, max_err, k_ms, p_ms, b_ms)
+            ] + legacy
 
 
 def main() -> int:
@@ -401,16 +658,24 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     log(smi)
-    kernel = run(torch.device("cuda"), smi)
-    print(json.dumps({"kernels": [kernel]}))
-    if TALLY.mismatches:
-        print(f"chip_smoke: {TALLY.mismatches} of {TALLY.compared} "
-              "comparisons disagreed", file=sys.stderr)
+    kernels = run(torch.device("cuda"), smi)
+    print(json.dumps({"kernels": kernels}))
+    idle = [k["name"] for k in kernels if k["launches"] <= 0]
+    if idle:
+        print(f"chip_smoke: never launched on its path: {idle}",
+              file=sys.stderr)
         return 1
+    bad = sum(t.mismatches for t in TALLY.values())
+    if bad:
+        print(f"chip_smoke: {bad} of "
+              f"{sum(t.compared for t in TALLY.values())} comparisons "
+              "disagreed", file=sys.stderr)
+        return 1
+    # the smoke drives card 0 alone, whatever else the host holds
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
+        "count": 1,
     }}))
     return 0
 

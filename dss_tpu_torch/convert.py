@@ -36,27 +36,39 @@ def records_from_reference(records: Iterable) -> List[Record]:
 
 def fasttable_from_arrays(
     host_key, host_ent, host_live, slot_exact,
-    b_alo, b_ahi, b_t0, b_t1, *, device=None,
+    b_alo=None, b_ahi=None, b_t0=None, b_t1=None, *, p3, device=None,
 ) -> FastTable:
-    """A port FastTable from a table's host arrays and its already
-    laid-out (NB, 128) block columns (np.asarray of a reference table's
-    device columns, or another port table's); the device columns are
-    byte-identical to the inputs."""
-    cols = [np.asarray(c) for c in (b_alo, b_ahi, b_t0, b_t1)]
-    want = (np.float32, np.float32, np.int64, np.int64)
-    for c, dt in zip(cols, want):
-        if c.dtype != dt or c.ndim != 2 or c.shape[1] != BLOCK:
-            raise ValueError(
-                f"block column must be {np.dtype(dt)} (NB, {BLOCK}), "
-                f"got {c.dtype} {c.shape}"
-            )
-    if cols[0].shape[0] * BLOCK < len(host_key):
-        raise ValueError("block columns shorter than the postings")
+    """A port FastTable from a table's host arrays, its (NB, 5, 128) i32
+    `p3` columns and, when `slot_exact` is given, its (NB, 128) exact
+    block columns (np.asarray of a reference table's device columns, or
+    another port table's).  slot_exact=None carries a table that has
+    only `p3`, as a reference table built without it.  The device
+    columns are byte-identical to the inputs."""
+    p3 = np.asarray(p3)
+    if p3.dtype != np.int32 or p3.ndim != 3 or p3.shape[1:] != (5, BLOCK):
+        raise ValueError(
+            f"p3 must be int32 (NB, 5, {BLOCK}), got {p3.dtype} {p3.shape}"
+        )
+    if p3.shape[0] * BLOCK < len(host_key):
+        raise ValueError("p3 is shorter than the postings")
+    cols = None
+    if slot_exact is not None:
+        cols = [np.asarray(c) for c in (b_alo, b_ahi, b_t0, b_t1)]
+        want = (np.float32, np.float32, np.int64, np.int64)
+        for c, dt in zip(cols, want):
+            if c.dtype != dt or c.shape != (p3.shape[0], BLOCK):
+                raise ValueError(
+                    f"block column must be {np.dtype(dt)} "
+                    f"({p3.shape[0]}, {BLOCK}) like p3, got {c.dtype} "
+                    f"{c.shape}"
+                )
+        slot_exact = {k: np.array(v) for k, v in slot_exact.items()}
+    elif any(c is not None for c in (b_alo, b_ahi, b_t0, b_t1)):
+        raise ValueError("exact block columns given without slot_exact")
     ft = FastTable.__new__(FastTable)
     ft._adopt(
         np.asarray(host_key), np.asarray(host_ent),
-        np.asarray(host_live, bool),
-        {k: np.array(v) for k, v in slot_exact.items()}, *cols,
+        np.asarray(host_live, bool), p3, slot_exact, cols,
         resolve_device(device),
     )
     return ft

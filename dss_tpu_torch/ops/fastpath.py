@@ -23,6 +23,13 @@ Small batches (<= HOST_MAX_BATCH queries) answer from the exact host
 scan instead (query_host_auto), with identical results.  The host
 halves here are the numpy versions; the reference's C++ twins
 (dss_tpu/native) give the same output bit for bit.
+
+Every table also carries the quantized `p3` columns of the legacy
+path: query_batch filters windows conservatively on the device (B2,
+ops.fastpath_cuda.filter_windows, or the reference's XLA route as
+torch ops, _filter_words), and exact_filter re-checks the hits on the
+host.  A table built without `slot_exact` has only `p3`: its fused and
+host routes are absent, as in the reference.
 """
 
 from __future__ import annotations
@@ -32,9 +39,13 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from dss_tpu_torch.ops.fused_filter import BLOCK, WORDS, fused_window_filter
+from dss_tpu_torch.ops.fastpath_cuda import filter_windows, window_hits
+from dss_tpu_torch.ops.fused_filter import (
+    BLOCK, PLAIN_CHUNK, WORDS, fused_window_filter,
+)
 
 INT32_MAX = np.int32(2**31 - 1)
+INT32_MIN = np.int32(-(2**31))
 DEAD_T1 = np.int64(-(2**62))  # t_end of dead postings: never >= any now
 
 
@@ -49,6 +60,39 @@ def resolve_device(device=None) -> torch.device:
             "False; pass device='cpu' to run the plain versions"
         )
     return dev
+
+
+def mm_floor(x) -> np.ndarray:
+    """Altitude in metres -> i32 millimetres, rounded down (outward for
+    a lower bound) and clipped to the i32 range."""
+    v = np.floor(np.asarray(x, np.float64) * 1000.0)
+    return np.clip(v, -(2**31), 2**31 - 1).astype(np.int32)
+
+
+def mm_ceil(x) -> np.ndarray:
+    v = np.ceil(np.asarray(x, np.float64) * 1000.0)
+    return np.clip(v, -(2**31), 2**31 - 1).astype(np.int32)
+
+
+def sec_floor(x) -> np.ndarray:
+    """Time in ns -> i32 seconds, rounded down and clipped."""
+    return np.clip(
+        np.asarray(x, np.int64) // 10**9, -(2**31), 2**31 - 1
+    ).astype(np.int32)
+
+
+def sec_ceil(x) -> np.ndarray:
+    return np.clip(
+        -((-np.asarray(x, np.int64)) // 10**9), -(2**31), 2**31 - 1
+    ).astype(np.int32)
+
+
+def _bitpack_weights() -> np.ndarray:
+    """(128, 8) f32: lane i contributes 2^(i%16) to word i//16."""
+    w = np.zeros((BLOCK, 8), np.float32)
+    for i in range(BLOCK):
+        w[i, i // 16] = float(1 << (i % 16))
+    return w
 
 
 def segmented_arange(counts: np.ndarray) -> np.ndarray:
@@ -173,7 +217,8 @@ class PendingBatch:
 
 
 class FastTable:
-    """Device-resident exact block columns + host decode state."""
+    """Device-resident quantized `p3` columns and, with `slot_exact`,
+    exact block columns + host decode state."""
 
     WORDS = WORDS  # u32 hit words per window
 
@@ -195,7 +240,8 @@ class FastTable:
         t_end: np.ndarray,
         live: np.ndarray,  # bool[P]
         *,
-        slot_exact: dict,  # per-slot {"alt_lo","alt_hi","t0","t1","live"}
+        slot_exact: Optional[dict] = None,  # per-slot {"alt_lo","alt_hi",
+        #                                     "t0","t1","live"}
         device=None,
     ):
         post_key = np.asarray(post_key)
@@ -216,29 +262,42 @@ class FastTable:
         # reads out of range, same block count on both sides
         ppad = ((P + 2 * BLOCK - 1) // (2 * BLOCK)) * 2 * BLOCK + 4 * BLOCK
         nb = ppad // BLOCK
+        # quantized columns, conservative (intervals rounded outward);
+        # pad lanes are INT32_MAX in every row and dead postings end at
+        # INT32_MIN, so neither matches a real window
+        packed = np.full((5, ppad), INT32_MAX, np.int32)
+        packed[0, :P] = post_key
+        packed[1, :P] = mm_floor(alt_lo)
+        packed[2, :P] = mm_ceil(alt_hi)
+        packed[3, :P] = sec_floor(t_start)
+        packed[4, :P] = np.where(live, sec_ceil(t_end), INT32_MIN)
+        p3 = packed.reshape(5, nb, BLOCK).transpose(1, 0, 2).copy()
         live = np.asarray(live, bool)
-        # exact per-posting columns in block layout; pad lanes and dead
-        # postings can never match (alo=+inf, ahi=-inf, t1=-(2**62))
-        b_alo = np.full(ppad, np.inf, np.float32)
-        b_ahi = np.full(ppad, -np.inf, np.float32)
-        b_t0 = np.full(ppad, 2**62, np.int64)
-        b_t1 = np.full(ppad, DEAD_T1, np.int64)
-        b_alo[:P] = np.asarray(alt_lo, np.float32)
-        b_ahi[:P] = np.asarray(alt_hi, np.float32)
-        b_t0[:P] = np.asarray(t_start, np.int64)
-        b_t1[:P] = np.where(live, np.asarray(t_end, np.int64), DEAD_T1)
-        self._adopt(
-            post_key, post_ent, live, slot_exact,
-            b_alo.reshape(nb, BLOCK), b_ahi.reshape(nb, BLOCK),
-            b_t0.reshape(nb, BLOCK), b_t1.reshape(nb, BLOCK),
-            resolve_device(device),
-        )
+        cols = None
+        if slot_exact is not None:
+            # exact per-posting columns in block layout; pad lanes and
+            # dead postings can never match (alo=+inf, ahi=-inf,
+            # t1=-(2**62))
+            b_alo = np.full(ppad, np.inf, np.float32)
+            b_ahi = np.full(ppad, -np.inf, np.float32)
+            b_t0 = np.full(ppad, 2**62, np.int64)
+            b_t1 = np.full(ppad, DEAD_T1, np.int64)
+            b_alo[:P] = np.asarray(alt_lo, np.float32)
+            b_ahi[:P] = np.asarray(alt_hi, np.float32)
+            b_t0[:P] = np.asarray(t_start, np.int64)
+            b_t1[:P] = np.where(live, np.asarray(t_end, np.int64), DEAD_T1)
+            cols = tuple(c.reshape(nb, BLOCK) for c in (b_alo, b_ahi, b_t0, b_t1))
+        self._adopt(post_key, post_ent, live, p3, slot_exact, cols,
+                    resolve_device(device))
 
-    def _adopt(self, host_key, host_ent, host_live, slot_exact,
-               b_alo, b_ahi, b_t0, b_t1, device) -> None:
+    def _adopt(self, host_key, host_ent, host_live, p3, slot_exact, cols,
+               device) -> None:
+        """Take the host arrays, the (NB, 5, 128) `p3` columns and, with
+        `slot_exact`, the (NB, 128) exact columns `cols` = (b_alo,
+        b_ahi, b_t0, b_t1); upload the columns to `device`."""
         self.device = device
         self.n_postings = len(host_key)
-        self.n_blocks = b_alo.shape[0]
+        self.n_blocks = p3.shape[0]
         self.host_key = host_key
         self.host_ent = np.asarray(host_ent)
         self.host_live = host_live
@@ -249,10 +308,13 @@ class FastTable:
                 a = a.copy()
             return torch.from_numpy(a).to(device)
 
-        self.b_alo = up(b_alo)  # (NB, 128) f32
-        self.b_ahi = up(b_ahi)
-        self.b_t0 = up(b_t0)  # (NB, 128) i64
-        self.b_t1 = up(b_t1)
+        self.p3 = up(p3)  # (NB, 5, 128) i32
+        self.bitpack_w = up(_bitpack_weights())  # (128, 8) f32
+        self.slot_exact = None
+        self.b_alo = self.b_ahi = self.b_t0 = self.b_t1 = None
+        if slot_exact is None:
+            return
+        self.b_alo, self.b_ahi, self.b_t0, self.b_t1 = map(up, cols)
         # host copies of the per-slot exact values (host route +
         # liveness); `live` is normalized to a contiguous buffer here,
         # where no concurrent mutator exists yet: mark_dead() flips
@@ -264,7 +326,10 @@ class FastTable:
 
     def mark_dead(self, slot: int) -> None:
         """Tombstone one slot in place (no rebuild): collect() and the
-        host route drop it from then on."""
+        host route drop it from then on.  A table without exact columns
+        has nothing to mark."""
+        if self.slot_exact is None:
+            return
         self.slot_exact["live"][slot] = False
 
     # -- host window expansion -----------------------------------------------
@@ -348,6 +413,9 @@ class FastTable:
         max_words=None sizes the compacted-word buffer to a pow2 bucket
         >= the window count; collect() reruns at the 4*nw hard bound on
         overflow."""
+        if self.slot_exact is None:
+            raise ValueError("table has no exact columns (built without "
+                             "slot_exact): use query_batch")
         wins, win_q, win_blk, nw = self._pack_windows(qkeys)
         if nw == 0:
             return None
@@ -445,7 +513,7 @@ class FastTable:
         """-> (lo, hi) postings ranges for the batch, or None when the
         batch should go to the device (too big)."""
         mb = self.HOST_MAX_BATCH if max_batch is None else int(max_batch)
-        if len(qkeys) > mb:
+        if len(qkeys) > mb or self.slot_exact is None:
             return None
         mc = (
             self.HOST_MAX_CANDIDATES
@@ -466,7 +534,10 @@ class FastTable:
         """FORCED exact host answer for batches of any size, in chunks
         of HOST_MAX_BATCH rows with the raised
         HOST_ROUTE_MAX_CANDIDATES cap.  -> (qidx, slots) identical to
-        the fused path, or None when any chunk exceeds the cap."""
+        the fused path, or None when any chunk exceeds the cap (or the
+        table has no exact columns)."""
+        if self.slot_exact is None:
+            return None
         b = len(qkeys)
         step = self.HOST_MAX_BATCH if chunk is None else max(1, int(chunk))
         now_b = np.broadcast_to(np.asarray(now, np.int64), (b,))
@@ -495,7 +566,8 @@ class FastTable:
         max_candidates: Optional[int] = None,
     ):
         """Exact host-path answer for small batches: (qidx, slots), or
-        None when the batch should go to the device."""
+        None when the batch should go to the device (or the table has
+        no exact columns)."""
         ranges = self.host_candidates(
             qkeys, max_batch=max_batch, max_candidates=max_candidates
         )
@@ -540,3 +612,144 @@ class FastTable:
             & (se["t0"][slots] <= t_end[qidx])
         )
         return qidx[keep].astype(np.int64), slots[keep].astype(np.int64)
+
+    # -- legacy quantized-mask path -------------------------------------------
+
+    def _filter_words(self, win_blk, qk, qalo_mm, qahi_mm, qt0s, qt1s):
+        """The reference's XLA route (_filter_xla) as torch ops on the
+        table's device -> (NW, 8) i32 16-bit hit words: the quantized
+        compare of each window over its block of `p3`, bit-packed by a
+        matmul with `bitpack_w`, PLAIN_CHUNK windows at a time.  Every
+        partial sum is a sum of distinct powers of two below 2^16, so
+        the f32 product is exact; on the card this relies on full-f32
+        matmuls (torch.backends.cuda.matmul.allow_tf32 at its default,
+        False)."""
+        q = (win_blk, qk, qalo_mm, qahi_mm, qt0s, qt1s)
+        parts = [
+            torch.matmul(
+                window_hits(self.p3, *(a[s : s + PLAIN_CHUNK] for a in q))
+                .to(torch.float32),
+                self.bitpack_w,
+            ).to(torch.int32)
+            for s in range(0, win_blk.shape[0], PLAIN_CHUNK)
+        ]
+        return torch.cat(parts)
+
+    def _legacy_inputs(self, qkeys, alt_lo, alt_hi, t_start, t_end):
+        """query_batch's host expansion -> (win_q, win_blk, per-window
+        device inputs padded to a pow2 bucket), or None without
+        windows."""
+        # expand every (query, cell) run into ALL the 128-blocks it
+        # touches, so hot cells with long runs are fully covered
+        win_q, win_key, win_blk, _, _ = self._expand_windows(qkeys)
+        if len(win_blk) == 0:
+            return None
+        alo_mm = mm_floor(np.where(np.isneginf(alt_lo), -2e6, alt_lo))
+        ahi_mm = mm_ceil(np.where(np.isposinf(alt_hi), 2e6, alt_hi))
+        t0s = sec_floor(t_start)
+        t1s = sec_ceil(t_end)
+        # pad to the reference's pow2 bucket with never-matching windows
+        # (key -2); the bucket is a multiple of the kernel's GROUP
+        nw = len(win_blk)
+        pad = pow2_bucket(nw) - nw
+
+        def padded(a, fill):
+            if pad:
+                a = np.concatenate([a, np.full(pad, fill, np.int32)])
+            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
+                self.device
+            )
+
+        args = (
+            padded(win_blk, 0),
+            padded(win_key, -2),
+            padded(alo_mm[win_q].astype(np.int32), 0),
+            padded(ahi_mm[win_q].astype(np.int32), 0),
+            padded(t0s[win_q].astype(np.int32), 0),
+            padded(t1s[win_q].astype(np.int32), 0),
+        )
+        return win_q, win_blk, args
+
+    def _legacy_filter(self, args, nw: int, use_kernel: bool) -> np.ndarray:
+        """The device filter and the D2H copy of its first nw rows: the
+        (nw, 128) int8 mask of B2, or the (nw, 8) words of
+        _filter_words."""
+        if use_kernel:
+            return filter_windows(self.p3, *args)[:nw].cpu().numpy()
+        return self._filter_words(*args)[:nw].cpu().numpy()
+
+    def _legacy_pairs(self, win_q, win_blk, out, use_kernel: bool):
+        """Decode the filter's output -> (qidx, offs), in window-major,
+        lane-ascending order on both routes."""
+        if use_kernel:
+            wi, lane = np.nonzero(out)
+        else:
+            m = out.astype(np.uint32)  # (NW, 8) 16-bit words
+            wi0, wordq = np.nonzero(m)
+            vals = m[wi0, wordq]
+            bitpos = np.arange(16, dtype=np.uint32)
+            expanded = (vals[:, None] >> bitpos[None, :]) & 1
+            e_i, e_b = np.nonzero(expanded)
+            wi = wi0[e_i]
+            lane = wordq[e_i] * 16 + e_b
+        offs = win_blk[wi].astype(np.int64) * BLOCK + lane
+        qidx = win_q[wi].astype(np.int64)
+        ok = offs < self.n_postings
+        return qidx[ok], offs[ok]
+
+    def query_batch(
+        self,
+        qkeys: np.ndarray,  # i32[B, W] DAR keys, pad -1
+        alt_lo: np.ndarray,  # f32[B] (-inf if unbounded)
+        alt_hi: np.ndarray,
+        t_start: np.ndarray,  # i64[B] ns (NO_TIME_LO if unbounded)
+        t_end: np.ndarray,
+        *,
+        now: int,
+        use_kernel: bool = False,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """-> (query_index i64[H], posting_offset i64[H]): the raw hit
+        pairs after the conservative device filter over `p3`.  Callers
+        re-check exact attributes per hit (exact_filter); `now` is not
+        applied here, as in the reference.  use_kernel=True runs the B2
+        kernel (filter_windows), False the reference's XLA route as
+        torch ops (_filter_words); both return the same arrays."""
+        prep = self._legacy_inputs(qkeys, alt_lo, alt_hi, t_start, t_end)
+        if prep is None:
+            return np.zeros(0, np.int64), np.zeros(0, np.int64)
+        win_q, win_blk, args = prep
+        out = self._legacy_filter(args, len(win_blk), use_kernel)
+        return self._legacy_pairs(win_q, win_blk, out, use_kernel)
+
+    def exact_filter(
+        self,
+        qidx: np.ndarray,
+        offs: np.ndarray,
+        records_alt_lo: np.ndarray,  # per-SLOT exact values
+        records_alt_hi: np.ndarray,
+        records_t0: np.ndarray,
+        records_t1: np.ndarray,
+        records_live: np.ndarray,
+        alt_lo: np.ndarray,
+        alt_hi: np.ndarray,
+        t_start: np.ndarray,
+        t_end: np.ndarray,
+        *,
+        now,  # int scalar or i64[B] per-query request time
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Drop quantization false positives; -> (qidx, slots).  Key
+        equality was already tested exactly on the device, so only the
+        attribute tests and liveness against `now` are re-checked."""
+        slots = self.host_ent[offs]
+        now_q = np.asarray(now, np.int64)
+        if now_q.ndim:
+            now_q = now_q[qidx]
+        keep = (
+            records_live[slots]
+            & (records_alt_hi[slots] >= alt_lo[qidx])
+            & (records_alt_lo[slots] <= alt_hi[qidx])
+            & (records_t1[slots] >= t_start[qidx])
+            & (records_t0[slots] <= t_end[qidx])
+            & (records_t1[slots] >= now_q)
+        )
+        return qidx[keep], slots[keep]

@@ -17,23 +17,20 @@ start | end<<8 | qidx<<16]; per-query bounds `q_alo/q_ahi` f32[B] and
 `q_t0/q_t1` i64[B], with q_t0 pre-folded with `now` on the host
 (t0_eff = max(t_start, now)).
 
-The kernel is built with `nvcc` at first use, from this package's
-sources, into `build/torch_kernels/` beside the package, and bound with
-ctypes through a plain C function (no PyTorch headers, so the build
-takes seconds).
+The kernel is built with the other kernels of `csrc/` by
+`ops/cuda_build.py` and bound with ctypes through a plain C function.
+`exact_hits` is the per-lane exact compare, shared with B4's plain
+version (`ops/fastpath_cuda.fused_filter_mask_torch`), as the CUDA
+source shares its compare between B1 and B4.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
+
+from dss_tpu_torch.ops import cuda_build
 
 BLOCK = 128  # postings per block
 WORDS = BLOCK // 32  # u32 hit words per window
@@ -42,62 +39,11 @@ WIN_PER_CTA = 32  # windows per kernel chunk (csrc/fused_filter.cu)
 # temporaries at the 131072-window bucket
 PLAIN_CHUNK = 16384
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "fused_filter.cu"
-BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+_ARGTYPES = (
+    [ctypes.c_void_p] * 5 + [ctypes.c_int]
+    + [ctypes.c_void_p] * 4 + [ctypes.c_int]
+    + [ctypes.c_void_p] * 5
 )
-
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(cand):
-        raise RuntimeError(
-            "nvcc not found (PATH or $CUDA_HOME/bin): the fused window "
-            "filter kernel cannot be built"
-        )
-    return cand
-
-
-def build() -> Path:
-    """Compile csrc/fused_filter.cu into a shared library (once per
-    source digest) and return its path.  The library is written to a
-    temporary name and renamed, so a process building concurrently
-    never loads a half-written file."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"libdss_fused_filter_{digest[:16]}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)], check=True
-    )
-    os.replace(tmp, lib)
-    return lib
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.dss_fused_window_filter
-            fn.argtypes = (
-                [ctypes.c_void_p] * 5 + [ctypes.c_int]
-                + [ctypes.c_void_p] * 4 + [ctypes.c_int]
-                + [ctypes.c_void_p] * 5
-            )
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
 
 
 def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
@@ -145,7 +91,7 @@ def fused_window_filter(
     nw = int(wins.shape[1])
     if nw >= 1 << 29 or max_words < 0:
         raise ValueError(f"unsupported nw={nw} / max_words={max_words}")
-    lib = _load()
+    fn = cuda_build.function("dss_fused_window_filter", _ARGTYPES)
     out = torch.zeros(1 + 2 * max_words, dtype=torch.int32, device=dev)
     n_chunks = max(1, -(-nw // WIN_PER_CTA))
     words = torch.empty(nw * WORDS, dtype=torch.int32, device=dev)
@@ -153,7 +99,7 @@ def fused_window_filter(
     offsets = torch.empty(n_chunks, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dss_fused_window_filter(
+        err = fn(
             b_alo.data_ptr(), b_ahi.data_ptr(), b_t0.data_ptr(),
             b_t1.data_ptr(), wins.data_ptr(), nw,
             q_alo.data_ptr(), q_ahi.data_ptr(), q_t0.data_ptr(),
@@ -175,6 +121,24 @@ def _bit_weights(device) -> torch.Tensor:
     return torch.tensor(w, dtype=torch.int32, device=device)
 
 
+def exact_hits(b_alo, b_ahi, b_t0, b_t1, blk, meta, alo, ahi, t0, t1):
+    """The exact per-lane compare for a chunk of C windows -> (C, 128)
+    bool: lanes [start, end) of block `blk` (meta = start | end<<8 in
+    its low 16 bits) whose columns overlap the window's bounds
+    (f32 `alo/ahi`, i64 `t0/t1`, each (C,))."""
+    lanes = torch.arange(BLOCK, dtype=torch.int32, device=b_alo.device)
+    start = (meta & 0xFF)[:, None]
+    end = ((meta >> 8) & 0xFF)[:, None]
+    return (
+        (lanes[None, :] >= start)
+        & (lanes[None, :] < end)
+        & (b_ahi[blk] >= alo[:, None])
+        & (b_alo[blk] <= ahi[:, None])
+        & (b_t1[blk] >= t0[:, None])
+        & (b_t0[blk] <= t1[:, None])
+    )
+
+
 def filter_pack_torch(
     b_alo, b_ahi, b_t0, b_t1, wins, q_alo, q_ahi, q_t0, q_t1,
 ) -> torch.Tensor:
@@ -185,25 +149,15 @@ def filter_pack_torch(
     win_blk = wins[0].long()
     meta = wins[1]
     win_q = (meta >> 16).long()
-    lanes = torch.arange(BLOCK, dtype=torch.int32, device=dev)
     weights = _bit_weights(dev)
     q = (q_alo[win_q], q_ahi[win_q], q_t0[win_q], q_t1[win_q])
     parts = []
     for s in range(0, wins.shape[1], PLAIN_CHUNK):
         e = s + PLAIN_CHUNK
-        blk = win_blk[s:e]
-        m = meta[s:e]
-        alo, ahi, t0, t1 = (a[s:e, None] for a in q)
-        start = (m & 0xFF)[:, None]
-        end = ((m >> 8) & 0xFF)[:, None]
-        hit = (
-            (lanes[None, :] >= start)
-            & (lanes[None, :] < end)
-            & (b_ahi[blk] >= alo)
-            & (b_alo[blk] <= ahi)
-            & (b_t1[blk] >= t0)
-            & (b_t0[blk] <= t1)
-        )  # (C, 128) bool, exact
+        hit = exact_hits(
+            b_alo, b_ahi, b_t0, b_t1, win_blk[s:e], meta[s:e],
+            *(a[s:e] for a in q),
+        )
         # disjoint bits, so the i32 sum equals the bitwise OR and every
         # partial sum stays in range (bit 31 weighs -2^31)
         h = hit.to(torch.int32).reshape(-1, WORDS, 32) * weights

@@ -261,9 +261,10 @@ def test_fasttable_from_reference_columns_is_byte_identical():
     ref = _ref_table(_random_records(rng, 250))
     port = convert.fasttable_from_arrays(
         ref.host_key, ref.host_ent, ref.host_live, ref.slot_exact,
-        ref.b_alo, ref.b_ahi, ref.b_t0, ref.b_t1, device="cpu",
+        ref.b_alo, ref.b_ahi, ref.b_t0, ref.b_t1, p3=np.asarray(ref.p3),
+        device="cpu",
     )
-    for name in ("b_alo", "b_ahi", "b_t0", "b_t1"):
+    for name in ("p3", "b_alo", "b_ahi", "b_t0", "b_t1"):
         a = np.asarray(getattr(ref, name))
         b = getattr(port, name).numpy()
         assert a.dtype == b.dtype and a.shape == b.shape

@@ -54,6 +54,8 @@ _PROBE = textwrap.dedent(
     ]
     for name in names:
         importlib.import_module(name)
+    assert "dss_tpu_torch.ops.fastpath_cuda" in names, names
+    assert "dss_tpu_torch.ops.cuda_build" in names, names
     import chip_smoke  # its helpers; main() only runs as a script
     assert callable(chip_smoke.run) and callable(chip_smoke.make_batch)
     bad = sorted(m for m in sys.modules
@@ -72,7 +74,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         capture_output=True, text=True, timeout=120,
     )
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 14  # every module was reached
+    assert int(res.stdout.split()[-1]) >= 16  # every module was reached
 
 
 def _tiny_table_args():
@@ -148,13 +150,19 @@ def test_convert_round_trip():
         rf = ref._state.snap.fast
         ft = convert.fasttable_from_arrays(
             rf.host_key, rf.host_ent, rf.host_live, rf.slot_exact,
-            rf.b_alo, rf.b_ahi, rf.b_t0, rf.b_t1, device="cpu",
+            rf.b_alo, rf.b_ahi, rf.b_t0, rf.b_t1, p3=np.asarray(rf.p3),
+            device="cpu",
         )
         qkeys = np.full((b, 16), -1, np.int32)
         for i, k in enumerate(keys_list):
             qkeys[i, :2] = k
         got = ft.query_fused(qkeys, *q, now=3)
         exp = rf.query_fused(qkeys, *q, now=3)
+        np.testing.assert_array_equal(got[0], exp[0])
+        np.testing.assert_array_equal(got[1], exp[1])
+        # the carried p3 answers the legacy path as the reference does
+        got = ft.query_batch(qkeys, *q, now=3, use_kernel=True)
+        exp = rf.query_batch(qkeys, *q, now=3)
         np.testing.assert_array_equal(got[0], exp[0])
         np.testing.assert_array_equal(got[1], exp[1])
         # tier bookkeeping agrees too

@@ -1,4 +1,8 @@
-"""The CUDA fused window filter against its plain PyTorch version.
+"""The CUDA kernels against their plain PyTorch versions.
+
+B1 (the fused window filter), B2 and B3 (the quantized window mask) and
+B4 (the exact window mask), each on card tensors against its plain
+version on the same tensors; masks and words must be equal exactly.
 
 Needs a CUDA card (marker `gpu`); skips elsewhere.  This file imports
 neither jax nor the reference package, so it runs on a machine that has
@@ -17,6 +21,7 @@ import torch
 
 from dss_tpu_torch.dar.pack import pack_records
 from dss_tpu_torch.dar.oracle import Record
+from dss_tpu_torch.ops import fastpath_cuda as fc
 from dss_tpu_torch.ops import fused_filter as ff
 from dss_tpu_torch.ops.fastpath import FastTable, pow2_bucket
 
@@ -96,3 +101,90 @@ def test_kernel_counts_launches_and_rejects_bad_input(cuda):
     bad[5] = bad[5].double()  # q_alo must be f32
     with pytest.raises(ValueError):
         ff.fused_window_filter(*bad, max_words=1 << 16)
+
+
+def _queries(rng, b, w, n_cells):
+    qkeys = rng.integers(0, n_cells, (b, w)).astype(np.int32)
+    qkeys[:, -1] = -1  # a pad cell per row
+    alo = rng.uniform(0, 3000, b).astype(np.float32)
+    t0 = (NOW + rng.integers(-2, 2, b) * HOUR).astype(np.int64)
+    return qkeys, alo, (alo + 300).astype(np.float32), t0, t0 + HOUR
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,n,n_cells,b,w", [
+    (5, 3000, 500, 200, 8),
+    (6, 20000, 4000, 4096, 8),
+    (7, 400, 2, 65, 3),  # two hot cells: long runs
+])
+def test_window_mask_kernels_match_plain(cuda, seed, n, n_cells, b, w):
+    rng = np.random.default_rng(seed)
+    ft = _table(rng, n, n_cells, cuda)
+    qkeys, alo, ahi, ts, te = _queries(rng, b, w, n_cells)
+    # B2 on the legacy path's padded bucket (pad windows carry key -2)
+    _, _, args = ft._legacy_inputs(qkeys, alo, ahi, ts, te)
+    got = fc.filter_windows(ft.p3, *args)
+    want = fc.filter_windows_torch(ft.p3, *args)
+    torch.cuda.synchronize()
+    assert want.any() and torch.equal(got, want)
+    # B3 on a ragged prefix of at most 512 windows
+    head = [a[:500 - 7] for a in args]
+    got = fc.filter_windows_gridless(ft.p3, *head)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want[: head[0].shape[0]])
+    # B4 on the fused path's windows, qidx left in the meta word
+    wins, win_q, _, nw = ft._pack_windows(qkeys)
+    k = min(nw, 512)
+    q = torch.from_numpy(win_q[:k].astype(np.int64)).to(cuda)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    wargs = (t(wins[0, :k]), t(wins[1, :k]), t(alo)[q], t(ahi)[q],
+             t(np.maximum(ts, NOW))[q], t(te)[q])
+    cols = (ft.b_alo, ft.b_ahi, ft.b_t0, ft.b_t1)
+    got = fc.fused_filter_gridless(*cols, *wargs)
+    want = fc.fused_filter_mask_torch(*cols, *wargs)
+    torch.cuda.synchronize()
+    assert want.any() and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_exact_mask_kernel_on_i64_edges(cuda):
+    """B4's native i64 compare on times near multiples of 2^32, negative
+    times and the i64 extremes, f32 bounds with infinities."""
+    rng = np.random.default_rng(8)
+    edges = np.asarray(
+        [k * 2**32 + d for k in (-3, -1, 0, 1, 2) for d in (-2, -1, 0, 1)]
+        + [-(2**62), 2**62, -(2**63), 2**63 - 1], np.int64)
+    alts = np.asarray([-np.inf, -1.5, 0.0, 0.5, 2.0, np.inf], np.float32)
+    nb, nw = 16, 509
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    cols = (t(rng.choice(alts, (nb, 128))), t(rng.choice(alts, (nb, 128))),
+            t(rng.choice(edges, (nb, 128))), t(rng.choice(edges, (nb, 128))))
+    start = rng.integers(0, 129, nw)
+    end = np.where(rng.random(nw) < 0.3, 128, rng.integers(0, 129, nw))
+    wargs = (t(rng.integers(0, nb, nw).astype(np.int32)),
+             t((start | (end << 8)).astype(np.int32)),
+             t(rng.choice(alts, nw)), t(rng.choice(alts, nw)),
+             t(rng.choice(edges, nw)), t(rng.choice(edges, nw)))
+    got = fc.fused_filter_gridless(*cols, *wargs)
+    want = fc.fused_filter_mask_torch(*cols, *wargs)
+    torch.cuda.synchronize()
+    assert want.any() and not want.all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_mask_kernels_count_launches_and_reject_bad_input(cuda):
+    rng = np.random.default_rng(9)
+    ft = _table(rng, 500, 100, cuda)
+    _, _, args = ft._legacy_inputs(*_queries(rng, 50, 4, 100))
+    before = (fc.filter_windows.launches, fc.filter_windows_gridless.launches)
+    fc.filter_windows(ft.p3, *args)
+    fc.filter_windows_gridless(ft.p3, *(a[:64] for a in args))
+    assert (fc.filter_windows.launches,
+            fc.filter_windows_gridless.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    with pytest.raises(ValueError):  # qk must be i32
+        fc.filter_windows(ft.p3, args[0], args[1].long(), *args[2:])
+    with pytest.raises(ValueError):  # p3 must be 16-byte aligned
+        fc.filter_windows_gridless(ft.p3.reshape(-1)[1:641].reshape(1, 5, 128),
+                                   *(a[:32] for a in args))
