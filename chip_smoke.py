@@ -5,20 +5,25 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. card identity (nvidia-smi name and power limit);
-  2. build every kernel of dss_tpu_torch/csrc with one nvcc call;
+  2. build every kernel of dss_tpu_torch/csrc, one nvcc per source, all
+     at once;
   3. load 1M operational intents (8 level-13 cells each over a 200k-cell
      metro region, 8M postings) into a CudaSpatialIndex on the card and
      into a device="cpu" twin that runs the plain versions; every table
      carries the exact block columns and the quantized p3 columns;
   4. B1, the fused window filter, against its plain version on the card:
-     edge cases (lane 31, empty windows, pad windows, overflow) and one
-     8192-query batch at the main path's shapes, with timings and the
+     edge cases (lane 31, empty windows, pad windows, overflow, max_words
+     at 0, 1 and around the true word count), an output handed back
+     dirty by the allocator, 40 launches back to back, and one
+     8192-query batch at the main path's shapes, with its times and the
      bound;
   5. the main path with launch counts reset: batches of 8192 conflict
-     queries through DarTable.query_many, single CudaSpatialIndex
-     requests, >= 1k upserts and removes, a minor fold, a compaction and
-     more batches — every answer held exactly against the CPU twin, a
-     sample against the oracle;
+     queries through DarTable.query_many, two of them run once plain and
+     once under torch.profiler (the device's busy time over the plain
+     run's wall time, and its time by kernel),
+     single CudaSpatialIndex requests, >= 1k upserts and removes, a
+     minor fold, a compaction and more batches — every answer held
+     exactly against the CPU twin, a sample against the oracle;
   6. the legacy quantized-mask path on the compacted 1M-intent L0 table:
      B2 against its plain version (edge cases + the headline batch);
      4 batches of 8192 queries through FastTable.query_batch on both
@@ -26,10 +31,20 @@ Phases (any failure exits non-zero; nothing is caught):
      against each other, the CPU twin, the fused path's pair set and the
      oracle; B3's and B4's own entries driven on each batch's first 512
      windows against the twin; then B3 and B4 against their plain
-     versions, with timings and bounds;
-  7. the kernels line (four kernels), with each kernel's count of
-     comparisons made and of those that disagreed; then the ok line, or
-     exit 1 if any disagreed or a kernel of a path never launched.
+     versions, with times and bounds;
+  7. the device time of each kernel by device kernel name, the kernels
+     line (four kernels), with each kernel's count of comparisons made
+     and of those that disagreed; then the ok line, or exit 1 if any
+     disagreed or a kernel of a path never launched.
+Times: `ms` is a kernel's device time per wrapper call with the L2
+flushed (a real batch finds its blocks cold): the kernels, memsets and
+copies that 30 calls launched, summed from torch.profiler, over 30;
+`warm_ms` the same without the flush; `call_ms` the median of 25 calls
+as the caller sees them (CUDA events around each call, a sync after
+each), so it holds the wrapper's host work too.  Where the profiler
+loses every window of a measure, CUDA events behind a sleep kernel take
+it, and the entry's `ms_source` names how each device time was taken.
+B1 of another copy of the package is timed by b1_device_time.py.
 Runs the port only: imports neither jax nor the reference package.
 """
 
@@ -43,6 +58,8 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from dss_tpu_torch.dar import oracle
 from dss_tpu_torch.dar import tiers
@@ -63,6 +80,7 @@ KPE = 8  # level-13 cells per intent
 BATCH = 8192
 WIDTH = 8  # cells per conflict query
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+FLUSH_BYTES = 128 << 20
 LEGACY_BATCHES = 4
 GRIDLESS = fc.GRIDLESS_MAX_WINDOWS
 # kernel -> (its CUDA source, the TPU kernel it replaces)
@@ -112,8 +130,11 @@ def make_batch(seed, batch, n_cells, width):
             t0.astype(np.int64), (t0 + HOUR).astype(np.int64))
 
 
-def cuda_ms(fn, reps=25, warm=3):
-    """Median ms of fn() over reps launches, CUDA events around each."""
+def call_ms(fn, reps=25, warm=3):
+    """Median ms of one call of fn() as its caller sees it: CUDA events
+    around each call, with a sync after each, so the interval holds the
+    host work of the wrapper (checks, allocations, the launch) and any
+    device time it waits on."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -127,6 +148,148 @@ def cuda_ms(fn, reps=25, warm=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+class Flush:
+    """Copies one 128 MiB scratch over another (256 MB of traffic, five
+    times the H100's 50 MB L2) so that the next call finds its inputs
+    cold, as a real batch finds the blocks it touches.  The copy shows
+    in a profile as a device-to-device memcpy, which no timed call
+    makes."""
+
+    EVENT = "Memcpy DtoD"
+
+    def __init__(self, dev):
+        self.src = torch.ones(FLUSH_BYTES // 8, dtype=torch.float64,
+                              device=dev)
+        self.dst = torch.empty_like(self.src)
+
+    def __call__(self):
+        self.dst.copy_(self.src)
+
+
+def device_events(prof):
+    """(name, start us, end us) of each device activity in a profile:
+    kernels, memsets and copies (not the ranges of record_function)."""
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def profiled(fn, n, warm=8, tries=5):
+    """The device activities of n calls of fn() under torch.profiler ->
+    [(name, start us, end us)], or None.  The profiler can miss the
+    first device events of a window, or a whole window, so `warm` calls
+    run first in the same window, each device kernel launched c times
+    per call keeps its last n*c events (c from its count over all
+    warm + n calls), and a window that lost more is taken again."""
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(warm + n):
+                fn()
+            torch.cuda.synchronize()
+        spans = {}
+        for name, a, b in device_events(prof):
+            spans.setdefault(name, []).append((a, b))
+        events = []
+        for name, ab in spans.items():
+            c = round(len(ab) / (warm + n))
+            if c == 0 or len(ab) < n * c:
+                break
+            events += [(name, a, b) for a, b in sorted(ab)[-n * c:]]
+        else:
+            if events:
+                return events
+    return None
+
+
+def event_ms(fn, flush=None, n=30):
+    """Device time of one call of fn() from CUDA events recorded around
+    each call, while a sleep kernel holds the stream until the host has
+    queued every call.  The sleep is sized at twice what n calls took
+    the host once, at 2 GHz.  -> (ms, source): source is "events" when
+    the sleep outlasted the queueing, so the intervals hold device work
+    only, and "events+host" when it did not (fn waits on the card, or
+    the host was slower this time), so they hold host time too."""
+    t = time.perf_counter()
+    for _ in range(2):
+        if flush is not None:
+            flush()
+        fn()
+    torch.cuda.synchronize()
+    host_s = (time.perf_counter() - t) / 2
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    held = torch.cuda.Event()
+    torch.cuda._sleep(int(min(2e9, max(4e7, 2 * n * host_s * 2e9))))
+    held.record()
+    for a, b in zip(starts, ends):
+        if flush is not None:
+            flush()
+        a.record()
+        fn()
+        b.record()
+    covered = not held.query()
+    torch.cuda.synchronize()
+    ms = sum(a.elapsed_time(b) for a, b in zip(starts, ends)) / n
+    return ms, "events" if covered else "events+host"
+
+
+def device_ms(fn, flush=None, n=30):
+    """Device time of one call of fn(): the durations of the kernels,
+    memsets and copies that n calls launched, from torch.profiler,
+    summed and divided by n.  With `flush`, the L2 is overwritten
+    before each call and the flush's copies are left out.  Where the
+    profiler loses every window, event_ms() measures it instead.
+    -> (ms, {device kernel: [ms per call, launches per call]}, source:
+    "profiler" or event_ms()'s)."""
+    fn()
+    torch.cuda.synchronize()
+
+    def call():
+        if flush is not None:
+            flush()
+        fn()
+
+    events = profiled(call, n)
+    if events is None:
+        ms, source = event_ms(fn, flush, n)
+        return ms, {}, source
+    by_name = {}
+    for name, a, b in events:
+        if flush is not None and name.startswith(Flush.EVENT):
+            continue
+        ms, k = by_name.get(name, (0.0, 0))
+        by_name[name] = [ms + (b - a) / 1e3 / n, k + 1]
+    for v in by_name.values():
+        v[1] //= n
+    return sum(ms for ms, _ in by_name.values()), by_name, "profiler"
+
+
+DEVICE_BY_NAME = {}  # kernel -> its device kernels, cold and warm
+
+
+def timings(name, fn, plain, flush) -> dict:
+    """Kernel `name`'s times, all measured here: the device time of one
+    wrapper call with the L2 flushed (`ms`, the headline: a real batch
+    finds its blocks cold) and warm, the call time, and the plain
+    version's device time (flushed) and call time, with how each device
+    time was taken (`ms_source`: "profiler", or event_ms()'s source
+    where the profiler lost every window).  The device kernels behind
+    each call go to DEVICE_BY_NAME."""
+    warm, warm_by, warm_src = device_ms(fn)
+    if any(k.startswith(Flush.EVENT) for k in warm_by):
+        raise RuntimeError(f"{name} makes the flush's device copies")
+    cold, cold_by, cold_src = device_ms(fn, flush)
+    plain_cold, plain_by, plain_src = device_ms(plain, flush)
+    DEVICE_BY_NAME[name] = {"cold": cold_by, "warm": warm_by,
+                            "plain_device_kernels": len(plain_by)}
+    return {"ms": cold, "warm_ms": warm, "call_ms": call_ms(fn),
+            "plain_ms": plain_cold, "plain_call_ms": call_ms(plain),
+            "ms_source": {"ms": cold_src, "warm_ms": warm_src,
+                          "plain_ms": plain_src}}
 
 
 def kernel_args(ft, q):
@@ -168,11 +331,23 @@ class Tally:
 TALLY = {name: Tally(name) for name in KERNELS}
 
 
+def resolve_max_words(args, nw, spec) -> int:
+    """A case's max_words: None for the main path's bucket, an int, or
+    "count-1" / "count" / "count+1" around the batch's true word count
+    (from the plain version)."""
+    if spec is None:
+        return pow2_bucket(nw, lo=1 << 16)
+    if isinstance(spec, str):
+        n = int(ff.fused_window_filter_torch(*args, max_words=0)[0])
+        return n + {"count-1": -1, "count": 0, "count+1": 1}[spec]
+    return spec
+
+
 def check_kernel(ft, q, name, max_words=None):
     """Kernel vs plain version on the card, same inputs, tallied: ->
     (max abs error, true word count)."""
     args, nw, _ = kernel_args(ft, q)
-    mw = pow2_bucket(nw, lo=1 << 16) if max_words is None else max_words
+    mw = resolve_max_words(args, nw, max_words)
     got = ff.fused_window_filter(*args, max_words=mw)
     want = ff.fused_window_filter_torch(*args, max_words=mw)
     torch.cuda.synchronize()
@@ -181,6 +356,44 @@ def check_kernel(ft, q, name, max_words=None):
         err == 0 and torch.equal(got, want),
         f"kernel case {name}: max abs err {err}")
     return err, int(want[0])
+
+
+def compaction_checks(cases) -> None:
+    """B1's single pass where its own state shows, against its plain
+    version, tallied: an output block that the caching allocator hands
+    back full of -1 (the kernel must write the zero tail itself), and
+    40 launches over the cases on one stream with no sync between them
+    (each launch must leave the tile counter and epoch right for the
+    next)."""
+    tally = TALLY["fused_window_filter"]
+    runs = []
+    for _, case_ft, q, spec in cases:
+        args, nw, _ = kernel_args(case_ft, q)
+        mw = resolve_max_words(args, nw, spec)
+        runs.append((args, mw, ff.fused_window_filter_torch(*args,
+                                                            max_words=mw)))
+    args, mw, want = next(r for r in runs if 0 < int(r[2][0]) < r[1])
+    ff.fused_window_filter(*args, max_words=mw)
+    torch.cuda.synchronize()
+    dirty = torch.full((1 + 2 * mw,), -1, dtype=torch.int32,
+                       device=args[0].device)
+    ptr = dirty.data_ptr()
+    del dirty
+    got = ff.fused_window_filter(*args, max_words=mw)
+    torch.cuda.synchronize()
+    n = int(want[0])
+    tally.check(got.data_ptr() == ptr, "dirty output: the -1 block was "
+                "not handed back, so the case tested nothing")
+    tally.check(torch.equal(got, want) and not got[1 + n:1 + mw].any()
+                and not got[1 + mw + n:].any(),
+                "dirty output: the kernel left -1 in the tail")
+    outs = [ff.fused_window_filter(*runs[i % len(runs)][0],
+                                   max_words=runs[i % len(runs)][1])
+            for i in range(40)]
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        tally.check(torch.equal(got, runs[i % len(runs)][2]),
+                    f"back-to-back launch {i} != plain")
 
 
 def edge_cases(dev):
@@ -213,6 +426,11 @@ def edge_cases(dev):
         ("pad_windows", rand_ft, make_batch(8, 3, 3_000, 2), None),
         ("random_table", rand_ft, rq, None),
         ("overflow", rand_ft, rq, 17),
+        ("max_words_0", rand_ft, rq, 0),
+        ("max_words_1", rand_ft, rq, 1),
+        ("max_words_count-1", rand_ft, rq, "count-1"),
+        ("max_words_count", rand_ft, rq, "count"),
+        ("max_words_count+1", rand_ft, rq, "count+1"),
     ]
 
 
@@ -277,24 +495,27 @@ class Oracle:
         return sorted(recs[s].entity_id for s in slots)
 
 
-def run_batch(idx, twin, q, orc=None, sample=0):
-    """One batch through the card index and the twin; answers must
-    agree exactly, and a sample must agree with the oracle.  The card's
-    batch is DarTable.query_many's two halves, timed apart: submit (host
-    pack + launch), the wait for the kernel and the D2H copy, and
-    collect (decode, tier/overlay merge, id lists).  -> (seconds per
-    stage, hits)."""
+def card_batch(idx, q):
+    """One batch on the card through DarTable.query_many's two halves,
+    timed apart: submit (host pack + launch), the wait for the kernel
+    and the D2H copy, and collect (decode, tier/overlay merge, id
+    lists).  -> (seconds per stage, answers)."""
     keys, alo, ahi, ts, te = q
-    keys_list = list(keys)
     t0 = time.perf_counter()
-    pq = idx.table.query_many_submit(keys_list, alo, ahi, ts, te, now=NOW)
+    pq = idx.table.query_many_submit(list(keys), alo, ahi, ts, te, now=NOW)
     t1 = time.perf_counter()
     pq.wait_device()
     t2 = time.perf_counter()
     got = idx.table.query_many_collect(pq)
     t3 = time.perf_counter()
-    stages = {"submit": t1 - t0, "device_wait": t2 - t1, "collect": t3 - t2}
-    want = twin.table.query_many(keys_list, alo, ahi, ts, te, now=NOW)
+    return {"submit": t1 - t0, "device_wait": t2 - t1, "collect": t3 - t2}, got
+
+
+def check_batch(twin, q, got, orc=None, sample=0) -> None:
+    """The card's answers must equal the twin's exactly, and a sample
+    the oracle's."""
+    keys, alo, ahi, ts, te = q
+    want = twin.table.query_many(list(keys), alo, ahi, ts, te, now=NOW)
     tally = TALLY["fused_window_filter"]
     tally.check(len(got) == len(want), "batch length: card != twin")
     for i, (g, w) in enumerate(zip(got, want)):
@@ -302,11 +523,57 @@ def run_batch(idx, twin, q, orc=None, sample=0):
     for i in range(sample):
         tally.check(got[i] == orc.ids(keys[i], alo[i], ahi[i], ts[i], te[i]),
                     f"card != oracle at query {i}")
+
+
+def run_batch(idx, twin, q, orc=None, sample=0):
+    """One batch on the card, checked (card_batch + check_batch).  ->
+    (seconds per stage, hits)."""
+    stages, got = card_batch(idx, q)
+    check_batch(twin, q, got, orc, sample)
     return stages, sum(len(g) for g in got)
 
 
-def entry(name, launches, max_err, k_ms, p_ms, b_ms) -> dict:
-    """One kernel's entry of the kernels line."""
+def busy_window(idx, twin, qs, smi) -> dict:
+    """One torch.profiler window over the main-path batches qs on the
+    card: the device's busy time (the union of its kernels, memsets and
+    copies in the window) and its time by device kernel name.  The
+    profiler's own host cost is inside the window, so the same batches
+    run first without it, and the busy share is the busy time over that
+    unprofiled wall time (`device_busy_share`); the share of the
+    profiled window is kept beside it.  The answers of both runs are
+    held against the twin."""
+    t = time.perf_counter()
+    plain_run = [card_batch(idx, q)[1] for q in qs]
+    wall = time.perf_counter() - t
+    for q, got in zip(qs, plain_run):
+        check_batch(twin, q, got)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("main_path_batches"):
+            answers = [card_batch(idx, q)[1] for q in qs]
+    win = next(e for e in prof.events() if e.name == "main_path_batches"
+               and e.device_type == DeviceType.CPU)
+    lo, hi = win.time_range.start, win.time_range.end
+    busy, end, by_name = 0.0, lo, {}
+    for name, a, b in sorted(device_events(prof), key=lambda x: x[1]):
+        a, b = max(a, lo), min(b, hi)
+        if b <= a:
+            continue
+        by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    for q, got in zip(qs, answers):
+        check_batch(twin, q, got)
+    return {"batches": len(qs), "unprofiled_ms": wall * 1e3,
+            "window_ms": (hi - lo) / 1e3,
+            "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / 1e3 / (wall * 1e3),
+            "device_busy_share_of_window": busy / (hi - lo),
+            "device_ms_by_name": by_name, "card": smi}
+
+
+def entry(name, launches, max_err, t, b_ms) -> dict:
+    """One kernel's entry of the kernels line; t from timings()."""
     source, replaces = KERNELS[name]
     return {
         "name": name,
@@ -315,8 +582,7 @@ def entry(name, launches, max_err, k_ms, p_ms, b_ms) -> dict:
         "replaces": replaces,
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
+        **t,
         "bound_ms": b_ms,
         "bound_by": "bytes",
         "library_ms": None,
@@ -378,7 +644,7 @@ def unpacked_words(words: torch.Tensor) -> torch.Tensor:
     return bits.reshape(len(words), 128).to(torch.int8)
 
 
-def legacy_phase(idx, twin, cases, orc, smi) -> list:
+def legacy_phase(idx, twin, cases, orc, smi, flush) -> list:
     """Phase 6 on the compacted L0 table; -> the kernels line entries
     of B2, B3 and B4."""
     ft = idx.table._state.snap.fast
@@ -396,12 +662,12 @@ def legacy_phase(idx, twin, cases, orc, smi) -> list:
             "filter_windows", fc.filter_windows(case_ft.p3, *args),
             fc.filter_windows_torch(case_ft.p3, *args), f"B2 case {name}"))
     win_q, win_blk, args = ft._legacy_inputs(*hq)
-    b2_ms = cuda_ms(lambda: fc.filter_windows(ft.p3, *args))
-    b2_plain = cuda_ms(lambda: fc.filter_windows_torch(ft.p3, *args))
+    b2_t = timings("filter_windows",
+                   lambda: fc.filter_windows(ft.p3, *args),
+                   lambda: fc.filter_windows_torch(ft.p3, *args), flush)
     b2_bound, nbytes = window_mask_bound_ms(args[0].cpu().numpy())
     log(f"B2 headline: {len(win_blk)} windows (bucket {args[0].shape[0]}), "
-        f"kernel {b2_ms:.4f} ms, plain {b2_plain:.4f} ms, "
-        f"bound {b2_bound:.4f} ms ({nbytes} B) [{smi}]")
+        f"{json.dumps(b2_t)}, bound {b2_bound:.6f} ms ({nbytes} B) [{smi}]")
 
     # -- the legacy path at full scale, launch counts from zero -----------
     tally = TALLY["filter_windows"]
@@ -492,25 +758,24 @@ def legacy_phase(idx, twin, cases, orc, smi) -> list:
                    unpacked_words(ff.filter_pack_torch(*cols4, *full)),
                    "B4 headline != B1's plain filter"),
     )
-    b3_ms = cuda_ms(lambda: fc.filter_windows_gridless(ft.p3, *b3))
-    b3_plain = cuda_ms(lambda: fc.filter_windows_torch(ft.p3, *b3))
+    b3_t = timings("filter_windows_gridless",
+                   lambda: fc.filter_windows_gridless(ft.p3, *b3),
+                   lambda: fc.filter_windows_torch(ft.p3, *b3), flush)
     b3_bound, b3_bytes = window_mask_bound_ms(b3[0].cpu().numpy())
-    b4_ms = cuda_ms(lambda: fc.fused_filter_gridless(*cols4, *b4))
-    b4_plain = cuda_ms(lambda: fc.fused_filter_mask_torch(*cols4, *b4))
+    b4_t = timings("fused_filter_gridless",
+                   lambda: fc.fused_filter_gridless(*cols4, *b4),
+                   lambda: fc.fused_filter_mask_torch(*cols4, *b4), flush)
     b4_bound, b4_bytes = exact_mask_bound_ms(b4[0].cpu().numpy(),
                                              b4[1].cpu().numpy())
-    log(f"B3 headline: {b3[0].shape[0]} windows, kernel {b3_ms:.4f} ms, "
-        f"plain {b3_plain:.4f} ms, bound {b3_bound:.6f} ms ({b3_bytes} B); "
-        f"B4: {b4[0].shape[0]} windows, kernel {b4_ms:.4f} ms, "
-        f"plain {b4_plain:.4f} ms, bound {b4_bound:.6f} ms ({b4_bytes} B) "
-        f"[{smi}]")
+    log(f"B3 headline: {b3[0].shape[0]} windows, {json.dumps(b3_t)}, "
+        f"bound {b3_bound:.6f} ms ({b3_bytes} B); B4: {b4[0].shape[0]} "
+        f"windows, {json.dumps(b4_t)}, bound {b4_bound:.6f} ms "
+        f"({b4_bytes} B) [{smi}]")
     return [
-        entry("filter_windows", b2_launches, b2_err, b2_ms, b2_plain,
-              b2_bound),
-        entry("filter_windows_gridless", b3_launches, b3_err, b3_ms,
-              b3_plain, b3_bound),
-        entry("fused_filter_gridless", b4_launches, b4_err, b4_ms, b4_plain,
-              b4_bound),
+        entry("filter_windows", b2_launches, b2_err, b2_t, b2_bound),
+        entry("filter_windows_gridless", b3_launches, b3_err, b3_t,
+              b3_bound),
+        entry("fused_filter_gridless", b4_launches, b4_err, b4_t, b4_bound),
     ]
 
 
@@ -521,7 +786,7 @@ def run(dev, smi) -> list:
     t = time.perf_counter()
     lib = cuda_build.build()
     log(f"build: {lib.name} ({len(cuda_build.sources())} sources, one nvcc "
-        f"call) in {time.perf_counter() - t:.2f} s")
+        f"each, in parallel) in {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
     recs, keys = make_records(N_ENTITIES, N_CELLS, KPE)
@@ -548,18 +813,22 @@ def run(dev, smi) -> list:
         err, n_words = check_kernel(case_ft, q, name, mw)
         max_err = max(max_err, err)
         log(f"kernel case {name}: max abs err {err} ({n_words} words)")
+    compaction_checks(cases)
+    log("dirty output and 40 back-to-back launches compared")
     hq = make_batch(100, BATCH, N_CELLS, WIDTH)
     err, n_words = check_kernel(ft, hq, "headline")
     max_err = max(max_err, err)
     args, nw, wins = kernel_args(ft, hq)
     mw = pow2_bucket(nw, lo=1 << 16)
-    k_ms = cuda_ms(lambda: ff.fused_window_filter(*args, max_words=mw))
-    p_ms = cuda_ms(lambda: ff.fused_window_filter_torch(*args, max_words=mw))
+    flush = Flush(dev)
+    b1_t = timings("fused_window_filter",
+                   lambda: ff.fused_window_filter(*args, max_words=mw),
+                   lambda: ff.fused_window_filter_torch(*args, max_words=mw),
+                   flush)
     b_ms, nbytes = bound_ms(hq, nw, wins, mw)
     log(f"kernel headline: {nw} windows (bucket {wins.shape[1]}), "
-        f"{n_words} words, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({nbytes} B) [{smi}]")
-
+        f"{n_words} words, {json.dumps(b1_t)}, bound {b_ms:.6f} ms "
+        f"({nbytes} B), {b_ms / b1_t['ms']:.1%} of bound (cold) [{smi}]")
     # -- the main path, launch counts from zero -------------------------
     orc = Oracle(recs, keys)
     ff.fused_window_filter.launches = 0
@@ -573,6 +842,9 @@ def run(dev, smi) -> list:
     tally = TALLY["fused_window_filter"]
     log(f"8 batches x {BATCH}: {hits} hits; {tally.mismatches} mismatches "
         f"of {tally.compared} comparisons so far")
+    log(json.dumps({"main_path_device_window": busy_window(
+        idx, twin, [make_batch(210 + i, BATCH, N_CELLS, WIDTH)
+                    for i in range(2)], smi)}))
 
     rng = np.random.default_rng(1)
     singles = make_batch(300, 32, N_CELLS, WIDTH)
@@ -639,11 +911,11 @@ def run(dev, smi) -> list:
     }}))
     legacy = legacy_phase(
         idx, twin, [(name, f, q) for name, f, q, mw in cases if mw is None],
-        orc, smi)
+        orc, smi, flush)
     log(f"seconds_total: {time.perf_counter() - t_all:.2f}")
     idx.close()
     twin.close()
-    return [entry("fused_window_filter", launches, max_err, k_ms, p_ms, b_ms)
+    return [entry("fused_window_filter", launches, max_err, b1_t, b_ms)
             ] + legacy
 
 
@@ -659,6 +931,7 @@ def main() -> int:
     ).stdout.strip()
     log(smi)
     kernels = run(torch.device("cuda"), smi)
+    print(json.dumps({"device_time_by_kernel": DEVICE_BY_NAME, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:

@@ -13,31 +13,60 @@
 //                              even when it exceeds max_words)
 //   out[1 : 1+max_words]     = flat word positions (window*4 + w), ascending
 //   out[1+max_words : ]      = the words' raw u32 bits
-// Writes at rank >= max_words are dropped; the caller passes `out`
-// zeroed, so the tail of both halves stays zero as in the XLA scatter.
+// Words at rank >= max_words are dropped; the kernel writes the zero tail
+// of both halves itself, so `out` may come uninitialised.
 //
-// Bound: memory.  Each window reads up to 128 lanes x (4 B b_alo +
-// 4 B b_ahi + 8 B b_t0 + 8 B b_t1) = 3,072 B of block columns and does a
-// handful of compares per lane, so the least time is the bytes over the
-// card's memory rate: at most NW x 3,072 B / 3.35 TB/s, about 0.12 ms
-// for the 131072-window bucket on an H100 SXM.  This kernel reads only
-// the lanes of [start, end), so the bytes it needs are the run's lanes,
-// not the full block.
+// Bound: memory.  The bytes a batch must move are 24 B of block columns
+// (f32 alo, f32 ahi, i64 t0, i64 t1) for each distinct (block, lane) of
+// the windows' [start, end) ranges, 8 B of window list per window of the
+// bucket, 24 B of bounds per query and the flat output.  chip_smoke.py
+// counts them for the 8192-query headline batch at 1M intents: about
+// 55.9 MB, 0.0167 ms at 3.35 TB/s on an H100 SXM.  Pad windows read no
+// columns and no bounds; a window reads only the lanes it needs.  What
+// keeps the kernel from that bound is latency, not bytes: on an
+// L2-resident batch of the same shape it is hardly faster (PERF.md).
 //
-// Design (simple first; no TMA, no persistent blocks):
-//   1. filter_pack: one warp per window, 8 warps and 32 windows per
-//      CTA.  Lane i tests lanes i, 32+i, 64+i, 96+i of the block, so
-//      each column read is one coalesced 128 B / 256 B row segment;
-//      __ballot_sync gives each packed word directly (bit i of word w =
-//      lane 32w+i, bit 31 included).  Each CTA writes its 128 words and
-//      its count of non-zero words.
-//   2. scan_counts: one CTA scans the per-CTA counts into exclusive
-//      offsets and writes the total to out[0].
-//   3. scatter: one CTA per 128-word chunk ranks its non-zero words
-//      (ballot/popc within a warp, shared-memory sums across warps)
-//      and scatters position + bits.  Ranks, not atomics, keep the word
+// Design: one launch, one pass, no memset.  A persistent grid (as many
+// CTAs as fit on the card at once) draws tiles of kTileWin windows from
+// an atomic counter.  For each tile a CTA:
+//   1. reads the tile's window list (loaded ahead, during the previous
+//      tile), skips pad and empty windows, gathers each live window's
+//      query bounds into shared memory and lists the tile's non-empty
+//      32-lane segments as items;
+//   2. has each warp load the columns of kBatch items at once, every
+//      load issued before any compare, so several items' loads are in
+//      flight per warp (the TPU kernel overlaps one window's DMA with
+//      the previous window's compare; here the overlap is across items
+//      and across the many warps resident on each SM); lane i compares
+//      lane i of the segment, and __ballot_sync gives the packed word
+//      (bit i = lane 32*seg + i, bit 31 included);
+//   3. counts and ranks the tile's non-empty words and publishes the
+//      count as the tile's status, tagged with the launch's epoch;
+//   4. resolves the PREVIOUS tile's exclusive prefix by decoupled
+//      look-back (Merrill & Garland, "Single-pass Parallel Prefix Scan
+//      with Decoupled Look-back"): warp 0 sums the predecessors' counts
+//      back to the nearest published prefix, 256 tiles per round trip,
+//      publishes that tile's inclusive prefix, and the CTA scatters the
+//      tile's words at their ranks.  Ranks, not atomics, keep the
 //      positions ascending, which the host decode relies on.
-// Pad windows (blk 0, meta 0) have start == end == 0 and match no lane.
+// Resolving one tile late keeps the CTA's loads going: when it looks
+// back, its predecessors have had a whole tile's time to publish, and no
+// CTA idles on the slowest tile of a wave before starting its next one.
+// A CTA waits only on tiles drawn before its own, and a tile is drawn
+// only by a running CTA that publishes its count before it waits on
+// anything, so the look-back always makes progress.  When the counter
+// runs out, each CTA waits for the last tile's inclusive prefix (the
+// true count) and zeroes its share of [count, max_words) in both
+// halves.  The counter, the epoch and the tile statuses live in a
+// scratch buffer that the wrapper keeps per device and stream: the CTA
+// that makes the launch's last draw resets the counter and advances the
+// epoch, so no launch needs the buffer cleared.  A spin that outlasts
+// millions of polls traps: a stuck look-back ends the launch with an
+// error instead of hanging the card.
+// Staging the columns through shared memory instead (a cp.async ring
+// per warp, or one TMA bulk copy per column run with an mbarrier) was
+// slower on the H100: issuing the copies cost about as much as the
+// loads they replaced, and the stage limited the CTAs per SM.
 //
 // B4 replaces dss_tpu/ops/fastpath_pallas.py:_gridless_exact_kernel (via
 // fused_filter_gridless): the same exact compare per lane, no pack, one
@@ -63,13 +92,21 @@
 
 namespace {
 
-constexpr int kBlock = 128;                       // postings per block
-constexpr int kWords = kBlock / 32;               // u32 words per window
-constexpr int kWarps = 8;                         // filter CTA: 256 threads
-constexpr int kWinPerCta = 32;                    // windows per chunk
-constexpr int kChunkWords = kWinPerCta * kWords;  // 128 words per chunk
-constexpr int kScanThreads = 1024;
+constexpr int kBlock = 128;                        // postings per block
+constexpr int kWords = kBlock / 32;                // u32 words per window
+constexpr int kWarps = 8;                          // 256 threads per CTA
+constexpr int kThreads = kWarps * 32;
+constexpr int kTileWin = 64;                       // windows per tile
+constexpr int kTileWords = kTileWin * kWords;      // == kThreads
+constexpr int kBatch = 4;            // items whose loads a warp issues at once
+constexpr int kLook = 8;                 // tile statuses per look-back lane
+constexpr int kHead = 32;     // u64 scratch words before the tile statuses
+constexpr int kEpochWord = 16;  // its own 128 B line, apart from the counter
+constexpr long long kSpinLimit = 1LL << 22;  // polls: a second or more
 constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned long long kPrefixBit = 1ull << 31;
+static_assert(kTileWords == kThreads, "one tile word per thread");
+static_assert(kTileWin == 64, "phase 1 scans the windows in two warps");
 
 // The exact 4D compare of one posting lane with one window's bounds.
 __device__ __forceinline__ bool exact_hit(float p_alo, float p_ahi,
@@ -79,117 +116,313 @@ __device__ __forceinline__ bool exact_hit(float p_alo, float p_ahi,
   return p_ahi >= q_alo && p_alo <= q_ahi && p_t1 >= q_t0 && p_t0 <= q_t1;
 }
 
-__global__ void filter_pack(const float* __restrict__ b_alo,
-                            const float* __restrict__ b_ahi,
-                            const int64_t* __restrict__ b_t0,
-                            const int64_t* __restrict__ b_t1,
-                            const int32_t* __restrict__ win_blk,
-                            const int32_t* __restrict__ win_meta,
-                            const float* __restrict__ q_alo,
-                            const float* __restrict__ q_ahi,
-                            const int64_t* __restrict__ q_t0,
-                            const int64_t* __restrict__ q_t1, int nw,
-                            uint32_t* __restrict__ words,
-                            int32_t* __restrict__ chunk_count) {
-  __shared__ int warp_nz[kWarps];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  int nz = 0;
-  for (int k = warp; k < kWinPerCta; k += kWarps) {
-    const int w = blockIdx.x * kWinPerCta + k;
-    if (w >= nw) break;  // uniform across the warp
-    const int32_t meta = win_meta[w];
-    const int start = meta & 0xFF;
-    const int end = (meta >> 8) & 0xFF;
-    const int q = meta >> 16;
-    const float alo = q_alo[q];
-    const float ahi = q_ahi[q];
-    const int64_t t0 = q_t0[q];
-    const int64_t t1 = q_t1[q];
-    const int64_t base = static_cast<int64_t>(win_blk[w]) * kBlock;
-    uint32_t mine = 0;  // lane j < 4 keeps word j
+struct Smem {
+  uint32_t words[kTileWords];    // the tile's packed words
+  int64_t q_t0[kTileWin];        // each live window's query bounds
+  int64_t q_t1[kTileWin];
+  float q_alo[kTileWin];
+  float q_ahi[kTileWin];
+  int32_t blk[kTileWin];
+  int32_t range[kTileWin];       // start | end << 8; 0 for a dead window
+  uint16_t items[kTileWords];    // window << 2 | segment
+  int warp_sum[kWarps];
+  int tile;
+  int next;
+  int excl;
+  int total;
+  unsigned tag;
+};
+
+__device__ __forceinline__ unsigned long long ld_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+// The status word of a tile: the launch's tag, the prefix bit, a count.
+__device__ __forceinline__ unsigned long long status_word(unsigned tag,
+                                                          bool prefix,
+                                                          unsigned v) {
+  return (static_cast<unsigned long long>(tag) << 32) |
+         (prefix ? kPrefixBit : 0ull) | v;
+}
+
+// Waits until tile status *p carries this launch's tag (and, with
+// `prefix`, the tile's inclusive prefix); -> the status word.
+__device__ unsigned long long await_status(const unsigned long long* p,
+                                           unsigned tag, bool prefix) {
+  unsigned long long s = ld_relaxed(p);
+  for (long long spins = 0; static_cast<unsigned>(s >> 32) != tag ||
+                            (prefix && !(s & kPrefixBit));) {
+    if (++spins > kSpinLimit) __trap();
+    __nanosleep(64);
+    s = ld_relaxed(p);
+  }
+  return s;
+}
+
+// Warp 0 of the CTA that holds `tile` > 0: the sum of every earlier
+// tile's word count, read back to the nearest tile that has published
+// its prefix.  Lane i reads the statuses of tiles j-8i .. j-8i-7, so one
+// round trip covers 256 tiles.
+__device__ unsigned lookback(const unsigned long long* status, int tile,
+                             unsigned tag, int lane) {
+  // before tile 0: an empty prefix
+  const unsigned long long origin = status_word(tag, true, 0u);
+  unsigned excl = 0;
+  for (int j = tile - 1;; j -= 32 * kLook) {
+    unsigned long long st[kLook];
 #pragma unroll
-    for (int j = 0; j < kWords; ++j) {
-      const int l = j * 32 + lane;
-      bool hit = false;
-      if (l >= start && l < end) {
-        const int64_t i = base + l;
-        hit = exact_hit(b_alo[i], b_ahi[i], b_t0[i], b_t1[i], alo, ahi, t0,
-                        t1);
+    for (int k = 0; k < kLook; ++k) {
+      const int idx = j - kLook * lane - k;
+      st[k] = idx >= 0 ? ld_relaxed(status + idx) : origin;
+    }
+    unsigned sum = 0;
+    bool found = false;  // the lane reached a published prefix
+#pragma unroll
+    for (int k = 0; k < kLook; ++k) {
+      if (found) continue;
+      if (static_cast<unsigned>(st[k] >> 32) != tag) {
+        st[k] = await_status(status + j - kLook * lane - k, tag, false);
       }
-      const uint32_t bits = __ballot_sync(kFull, hit);
-      if (lane == j) mine = bits;
+      sum += static_cast<unsigned>(st[k] & (kPrefixBit - 1));
+      found = (st[k] & kPrefixBit) != 0;
     }
-    if (lane < kWords) words[static_cast<int64_t>(w) * kWords + lane] = mine;
-    nz += __popc(__ballot_sync(kFull, lane < kWords && mine != 0u));
-  }
-  if (lane == 0) warp_nz[warp] = nz;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int s = 0;
-    for (int i = 0; i < kWarps; ++i) s += warp_nz[i];
-    chunk_count[blockIdx.x] = s;
+    const unsigned pb = __ballot_sync(kFull, found);
+    const int stop = pb ? __ffs(pb) - 1 : 31;  // lane 0 holds tile j
+    excl += __reduce_add_sync(kFull, lane <= stop ? sum : 0u);
+    if (pb) return excl;
   }
 }
 
-// Inclusive scan of one value per thread across a 1024-thread CTA.
-__device__ int cta_inclusive_scan(int x, int* warp_sums) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, d);
-    if (lane >= d) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int v = warp_sums[lane];  // 32 warps in a 1024-thread CTA
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(kFull, v, d);
-      if (lane >= d) v += y;
+// The draw that found the counter spent.  Each CTA makes exactly one, so
+// the last of them comes after every draw of the launch: it resets the
+// counter for the next launch and advances the epoch, which every CTA
+// read before its first draw.
+__device__ void spent_draw(unsigned draw, int n_tiles,
+                           unsigned long long* scratch, unsigned tag) {
+  if (draw != static_cast<unsigned>(n_tiles) + gridDim.x - 1) return;
+  unsigned* epoch = reinterpret_cast<unsigned*>(scratch + kEpochWord);
+  atomicExch(reinterpret_cast<unsigned*>(scratch), 0u);
+  // tags run 1 .. 2^32-1: a fresh buffer's zero status never matches
+  atomicExch(epoch, tag == kFull ? 0u : tag);
+}
+
+__global__ void __launch_bounds__(kThreads) fused_filter_compact(
+    const float* __restrict__ b_alo, const float* __restrict__ b_ahi,
+    const int64_t* __restrict__ b_t0, const int64_t* __restrict__ b_t1,
+    int nb, const int32_t* __restrict__ win_blk,
+    const int32_t* __restrict__ win_meta, int nw,
+    const float* __restrict__ q_alo, const float* __restrict__ q_ahi,
+    const int64_t* __restrict__ q_t0, const int64_t* __restrict__ q_t1,
+    int nq, int max_words, int32_t* __restrict__ out,
+    unsigned long long* __restrict__ scratch) {
+  __shared__ Smem sm;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_tiles = (nw + kTileWin - 1) / kTileWin;
+  unsigned* counter = reinterpret_cast<unsigned*>(scratch);
+  unsigned long long* status = scratch + kHead;
+
+  if (tid == 0) {
+    const unsigned long long e = ld_relaxed(scratch + kEpochWord);
+    const unsigned tag = static_cast<unsigned>(e) + 1u;
+    __threadfence();  // the epoch is read before the draw
+    const unsigned t = atomicAdd(counter, 1u);
+    if (t >= static_cast<unsigned>(n_tiles)) {
+      spent_draw(t, n_tiles, scratch, tag);
     }
-    warp_sums[lane] = v;
+    sm.tag = tag;
+    sm.tile = static_cast<int>(min(t, static_cast<unsigned>(n_tiles)));
   }
   __syncthreads();
-  return x + (warp > 0 ? warp_sums[warp - 1] : 0);
-}
+  const unsigned tag = sm.tag;
+  int tile = sm.tile;
 
-__global__ void scan_counts(const int32_t* __restrict__ counts, int n,
-                            int32_t* __restrict__ offsets,
-                            int32_t* __restrict__ total) {
-  __shared__ int warp_sums[kScanThreads / 32];
-  const int per = (n + kScanThreads - 1) / kScanThreads;
-  const int lo = min(static_cast<int>(threadIdx.x) * per, n);
-  const int hi = min(lo + per, n);
-  int local = 0;
-  for (int i = lo; i < hi; ++i) local += counts[i];
-  int run = cta_inclusive_scan(local, warp_sums) - local;  // exclusive
-  for (int i = lo; i < hi; ++i) {
-    offsets[i] = run;
-    run += counts[i];
+  // the window list of the tile to come, one window per thread < kTileWin
+  int32_t pf_blk = 0, pf_meta = 0;
+  auto prefetch = [&](int t) {
+    const int w = t * kTileWin + tid;
+    if (t < n_tiles && tid < kTileWin && w < nw) {
+      pf_blk = win_blk[w];
+      pf_meta = win_meta[w];
+    } else {
+      pf_meta = 0;
+    }
+  };
+  prefetch(tile);
+
+  // The tile before the current one, whose prefix is resolved and whose
+  // words are scattered only after the current tile's columns are in:
+  // by then its predecessors have had a whole tile's time to publish,
+  // and the CTA's loads never wait on a look-back.  Its count, and this
+  // thread's word of it with that word's rank in the tile.
+  int prev = -1, prev_count = 0, prev_rank = 0;
+  uint32_t prev_word = 0;
+  auto resolve_prev = [&]() {
+    if (warp == 0 && prev >= 0) {
+      const unsigned excl = prev ? lookback(status, prev, tag, lane) : 0u;
+      if (lane == 0) {
+        if (prev) {
+          st_relaxed(status + prev,
+                     status_word(tag, true, excl + prev_count));
+        }
+        if (prev == n_tiles - 1) out[0] = static_cast<int>(excl) + prev_count;
+        sm.excl = static_cast<int>(excl);
+      }
+    }
+    __syncthreads();
+    if (prev >= 0 && prev_word != 0u) {
+      const int64_t r = static_cast<int64_t>(sm.excl) + prev_rank;
+      if (r < max_words) {
+        out[1 + r] = prev * kTileWords + tid;
+        out[1 + max_words + r] = static_cast<int32_t>(prev_word);  // raw
+      }
+    }
+  };
+
+  while (tile < n_tiles) {
+    unsigned next = 0;
+    if (tid == 0) next = atomicAdd(counter, 1u);  // used after phase 2
+
+    // -- 1. windows -> items; each live window's query bounds ------------
+    int nseg = 0, seg0 = 0, incl = 0;
+    if (tid < kTileWin) {
+      const int start = pf_meta & 0xFF;
+      const int end = (pf_meta >> 8) & 0xFF;
+      const int q = pf_meta >> 16;
+      // pad windows (meta 0) and bad indices stop here: no bounds, no items
+      const bool live =
+          start < end && pf_blk >= 0 && pf_blk < nb && q >= 0 && q < nq;
+      if (live) {
+        seg0 = start >> 5;
+        nseg = ((end - 1) >> 5) - seg0 + 1;
+        sm.q_alo[tid] = q_alo[q];
+        sm.q_ahi[tid] = q_ahi[q];
+        sm.q_t0[tid] = q_t0[q];
+        sm.q_t1[tid] = q_t1[q];
+      }
+      sm.blk[tid] = pf_blk;
+      sm.range[tid] = live ? (start | (end << 8)) : 0;
+      incl = nseg;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, d);
+        if (lane >= d) incl += y;
+      }
+      if (lane == 31) sm.warp_sum[warp] = incl;
+    }
+    sm.words[tid] = 0u;
+    __syncthreads();
+    if (tid < kTileWin) {
+      const int off = incl - nseg + (warp ? sm.warp_sum[0] : 0);
+      for (int k = 0; k < nseg; ++k) {
+        sm.items[off + k] = static_cast<uint16_t>((tid << 2) | (seg0 + k));
+      }
+    }
+    const int n_items = sm.warp_sum[0] + sm.warp_sum[1];
+    __syncthreads();
+
+    // -- 2. the items' columns: each warp loads kBatch items at once -----
+    for (int i0 = warp; i0 < n_items; i0 += kWarps * kBatch) {
+      float p_alo[kBatch], p_ahi[kBatch];
+      int64_t p_t0[kBatch], p_t1[kBatch];
+      bool in[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {  // every load before any compare
+        const int i = i0 + j * kWarps;
+        const int item = i < n_items ? sm.items[i] : 0;
+        const int r = i < n_items ? sm.range[item >> 2] : 0;
+        const int l = (item & 3) * 32 + lane;
+        in[j] = l >= (r & 0xFF) && l < ((r >> 8) & 0xFF);
+        p_alo[j] = p_ahi[j] = 0.f;
+        p_t0[j] = p_t1[j] = 0;
+        if (in[j]) {
+          const int64_t g = static_cast<int64_t>(sm.blk[item >> 2]) * kBlock + l;
+          p_alo[j] = __ldg(b_alo + g);
+          p_ahi[j] = __ldg(b_ahi + g);
+          p_t0[j] = __ldg(b_t0 + g);
+          p_t1[j] = __ldg(b_t1 + g);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int i = i0 + j * kWarps;
+        if (i >= n_items) break;  // uniform across the warp
+        const int item = sm.items[i];
+        const int w = item >> 2;
+        const bool hit = in[j] && exact_hit(p_alo[j], p_ahi[j], p_t0[j],
+                                            p_t1[j], sm.q_alo[w], sm.q_ahi[w],
+                                            sm.q_t0[w], sm.q_t1[w]);
+        const uint32_t bits = __ballot_sync(kFull, hit);
+        if (lane == 0) sm.words[w * kWords + (item & 3)] = bits;
+      }
+    }
+    if (tid == 0) {
+      if (next >= static_cast<unsigned>(n_tiles)) {
+        spent_draw(next, n_tiles, scratch, tag);
+      }
+      sm.next = static_cast<int>(min(next, static_cast<unsigned>(n_tiles)));
+    }
+    __syncthreads();
+
+    // -- 3. count and rank the tile's words; publish the count -----------
+    const uint32_t word = sm.words[tid];
+    const unsigned nz = __ballot_sync(kFull, word != 0u);
+    if (lane == 0) sm.warp_sum[warp] = __popc(nz);
+    __syncthreads();
+    int rank = __popc(nz & ((1u << lane) - 1u));
+    int count = 0;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) {
+      const int c = sm.warp_sum[i];
+      rank += i < warp ? c : 0;
+      count += c;
+    }
+    const int next_tile = sm.next;
+    prefetch(next_tile);  // in flight through the look-back and scatter
+    if (tid == 0) {  // tile 0's prefix is its count
+      st_relaxed(status + tile, status_word(tag, tile == 0, count));
+    }
+
+    // -- 4. the previous tile: look back, then scatter at the ranks ------
+    resolve_prev();
+    prev = tile;
+    prev_count = count;
+    prev_rank = rank;
+    prev_word = word;
+    tile = next_tile;
   }
-  if (threadIdx.x == kScanThreads - 1) *total = run;  // the true count
-}
+  resolve_prev();
 
-__global__ void scatter(const uint32_t* __restrict__ words, int n_words,
-                        const int32_t* __restrict__ offsets, int max_words,
-                        int32_t* __restrict__ out) {
-  __shared__ int warp_tot[kChunkWords / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int idx = blockIdx.x * kChunkWords + threadIdx.x;
-  const uint32_t w = idx < n_words ? words[idx] : 0u;
-  const uint32_t ball = __ballot_sync(kFull, w != 0u);
-  if (lane == 0) warp_tot[warp] = __popc(ball);
+  // -- the zero tail: ranks [true count, max_words) of both halves ------
+  if (tid == 0) {
+    int total = 0;
+    if (n_tiles > 0) {
+      const unsigned long long s =
+          await_status(status + n_tiles - 1, tag, true);
+      total = static_cast<int>(s & (kPrefixBit - 1));
+    } else if (blockIdx.x == 0) {
+      out[0] = 0;
+    }
+    sm.total = total;
+  }
   __syncthreads();
-  if (w == 0u) return;
-  int rank = offsets[blockIdx.x] + __popc(ball & ((1u << lane) - 1u));
-  for (int i = 0; i < warp; ++i) rank += warp_tot[i];
-  if (rank < max_words) {
-    out[1 + rank] = idx;
-    out[1 + max_words + rank] = static_cast<int32_t>(w);  // raw bits
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t r = sm.total + static_cast<int64_t>(blockIdx.x) * kThreads +
+                   tid;
+       r < max_words; r += stride) {
+    out[1 + r] = 0;
+    out[1 + max_words + r] = 0;
   }
 }
 
@@ -243,35 +476,50 @@ __global__ void fused_filter_mask(const float* __restrict__ b_alo,
   mask[static_cast<int64_t>(w) * (kBlock / 4) + lane] = packed;
 }
 
+int g_max_ctas[64];  // per device: CTAs of fused_filter_compact at once
+
 }  // namespace
 
-// Launches the three kernels on `stream` and returns cudaGetLastError().
-// wins is (2, nw) i32: row 0 block index, row 1 start | end<<8 | qidx<<16.
-// Scratch (caller-allocated): words u32[nw*4], counts and offsets
-// i32[ceil(nw/32)].  out is i32[1 + 2*max_words], zeroed by the caller.
+// B1: launches fused_filter_compact on `stream` and returns a CUDA error
+// code (0 on success).  Block columns (nb, 128); wins is
+// (2, nw) i32: row 0 block index, row 1 start | end<<8 | qidx<<16;
+// per-query bounds (nq,).  A window whose block or query index is out of
+// range matches nothing.  out is i32[1 + 2*max_words], written whole.
+// scratch is u64[32 + ceil(nw/64)], zeroed once when allocated and then
+// reused by every launch on `stream` (never by two streams at once).
 extern "C" int dss_fused_window_filter(
     const void* b_alo, const void* b_ahi, const void* b_t0, const void* b_t1,
-    const void* wins, int nw, const void* q_alo, const void* q_ahi,
-    const void* q_t0, const void* q_t1, int max_words, void* words,
-    void* counts, void* offsets, void* out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nw <= 0) return static_cast<int>(cudaGetLastError());
-  const int n_chunks = (nw + kWinPerCta - 1) / kWinPerCta;
+    int nb, const void* wins, int nw, const void* q_alo, const void* q_ahi,
+    const void* q_t0, const void* q_t1, int nq, int max_words, void* out,
+    void* scratch, void* stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (g_max_ctas[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fused_filter_compact, kThreads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    g_max_ctas[dev] = per_sm * sms > 0 ? per_sm * sms : 1;
+  }
+  const int n_tiles = (nw + kTileWin - 1) / kTileWin;
+  // enough CTAs for the tiles, or for the zero tail when it is long
+  const int64_t want = n_tiles > max_words / (4 * kThreads)
+                           ? n_tiles
+                           : max_words / (4 * kThreads);
+  const int grid = static_cast<int>(
+      want < 1 ? 1 : (want < g_max_ctas[dev] ? want : g_max_ctas[dev]));
   const int32_t* w32 = static_cast<const int32_t*>(wins);
-  filter_pack<<<n_chunks, kWarps * 32, 0, s>>>(
+  fused_filter_compact<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(b_alo), static_cast<const float*>(b_ahi),
-      static_cast<const int64_t*>(b_t0), static_cast<const int64_t*>(b_t1),
-      w32, w32 + nw, static_cast<const float*>(q_alo),
+      static_cast<const int64_t*>(b_t0), static_cast<const int64_t*>(b_t1), nb,
+      w32, w32 + nw, nw, static_cast<const float*>(q_alo),
       static_cast<const float*>(q_ahi), static_cast<const int64_t*>(q_t0),
-      static_cast<const int64_t*>(q_t1), nw, static_cast<uint32_t*>(words),
-      static_cast<int32_t*>(counts));
-  scan_counts<<<1, kScanThreads, 0, s>>>(
-      static_cast<const int32_t*>(counts), n_chunks,
-      static_cast<int32_t*>(offsets), static_cast<int32_t*>(out));
-  scatter<<<n_chunks, kChunkWords, 0, s>>>(
-      static_cast<const uint32_t*>(words), nw * kWords,
-      static_cast<const int32_t*>(offsets), max_words,
-      static_cast<int32_t*>(out));
+      static_cast<const int64_t*>(q_t1), nq, max_words,
+      static_cast<int32_t*>(out), static_cast<unsigned long long*>(scratch));
   return static_cast<int>(cudaGetLastError());
 }
 

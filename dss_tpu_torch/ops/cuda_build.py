@@ -1,9 +1,10 @@
 """Build and bind the port's CUDA kernels.
 
-One `nvcc` call compiles every `dss_tpu_torch/csrc/*.cu` into one
-shared library for `sm_90a`, at first use, into `build/torch_kernels/`
-beside the package.  The library is named by the digest of all sources
-(`*.cu` and `*.cuh`) and flags, so an edited source builds anew.  Each
+Every `dss_tpu_torch/csrc/*.cu` is compiled for `sm_90a` at first use,
+one `nvcc` per source, all started together, and the objects are linked
+into one shared library in `build/torch_kernels/` beside the package.
+The library is named by the digest of all sources (`*.cu` and `*.cuh`)
+and flags, so an edited source builds anew.  Each
 kernel has a plain C entry (no PyTorch headers, so the build takes
 seconds) that launches on the stream it is given and returns
 `cudaGetLastError()`; `function()` binds one with ctypes.
@@ -25,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lib = None
@@ -50,9 +51,11 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile csrc/*.cu into one shared library (once per digest) and
-    return its path.  The library is written to a temporary name and
-    renamed, so a process building concurrently never loads a
-    half-written file."""
+    return its path.  One nvcc per source runs at once, so the build
+    takes as long as the slowest source; the link writes a temporary
+    name that is then renamed, so a process building concurrently never
+    loads a half-written file."""
+    srcs = sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu*")):  # .cu and .cuh
         h.update(src.name.encode() + b"\0" + src.read_bytes())
@@ -60,11 +63,21 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
+    nvcc = _nvcc()
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+        for src, obj in zip(srcs, objs)
+    ]
+    failed = [str(src) for src, p in zip(srcs, procs) if p.wait() != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}")
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())],
-        check=True,
-    )
+    subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                    *map(str, objs)], check=True)
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, lib)
     return lib
 

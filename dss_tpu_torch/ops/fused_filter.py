@@ -17,8 +17,12 @@ start | end<<8 | qidx<<16]; per-query bounds `q_alo/q_ahi` f32[B] and
 `q_t0/q_t1` i64[B], with q_t0 pre-folded with `now` on the host
 (t0_eff = max(t_start, now)).
 
-The kernel is built with the other kernels of `csrc/` by
-`ops/cuda_build.py` and bound with ctypes through a plain C function.
+The kernel is one launch that writes the whole output, so the wrapper
+allocates it with `torch.empty`.  It keeps a small scratch per device
+and stream (tile counter, epoch, tile statuses), zeroed once when it is
+allocated or grown.  The kernel is built with the other kernels of
+`csrc/` by `ops/cuda_build.py` and bound once with ctypes through a
+plain C function.
 `exact_hits` is the per-lane exact compare, shared with B4's plain
 version (`ops/fastpath_cuda.fused_filter_mask_torch`), as the CUDA
 source shares its compare between B1 and B4.
@@ -34,16 +38,23 @@ from dss_tpu_torch.ops import cuda_build
 
 BLOCK = 128  # postings per block
 WORDS = BLOCK // 32  # u32 hit words per window
-WIN_PER_CTA = 32  # windows per kernel chunk (csrc/fused_filter.cu)
+TILE_WINDOWS = 64  # windows per tile of the kernel (csrc/fused_filter.cu)
+SCRATCH_HEAD = 32  # u64 words of counter and epoch before the tile statuses
 # windows per step of the plain version: bounds its (windows, 128)
 # temporaries at the 131072-window bucket
 PLAIN_CHUNK = 16384
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 5 + [ctypes.c_int]
-    + [ctypes.c_void_p] * 4 + [ctypes.c_int]
-    + [ctypes.c_void_p] * 5
+    [ctypes.c_void_p] * 4 + [ctypes.c_int]
+    + [ctypes.c_void_p, ctypes.c_int]
+    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+    + [ctypes.c_void_p] * 3
 )
+_fn = None  # the kernel's C entry, bound at the first launch
+# (device index, stream handle) -> the kernel's u64 scratch: tile
+# counter, epoch and tile statuses.  Zeroed once when allocated; each
+# launch leaves it ready for the next one on the same stream.
+_scratch = {}
 
 
 def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
@@ -58,6 +69,17 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _scratch_for(dev, stream: int, n_tiles: int) -> torch.Tensor:
+    """The launch's scratch on (dev, stream), grown to n_tiles statuses."""
+    key = (dev.index, stream)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < SCRATCH_HEAD + n_tiles:
+        cap = max(1024, 1 << max(n_tiles - 1, 0).bit_length())
+        buf = torch.zeros(SCRATCH_HEAD + cap, dtype=torch.int64, device=dev)
+        _scratch[key] = buf
+    return buf
+
+
 def fused_window_filter(
     b_alo, b_ahi, b_t0, b_t1, wins, q_alo, q_ahi, q_t0, q_t1,
     *, max_words: int,
@@ -66,6 +88,7 @@ def fused_window_filter(
     the module docstring).  CUDA tensors launch the kernel (or raise);
     CPU tensors run the plain version.  `fused_window_filter.launches`
     counts kernel launches."""
+    global _fn
     dev = b_alo.device
     if dev.type == "cpu":
         return fused_window_filter_torch(
@@ -74,37 +97,38 @@ def fused_window_filter(
         )
     if dev.type != "cuda":
         raise ValueError(f"fused_window_filter: unsupported device {dev}")
-    for t, name, dtype, ndim in (
-        (b_alo, "b_alo", torch.float32, 2),
-        (b_ahi, "b_ahi", torch.float32, 2),
-        (b_t0, "b_t0", torch.int64, 2),
-        (b_t1, "b_t1", torch.int64, 2),
-        (wins, "wins", torch.int32, 2),
-        (q_alo, "q_alo", torch.float32, 1),
-        (q_ahi, "q_ahi", torch.float32, 1),
-        (q_t0, "q_t0", torch.int64, 1),
-        (q_t1, "q_t1", torch.int64, 1),
-    ):
-        _check(t, name, dtype, ndim, dev)
-    if b_alo.shape[1] != BLOCK or wins.shape[0] != 2:
-        raise ValueError("block columns must be (NB, 128), wins (2, NW)")
+    cols = (("b_alo", b_alo, torch.float32), ("b_ahi", b_ahi, torch.float32),
+            ("b_t0", b_t0, torch.int64), ("b_t1", b_t1, torch.int64))
+    for name, t, dtype in cols:
+        _check(t, name, dtype, 2, dev)
+        if t.shape != b_alo.shape or t.shape[1] != BLOCK:
+            raise ValueError(f"{name} must be (NB, {BLOCK}) like b_alo")
+    _check(wins, "wins", torch.int32, 2, dev)
+    for t, name, dtype in ((q_alo, "q_alo", torch.float32),
+                           (q_ahi, "q_ahi", torch.float32),
+                           (q_t0, "q_t0", torch.int64),
+                           (q_t1, "q_t1", torch.int64)):
+        _check(t, name, dtype, 1, dev)
+        if t.shape != q_alo.shape:
+            raise ValueError(f"{name} must have q_alo's length")
+    if wins.shape[0] != 2:
+        raise ValueError("wins must be (2, NW)")
     nw = int(wins.shape[1])
-    if nw >= 1 << 29 or max_words < 0:
+    if nw >= 1 << 29 or not 0 <= max_words < 1 << 30 \
+            or b_alo.shape[0] >= 1 << 31 or q_alo.shape[0] >= 1 << 31:
         raise ValueError(f"unsupported nw={nw} / max_words={max_words}")
-    fn = cuda_build.function("dss_fused_window_filter", _ARGTYPES)
-    out = torch.zeros(1 + 2 * max_words, dtype=torch.int32, device=dev)
-    n_chunks = max(1, -(-nw // WIN_PER_CTA))
-    words = torch.empty(nw * WORDS, dtype=torch.int32, device=dev)
-    counts = torch.empty(n_chunks, dtype=torch.int32, device=dev)
-    offsets = torch.empty(n_chunks, dtype=torch.int32, device=dev)
+    if _fn is None:
+        _fn = cuda_build.function("dss_fused_window_filter", _ARGTYPES)
+    out = torch.empty(1 + 2 * max_words, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
+        scratch = _scratch_for(dev, stream, -(-nw // TILE_WINDOWS))
+        err = _fn(
             b_alo.data_ptr(), b_ahi.data_ptr(), b_t0.data_ptr(),
-            b_t1.data_ptr(), wins.data_ptr(), nw,
+            b_t1.data_ptr(), int(b_alo.shape[0]), wins.data_ptr(), nw,
             q_alo.data_ptr(), q_ahi.data_ptr(), q_t0.data_ptr(),
-            q_t1.data_ptr(), int(max_words), words.data_ptr(),
-            counts.data_ptr(), offsets.data_ptr(), out.data_ptr(), stream,
+            q_t1.data_ptr(), int(q_alo.shape[0]), int(max_words),
+            out.data_ptr(), scratch.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_window_filter launch failed: CUDA error {err}")

@@ -231,14 +231,46 @@ def test_pad_windows_never_match():
     assert (np.diff(pos) > 0).all()  # ascending positions
 
 
-@pytest.mark.parametrize("max_words", [1, 4, 16])
+@pytest.mark.parametrize("max_words", [0, 1, 4, 16, "true_count"])
 def test_overflow_keeps_true_count_and_prefix(max_words):
     rng = np.random.default_rng(12)
     ref = _ref_table(_random_records(rng, 400, hot_cell=3))
     qkeys, alo, ahi, ts, te = _random_queries(rng, 12, 16)
+    exact = max_words == "true_count"
+    if exact:  # room for every word and not one more: no tail
+        max_words = int(_both(ref, qkeys, alo, ahi, ts, te)[1][0])
     want, got, _, _ = _both(ref, qkeys, alo, ahi, ts, te, max_words=max_words)
-    assert int(got[0]) > max_words  # really overflowed
+    if exact:
+        assert max_words > 0 and int(got[0]) == max_words
+    else:
+        assert int(got[0]) > max_words  # really overflowed
     assert len(got) == 1 + 2 * max_words
+    np.testing.assert_array_equal(got, want)
+
+
+def test_window_count_off_the_group_multiple():
+    """A window list cut to its nw windows (no pad bucket), with nw not
+    a multiple of 32: the same output as the reference."""
+    rng = np.random.default_rng(13)
+    ref = _ref_table(_random_records(rng, 500, hot_cell=5))
+    qkeys, alo, ahi, ts, te = _random_queries(rng, 10, 12)
+    wins, _, _, nw = ref._pack_windows(qkeys)
+    assert nw % 32
+    wins = np.ascontiguousarray(np.asarray(wins)[:, :nw])
+    t0_eff = np.maximum(ts, np.int64(NOW))
+    mw = ref_pow2_bucket(nw, lo=1 << 16)
+    want = np.asarray(
+        ref._fused_xla(
+            ref.b_alo, ref.b_ahi, ref.b_t0, ref.b_t1, jnp.asarray(wins),
+            jnp.asarray(alo, jnp.float32), jnp.asarray(ahi, jnp.float32),
+            jnp.asarray(t0_eff, jnp.int64), jnp.asarray(te, jnp.int64),
+            max_words=mw,
+        )
+    )
+    got = ff.fused_window_filter_torch(
+        *_port_args(ref, wins, alo, ahi, t0_eff, te), max_words=mw
+    ).numpy()
+    assert int(got[0]) > 0
     np.testing.assert_array_equal(got, want)
 
 

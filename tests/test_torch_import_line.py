@@ -1,7 +1,7 @@
 """The port's import line, device rule and state carried across.
 
-- Every module of dss_tpu_torch, and chip_smoke, imports in a process
-  where `jax` and every `dss_tpu` module are refused.
+- Every module of dss_tpu_torch, chip_smoke and b1_device_time import
+  in a process where `jax` and every `dss_tpu` module are refused.
 - Tables built without device= on a machine without CUDA raise
   instead of running on the CPU.
 - convert round trip: reference records and table arrays become port
@@ -58,6 +58,8 @@ _PROBE = textwrap.dedent(
     assert "dss_tpu_torch.ops.cuda_build" in names, names
     import chip_smoke  # its helpers; main() only runs as a script
     assert callable(chip_smoke.run) and callable(chip_smoke.make_batch)
+    import b1_device_time  # loads chip_smoke anew from its own path
+    assert callable(b1_device_time.load_smoke(b1_device_time.HERE).run)
     bad = sorted(m for m in sys.modules
                  if m == "jax" and sys.modules[m] is not None
                  or m == "dss_tpu" or m.startswith("dss_tpu."))

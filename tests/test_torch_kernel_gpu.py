@@ -3,6 +3,8 @@
 B1 (the fused window filter), B2 and B3 (the quantized window mask) and
 B4 (the exact window mask), each on card tensors against its plain
 version on the same tensors; masks and words must be equal exactly.
+B1's single-pass compaction is also held at the max_words boundaries,
+past 4,096 tiles, over back-to-back launches and on a dirty output.
 
 Needs a CUDA card (marker `gpu`); skips elsewhere.  This file imports
 neither jax nor the reference package, so it runs on a machine that has
@@ -101,6 +103,102 @@ def test_kernel_counts_launches_and_rejects_bad_input(cuda):
     bad[5] = bad[5].double()  # q_alo must be f32
     with pytest.raises(ValueError):
         ff.fused_window_filter(*bad, max_words=1 << 16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["zero", "one", "count-1", "count",
+                                  "count+1"])
+def test_kernel_max_words_boundaries(cuda, case):
+    """max_words around the true word count: the kept prefix, the true
+    count in out[0] and the zero tail all equal the plain version's."""
+    rng = np.random.default_rng(10)
+    ft = _table(rng, 3000, 400, cuda)
+    args, nw = _args(ft, rng, 300, 8, 400)
+    n = int(ff.fused_window_filter_torch(*args, max_words=1)[0])
+    assert n > 2
+    mw = {"zero": 0, "one": 1, "count-1": n - 1, "count": n,
+          "count+1": n + 1}[case]
+    got = ff.fused_window_filter(*args, max_words=mw)
+    want = ff.fused_window_filter_torch(*args, max_words=mw)
+    torch.cuda.synchronize()
+    assert int(want[0]) == n and got.shape == want.shape
+    assert torch.equal(got, want), case
+
+
+def _random_windows(rng, ft, nw, nq, device):
+    """nw random windows over ft's blocks (every 7th a pad window) and
+    nq random query bounds -> the kernel's arguments."""
+    nb = ft.b_alo.shape[0]
+    start = rng.integers(0, 128, nw)
+    end = np.minimum(start + rng.integers(1, 80, nw), 128)
+    meta = start | (end << 8) | (rng.integers(0, nq, nw) << 16)
+    meta[::7] = 0
+    blk = np.where(meta == 0, 0, rng.integers(0, nb, nw))
+    wins = np.stack([blk, meta]).astype(np.int32)
+    alo = rng.uniform(0, 3000, nq).astype(np.float32)
+    t0 = (NOW + rng.integers(-2, 2, nq) * HOUR).astype(np.int64)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return (ft.b_alo, ft.b_ahi, ft.b_t0, ft.b_t1, t(wins), t(alo),
+            t((alo + 300).astype(np.float32)), t(t0), t(t0 + HOUR))
+
+
+@pytest.mark.gpu
+def test_kernel_ragged_tiles_beyond_4096(cuda):
+    """A window count off the tile multiple, with more than 4,096 tiles,
+    so the look-back crosses many 32-tile windows."""
+    rng = np.random.default_rng(11)
+    ft = _table(rng, 20000, 4000, cuda)
+    nw = 4097 * ff.TILE_WINDOWS + 37
+    args = _random_windows(rng, ft, nw, 4096, cuda)
+    for mw in (pow2_bucket(nw, lo=1 << 16), 4 * nw):
+        got = ff.fused_window_filter(*args, max_words=mw)
+        want = ff.fused_window_filter_torch(*args, max_words=mw)
+        torch.cuda.synchronize()
+        assert int(want[0]) > 0
+        assert torch.equal(got, want), mw
+
+
+@pytest.mark.gpu
+def test_kernel_back_to_back_calls_reuse_epoch_and_counter(cuda):
+    """Many launches on one stream with no sync between them, on inputs
+    of different sizes: each launch's scratch state (tile counter,
+    epoch, statuses) must be left right for the next."""
+    rng = np.random.default_rng(12)
+    ft = _table(rng, 20000, 4000, cuda)
+    cases = [_random_windows(rng, ft, n, 512, cuda)
+             for n in (64, 5000, 131072, 1, 70000)]
+    mws = (7, 1 << 16, 1 << 18, 0, 40000)
+    outs = [ff.fused_window_filter(*cases[i % 5], max_words=mws[i % 5])
+            for i in range(60)]
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        want = ff.fused_window_filter_torch(*cases[i % 5],
+                                            max_words=mws[i % 5])
+        assert torch.equal(got, want), i
+
+
+@pytest.mark.gpu
+def test_kernel_writes_the_tail_of_a_dirty_output(cuda):
+    """The wrapper allocates out with torch.empty: a block that the
+    caching allocator hands back full of -1 must come out with its zero
+    tail written by the kernel."""
+    rng = np.random.default_rng(13)
+    ft = _table(rng, 3000, 500, cuda)
+    args, nw = _args(ft, rng, 200, 8, 500)
+    mw = pow2_bucket(nw, lo=1 << 16)
+    ff.fused_window_filter(*args, max_words=mw)  # scratch allocated
+    torch.cuda.synchronize()
+    dirty = torch.full((1 + 2 * mw,), -1, dtype=torch.int32, device=cuda)
+    ptr = dirty.data_ptr()
+    del dirty
+    got = ff.fused_window_filter(*args, max_words=mw)
+    want = ff.fused_window_filter_torch(*args, max_words=mw)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr  # the dirty block came back
+    n = int(want[0])
+    assert 0 < n < mw
+    assert not got[1 + n: 1 + mw].any() and not got[1 + mw + n:].any()
+    assert torch.equal(got, want)
 
 
 def _queries(rng, b, w, n_cells):
