@@ -32,10 +32,27 @@ Phases (any failure exits non-zero; nothing is caught):
      oracle; B3's and B4's own entries driven on each batch's first 512
      windows against the twin; then B3 and B4 against their plain
      versions, with times and bounds;
-  7. the device time of each kernel by device kernel name, the kernels
-     line (four kernels), with each kernel's count of comparisons made
-     and of those that disagreed; then the ok line, or exit 1 if any
-     disagreed or a kernel of a path never launched.
+  7. the serving path on the compacted 1M-intent index: the resident
+     loop's CUDA graph grid (batch buckets 128/1024/4096 x window
+     buckets 4096/16384/65536, bench.py:375-379) captured and timed;
+     at every warmed bucket one batch three ways (graph replay, eager
+     B1, plain version) equal word for word, two units in flight, and
+     a replay's call and device time beside the eager call's; then
+     closed-loop clients through CudaSpatialIndex.query_ids with a
+     50 ms SLO (bench.py:433-470): 4 threads, then 32, each leg with
+     the launch counts from zero, one `serving` line per leg, and a
+     seeded sample of 4,096 answers per leg held against the CPU twin;
+     then the reference's bulk stale drain (bench.py:1157-1186), 16
+     bursts of 128 bounded-staleness callers, every answer held against
+     the twin, one `bulk_burst` line;
+  8. the device time of each kernel by device kernel name, the kernels
+     line (four kernels; B1's entry with its graph replays), with each
+     kernel's count of comparisons made and of those that disagreed;
+     then the ok line, or exit 1 if any disagreed, a kernel of a path
+     never launched, or the serving phase failed (a caller error other
+     than OverloadedError or DEADLINE_EXCEEDED, an absorbed device
+     loss, no resident batch at 32 threads, no graph replay in the
+     bulk bursts).
 Times: `ms` is a kernel's device time per wrapper call with the L2
 flushed (a real batch finds its blocks cold): the kernels, memsets and
 copies that 30 calls launched, summed from torch.profiler, over 30;
@@ -54,6 +71,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -83,6 +101,27 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 FLUSH_BYTES = 128 << 20
 LEGACY_BATCHES = 4
 GRIDLESS = fc.GRIDLESS_MAX_WINDOWS
+# the serving recipe (bench.py:343-379, :433-470, :5392-5429): the SLO,
+# the warmed graph grid, and the closed-loop legs as (name, threads,
+# warm-up s, timed s).  The recipe's two legs never reach B1: a closed
+# loop of 32 callers drains at most 32 queries, and FastTable answers
+# any batch of <= 64 from the exact host scan, in the reference too.
+SLO_MS = 50.0
+GRID_BATCH = (128, 1024, 4096)
+GRID_WINDOW = (4096, 16384, 65536)
+LEGS = (("light", 4, 2.0, 5.0), ("loaded", 32, 3.0, 8.0))
+# the reference's bulk stale drain (bench.py:1157-1186, burst B of the
+# curve smoke): 128 bounded-staleness callers, min_batch 128, the
+# table's submit held until 80 of them queue, so they drain as one
+# batch past the host cutoff and reach B1.  Run BURSTS times, so the
+# buckets the first bursts miss are captured and replayed by the next.
+# It checks the device routes; it is no serving rate.
+BURST_CALLERS = 128
+BURST_MIN_BATCH = 128
+BURST_QUEUED = 80
+BURSTS = 16
+QUERIES_PER_CLIENT = 2048  # pregenerated per client thread, cycled
+SERVING_SAMPLE = 4096  # answers per leg held against the CPU twin
 # kernel -> (its CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "fused_window_filter": ("dss_tpu_torch/csrc/fused_filter.cu",
@@ -779,8 +818,404 @@ def legacy_phase(idx, twin, cases, orc, smi, flush) -> list:
     ]
 
 
-def run(dev, smi) -> list:
-    """Phases 2-6 on `dev`; -> the entries of the kernels line."""
+def bucket_batch(ft, wb, bb, seed):
+    """A batch of contiguous-cell queries whose windows fill bucket wb
+    and whose size lands in batch bucket bb: the width is searched by
+    bisection, at bb queries and then at bb/2 + 1."""
+    for b in (bb, bb // 2 + 1):
+        lo, hi = 1, 4096
+        while lo <= hi:
+            w = (lo + hi) // 2
+            q = make_batch(seed, b, N_CELLS, w)
+            bucket = pow2_bucket(ft._pack_windows(q[0])[3])
+            if bucket == wb:
+                return q
+            lo, hi = (w + 1, hi) if bucket < wb else (lo, w - 1)
+    raise RuntimeError(f"no batch lands in bucket ({wb}, {bb})")
+
+
+def padded_args(ft, q):
+    """B1's card inputs for batch q as FastTable.submit builds them
+    (queries padded to the batch bucket) -> (args, wins, padded bounds
+    in numpy, window bucket, batch bucket)."""
+    keys, alo, ahi, ts, te = q
+    wins = ft._pack_windows(keys)[0]
+    b = len(keys)
+    bb = pow2_bucket(b, lo=16)
+    qp = []
+    for a, dt in ((alo, np.float32), (ahi, np.float32),
+                  (np.maximum(ts, np.int64(NOW)), np.int64), (te, np.int64)):
+        p = np.zeros(bb, dt)
+        p[:b] = a
+        qp.append(p)
+    dev = ft.device
+    args = ((ft.b_alo, ft.b_ahi, ft.b_t0, ft.b_t1,
+             torch.from_numpy(wins).to(dev))
+            + tuple(torch.from_numpy(p).to(dev) for p in qp))
+    return args, wins, qp, wins.shape[1], bb
+
+
+def eager_io(ft, wins, qp, mw):
+    """What a cold submit does around B1: upload the window list and
+    the bounds, launch, copy the output to pinned memory, wait."""
+    dev = ft.device
+    out = ff.fused_window_filter(
+        ft.b_alo, ft.b_ahi, ft.b_t0, ft.b_t1, torch.from_numpy(wins).to(dev),
+        *(torch.from_numpy(p).to(dev) for p in qp), max_words=mw)
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    ev.synchronize()
+    return host
+
+
+def graph_phase(ft, kern, smi) -> dict:
+    """Every warmed (window, batch) bucket of ft: one batch through the
+    captured graph, eager B1 and the plain version, word for word; two
+    units of one bucket in flight at once; then the largest bucket's
+    replay timed beside the eager call.  -> B1's graph numbers."""
+    # imported here, as in serving_leg: b1_device_time.py loads this
+    # file against copies of the package that predate the resident loop
+    from dss_tpu_torch.ops.resident import max_words_for
+
+    tally = TALLY["fused_window_filter"]
+    checked = []
+    for bb in GRID_BATCH:
+        for wb in GRID_WINDOW:
+            q = bucket_batch(ft, wb, bb, seed=700 + wb // 1024 + bb)
+            args, _, _, wb_q, bb_q = padded_args(ft, q)
+            mw = max_words_for(wb)
+            pend = ft.submit(*q, now=NOW, kernel=kern)
+            tally.check(pend.instance is not None and (wb_q, bb_q) == (wb, bb),
+                        f"graph ({wb}, {bb}): no captured unit was taken")
+            pend.ready()
+            got = pend.host.clone()
+            hits = ft.collect(pend)
+            eager = ff.fused_window_filter(*args, max_words=mw)
+            plain = ff.fused_window_filter_torch(*args, max_words=mw)
+            torch.cuda.synchronize()
+            tally.check(torch.equal(got, eager.cpu()),
+                        f"graph ({wb}, {bb}): replay != eager B1")
+            tally.check(torch.equal(got, plain.cpu()),
+                        f"graph ({wb}, {bb}): replay != plain version")
+            want = ft.query_fused(*q, now=NOW)
+            tally.check(all(np.array_equal(x, y) for x, y in zip(hits, want)),
+                        f"graph ({wb}, {bb}): decoded replay != fused path")
+            checked.append([wb, bb, len(q[0]), int(plain[0])])
+    log(f"graph replay == eager B1 == plain at {len(checked)} buckets "
+        f"[wb, bb, queries, words]: {checked}")
+    # two units of the largest bucket in flight at once
+    wb, bb = GRID_WINDOW[-1], GRID_BATCH[-1]
+    qa = bucket_batch(ft, wb, bb, seed=801)
+    qb = bucket_batch(ft, wb, bb, seed=802)
+    pa = ft.submit(*qa, now=NOW, kernel=kern)
+    pb = ft.submit(*qb, now=NOW, kernel=kern)
+    tally.check(pa.instance is not None and pb.instance is not None
+                and pa.instance is not pb.instance,
+                "two in flight: not two distinct units")
+    for pend, q in ((pb, qb), (pa, qa)):
+        args = padded_args(ft, q)[0]
+        pend.ready()
+        got = pend.host.clone()
+        want = ff.fused_window_filter_torch(*args, max_words=max_words_for(wb))
+        tally.check(torch.equal(got, want.cpu()), "two in flight: != plain")
+        ft.collect(pend)
+    # the replay's call and device time beside the eager call's
+    args, wins, qp, _, _ = padded_args(ft, qa)
+    mw = max_words_for(wb)
+    unit = kern.lookup(ft, wb, bb, mw)
+
+    def replay():
+        unit.replay(wins, *qp)[1].synchronize()
+
+    try:
+        replay_call = call_ms(replay)
+        replay_dev, replay_by, replay_src = device_ms(replay)
+    finally:
+        unit.release()
+    DEVICE_BY_NAME["fused_window_filter (graph replay)"] = {"warm": replay_by}
+    out = {
+        "graph_buckets_checked": len(checked),
+        "replay_bucket": [wb, bb],
+        "replay_call_ms": replay_call,
+        "replay_ms": replay_dev,
+        "replay_ms_source": replay_src,
+        "eager_call_ms_same_bucket": call_ms(
+            lambda: ff.fused_window_filter(*args, max_words=mw)),
+        "eager_io_call_ms_same_bucket": call_ms(
+            lambda: eager_io(ft, wins, qp, mw)),
+    }
+    log(f"replay vs eager at ({wb}, {bb}): {json.dumps(out)} [{smi}]")
+    return out
+
+
+def serving_leg(idx, twin, name, threads, warm_s, run_s, seed,
+                smi) -> tuple:
+    """Closed-loop clients through CudaSpatialIndex.query_ids for warm_s
+    + run_s, every query and answer kept; latencies from the timed
+    window; B1's counts set to 0 just before the clients start and read
+    just after they stop.  -> (serving line, failures)."""
+    from dss_tpu_torch import errors
+
+    co = idx.coalescer
+    loop = co.resident_loop()
+    kern = loop.kernel
+    streams = []
+    for i in range(threads):
+        keys, alo, ahi, ts, te = make_batch(seed + i, QUERIES_PER_CLIENT,
+                                            N_CELLS, WIDTH)
+        cells = s2cell.dar_key_to_cell(keys.ravel()).reshape(keys.shape)
+        streams.append((keys, cells, alo, ahi, ts, te))
+    lats = [[] for _ in range(threads)]
+    answers = [[] for _ in range(threads)]
+    sheds, dl_sheds, client_errors = [0] * threads, [0] * threads, []
+    stop = threading.Event()
+    k0 = (kern.hits, kern.misses, kern.busy, kern.cache.captures)
+    ff.fused_window_filter.launches = 0
+    ff.fused_window_filter.graph_replays = 0
+    t_start = time.perf_counter()
+    warm_until = t_start + warm_s
+
+    def client(i):
+        _, cells, alo, ahi, ts, te = streams[i]
+        j = 0
+        while not stop.is_set():
+            qi = j % QUERIES_PER_CLIENT
+            j += 1
+            t_req = time.perf_counter()
+            try:
+                got = idx.query_ids(cells[qi], float(alo[qi]), float(ahi[qi]),
+                                    int(ts[qi]), int(te[qi]), now=NOW)
+            except errors.OverloadedError:
+                sheds[i] += 1
+                continue
+            except errors.StatusError as e:
+                if e.code != errors.Code.DEADLINE_EXCEEDED:
+                    client_errors.append(repr(e))
+                    return
+                dl_sheds[i] += 1
+                continue
+            except Exception as e:  # noqa: BLE001 — fails the leg below
+                client_errors.append(repr(e))
+                return
+            t_done = time.perf_counter()
+            answers[i].append((qi, got))
+            if t_req >= warm_until:
+                lats[i].append(t_done - t_req)
+
+    ths = [threading.Thread(target=client, args=(i,)) for i in range(threads)]
+    for th in ths:
+        th.start()
+    time.sleep(warm_s)
+    st0 = co.stats()
+    time.sleep(run_s)
+    st1 = co.stats()
+    stop.set()
+    for th in ths:
+        th.join(60)
+    stuck = sum(th.is_alive() for th in ths)
+    launches = ff.fused_window_filter.launches
+    replays = ff.fused_window_filter.graph_replays
+    # every answer of a seeded sample against the CPU twin
+    flat = [(i, qi, got) for i in range(threads) for qi, got in answers[i]]
+    rng = np.random.default_rng(seed)
+    pick = rng.choice(len(flat), min(SERVING_SAMPLE, len(flat)), replace=False)
+    tally = TALLY["fused_window_filter"]
+    before = tally.mismatches
+    for lo in range(0, len(pick), BATCH):
+        part = [flat[k] for k in pick[lo:lo + BATCH]]
+        rows = [(streams[i], qi) for i, qi, _ in part]
+        want = twin.table.query_many(
+            [s[0][qi] for s, qi in rows],
+            np.asarray([s[2][qi] for s, qi in rows], np.float32),
+            np.asarray([s[3][qi] for s, qi in rows], np.float32),
+            np.asarray([s[4][qi] for s, qi in rows], np.int64),
+            np.asarray([s[5][qi] for s, qi in rows], np.int64), now=NOW)
+        for (i, qi, got), w in zip(part, want):
+            tally.check(got == w, f"serving {name}: client {i} query {qi} "
+                        "!= twin")
+    all_lats = np.sort(np.concatenate([np.asarray(x) for x in lats]))
+    n = len(all_lats)
+    d = max(1, st1["co_batches"] - st0["co_batches"])
+
+    def delta(k):
+        return st1[k] - st0[k]
+
+    line = {
+        "leg": name, "threads": threads, "slo_ms": SLO_MS, "warm_s": warm_s, "run_s": run_s,
+        "queries_per_s": n / run_s, "samples": n,
+        "p50_ms": float(all_lats[n // 2] * 1e3) if n else None,
+        "p99_ms": float(all_lats[int(n * 0.99)] * 1e3) if n else None,
+        "p999_ms": float(all_lats[int(n * 0.999)] * 1e3) if n else None,
+        "answers_kept": len(flat), "answers_checked": len(pick),
+        "mismatches": tally.mismatches - before,
+        "client_shed": sum(sheds), "client_deadline_shed": sum(dl_sheds),
+        "client_errors": len(client_errors),
+        "route_mix": {r: delta(f"co_route_{r}_batches")
+                      for r in ("host", "hostchunk", "device", "resident")},
+        "batches": delta("co_batches"), "inline": delta("co_inline"),
+        "co_shed": delta("co_shed"),
+        "co_deadline_shed": delta("co_deadline_shed"),
+        "co_device_loss_absorbed": st1["co_device_loss_absorbed"],
+        "pack_ms_avg": delta("co_pack_ms_total") / d,
+        "device_ms_avg": delta("co_device_ms_total") / d,
+        "collect_ms_avg": delta("co_collect_ms_total") / d,
+        "batch_size_end": st1["co_batch_size"],
+        "est": {k[7:]: st1[k] for k in st1 if k.startswith("co_est_")},
+        "plans": {k[8:]: delta(k) for k in st1 if k.startswith("co_plan_")},
+        "graph": {"captures": kern.cache.captures - k0[3],
+                  "hits": kern.hits - k0[0], "misses": kern.misses - k0[1],
+                  "busy": kern.busy - k0[2], "replays": replays},
+        "b1_eager_launches": launches,
+        "card": smi,
+    }
+    log(json.dumps({"serving": line}))
+    failures = [f"serving {name}: {e}" for e in client_errors[:3]]
+    if stuck:
+        failures.append(f"serving {name}: {stuck} clients did not stop")
+    if st1["co_device_loss_absorbed"] > 0:
+        failures.append(f"serving {name}: device loss absorbed")
+    if not n:
+        failures.append(f"serving {name}: no request completed")
+    return line, failures
+
+
+def bulk_bursts(idx, twin, seed, smi) -> tuple:
+    """The reference's bulk stale drain (BURST_* above), BURSTS times
+    through CudaSpatialIndex.query_ids: for each burst the table's
+    submit waits on a gate, BURST_CALLERS callers start (the first runs
+    inline and holds the gate, so the rest queue behind it), the gate
+    opens once BURST_QUEUED are queued, and every answer is held
+    against the CPU twin.  B1's counts are set to 0 just before the
+    first burst and read just after the last.  -> (line, failures)."""
+    co = idx.coalescer
+    co.configure(min_batch=BURST_MIN_BATCH)
+    kern = co.resident_loop().kernel
+    table = idx.table
+    submit = table.query_many_submit
+    tally = TALLY["fused_window_filter"]
+    before = tally.mismatches
+    client_errors, queued = [], []
+    st0 = co.stats()
+    k0 = (kern.hits, kern.misses, kern.busy, kern.cache.captures)
+    ff.fused_window_filter.launches = 0
+    ff.fused_window_filter.graph_replays = 0
+    for k in range(BURSTS):
+        keys, alo, ahi, ts, te = make_batch(seed + k, BURST_CALLERS,
+                                            N_CELLS, WIDTH)
+        cells = s2cell.dar_key_to_cell(keys.ravel()).reshape(keys.shape)
+        got = [None] * BURST_CALLERS
+        gate = threading.Event()
+
+        def gated(*a, **kw):
+            gate.wait(10.0)
+            return submit(*a, **kw)
+
+        def client(i):
+            try:
+                got[i] = idx.query_ids(cells[i], float(alo[i]),
+                                       float(ahi[i]), int(ts[i]),
+                                       int(te[i]), now=NOW,
+                                       allow_stale=True)
+            except Exception as e:  # noqa: BLE001 — fails the burst below
+                client_errors.append(repr(e))
+
+        ths = [threading.Thread(target=client, args=(i,))
+               for i in range(BURST_CALLERS)]
+        table.query_many_submit = gated
+        try:
+            for th in ths:
+                th.start()
+            until = time.perf_counter() + 5.0
+            while (co.stats()["co_queue_depth"] < BURST_QUEUED
+                   and time.perf_counter() < until):
+                time.sleep(0.005)
+            queued.append(co.stats()["co_queue_depth"])
+        finally:
+            del table.query_many_submit
+            gate.set()
+        for th in ths:
+            th.join(60)
+        until = time.perf_counter() + 10.0
+        while co.stats()["co_inflight"] > 0 and time.perf_counter() < until:
+            time.sleep(0.005)
+        want = twin.table.query_many(list(keys), alo, ahi, ts, te, now=NOW)
+        for i, (g, w) in enumerate(zip(got, want)):
+            tally.check(g == w, f"bulk burst {k}: caller {i} != twin")
+    launches = ff.fused_window_filter.launches
+    replays = ff.fused_window_filter.graph_replays
+    st1 = co.stats()
+
+    def delta(key):
+        return st1[key] - st0[key]
+
+    line = {
+        "bursts": BURSTS, "callers": BURST_CALLERS,
+        "min_batch": BURST_MIN_BATCH, "queued_at_release": queued,
+        "answers_checked": BURSTS * BURST_CALLERS,
+        "mismatches": tally.mismatches - before,
+        "client_errors": len(client_errors),
+        "route_mix": {r: delta(f"co_route_{r}_batches")
+                      for r in ("host", "hostchunk", "device", "resident")},
+        "batches": delta("co_batches"), "inline": delta("co_inline"),
+        "co_device_loss_absorbed": st1["co_device_loss_absorbed"],
+        "graph": {"captures": kern.cache.captures - k0[3],
+                  "hits": kern.hits - k0[0], "misses": kern.misses - k0[1],
+                  "busy": kern.busy - k0[2], "replays": replays},
+        "b1_eager_launches": launches,
+        "card": smi,
+    }
+    log(json.dumps({"bulk_burst": line}))
+    failures = [f"bulk burst: {e}" for e in client_errors[:3]]
+    if st1["co_device_loss_absorbed"] > 0:
+        failures.append("bulk burst: device loss absorbed")
+    if replays <= 0:
+        failures.append("bulk burst: no graph replay")
+    return line, failures
+
+
+def serving_phase(idx, twin, smi) -> tuple:
+    """Phase 7 on the compacted index -> (B1's serving numbers,
+    failures)."""
+    co = idx.coalescer
+    co.configure(slo_ms=SLO_MS, resident=True)
+    loop = co.resident_loop()
+    kern = loop.kernel
+    tiers_now = idx.table._state.tiers
+    t = time.perf_counter()
+    built = idx.table.warm_resident(kern, batch_buckets=GRID_BATCH,
+                                    window_buckets=GRID_WINDOW)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    cache = kern.cache
+    log(json.dumps({"graph_warm": {
+        "tiers": len(tiers_now), "entries": built,
+        "units": cache.instances(), "captures": cache.captures,
+        "seconds": warm_s,
+        "ms_per_capture": warm_s * 1e3 / max(1, cache.captures),
+        "card": smi}}))
+    out = graph_phase(tiers_now[0].snap.fast, kern, smi)
+    failures, legs = [], {}
+    for k, (name, threads, warm, run_s) in enumerate(LEGS):
+        line, bad = serving_leg(idx, twin, name, threads, warm, run_s,
+                                seed=10_000 * (k + 1), smi=smi)
+        legs[name] = line
+        failures += bad
+    if legs["loaded"]["route_mix"]["resident"] <= 0:
+        failures.append("serving loaded: no resident batch")
+    burst, bad = bulk_bursts(idx, twin, seed=40_000, smi=smi)
+    failures += bad
+    runs = list(legs.values()) + [burst]
+    out["graph_replays"] = sum(x["graph"]["replays"] for x in runs)
+    out["serving_launches"] = sum(x["b1_eager_launches"] for x in runs)
+    return out, failures
+
+
+
+def run(dev, smi) -> tuple:
+    """Phases 2-7 on `dev`; -> (the entries of the kernels line, the
+    serving phase's failures)."""
     t_all = time.perf_counter()
 
     t = time.perf_counter()
@@ -912,11 +1347,14 @@ def run(dev, smi) -> list:
     legacy = legacy_phase(
         idx, twin, [(name, f, q) for name, f, q, mw in cases if mw is None],
         orc, smi, flush)
+    log(f"seconds before serving: {time.perf_counter() - t_all:.2f}")
+    serving, failures = serving_phase(idx, twin, smi)
     log(f"seconds_total: {time.perf_counter() - t_all:.2f}")
     idx.close()
     twin.close()
-    return [entry("fused_window_filter", launches, max_err, b1_t, b_ms)
-            ] + legacy
+    b1 = entry("fused_window_filter", launches, max_err, b1_t, b_ms)
+    b1.update(serving)
+    return [b1] + legacy, failures
 
 
 def main() -> int:
@@ -930,12 +1368,16 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     log(smi)
-    kernels = run(torch.device("cuda"), smi)
+    kernels, failures = run(torch.device("cuda"), smi)
     print(json.dumps({"device_time_by_kernel": DEVICE_BY_NAME, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:
         print(f"chip_smoke: never launched on its path: {idle}",
+              file=sys.stderr)
+        return 1
+    if failures:
+        print(f"chip_smoke: serving phase failed: {failures}",
               file=sys.stderr)
         return 1
     bad = sum(t.mismatches for t in TALLY.values())

@@ -6,7 +6,9 @@ MemorySpatialIndex — pure-python linear scan over the oracle.
 
 CudaSpatialIndex — the DarTable device index (dss_tpu_torch.dar.snapshot),
 the counterpart of the reference's TpuSpatialIndex; cell ids are
-compressed to int32 DAR keys on the way in.
+compressed to int32 DAR keys on the way in, and concurrent single
+queries are micro-batched by a QueryCoalescer (dss_tpu_torch.dar.coalesce)
+configured from the DSS_CO_* environment.
 
 Both expose identical query semantics (the SQL COALESCE rules).
 """
@@ -19,6 +21,8 @@ import numpy as np
 
 from dss_tpu_torch.dar import oracle
 from dss_tpu_torch.dar import tiers as tiersmod
+from dss_tpu_torch.dar.coalesce import QueryCoalescer
+from dss_tpu_torch.dar.coalesce import env_knobs as coalesce_env_knobs
 from dss_tpu_torch.dar.oracle import Record
 from dss_tpu_torch.dar.snapshot import DarTable
 from dss_tpu_torch.geo import s2cell
@@ -100,13 +104,20 @@ class CudaSpatialIndex:
     """The DarTable index on a CUDA card (or on `device`), with the
     reference TpuSpatialIndex's surface.
 
-    Until the query coalescer is ported, query_ids calls
-    DarTable.query directly: one request is one batch of one query, so
-    it answers from the exact host scan; batched callers use
-    `table.query_many` and reach the fused device kernel."""
+    query_ids goes through the QueryCoalescer: concurrent callers are
+    drained into one batch, routed to the exact host scan, a cold B1
+    launch or the resident loop (DSS_CO_RESIDENT=1), and answered with
+    the same sorted id lists as a direct DarTable.query."""
 
     def __init__(self, *, device=None, **table_kwargs):
         self._table = DarTable(device=device, **table_kwargs)
+        # concurrent readers (one thread per in-flight request) are
+        # micro-batched into single fused kernel launches; serving
+        # knobs come from DSS_CO_* env vars and can be adjusted at
+        # runtime via coalescer.configure
+        self._coalescer = QueryCoalescer(
+            self._table, **coalesce_env_knobs()
+        )
 
     def put(self, id, cells_u64, alt_lo, alt_hi, t_start, t_end, owner_id):
         self._table.upsert(
@@ -126,9 +137,9 @@ class CudaSpatialIndex:
         *,
         now,
         owner_id=None,
-        allow_stale=False,  # no replica tier yet; same-freshness reads
+        allow_stale=False,
     ) -> List[str]:
-        return self._table.query(
+        return self._coalescer.query(
             _to_keys(cells_u64),
             alt_lo,
             alt_hi,
@@ -136,6 +147,7 @@ class CudaSpatialIndex:
             None if t_end is None else int(t_end),
             now=int(now),
             owner_id=owner_id,
+            allow_stale=allow_stale,
         )
 
     def max_owner_count(self, cells_u64, owner_id, *, now) -> int:
@@ -157,11 +169,22 @@ class CudaSpatialIndex:
         self._table.cell_clock = clock
 
     def stats(self) -> dict:
-        return self._table.stats()
+        out = self._table.stats()
+        # serving-pipeline gauges (queue depth, adaptive batch size,
+        # pack/device/collect stage totals, route mix, shed counts)
+        out.update(self._coalescer.stats())
+        return out
 
     @property
     def table(self) -> DarTable:
         return self._table
 
+    @property
+    def coalescer(self) -> QueryCoalescer:
+        return self._coalescer
+
     def close(self):
+        """Stop the coalescer (it drains what it holds) before the
+        table."""
+        self._coalescer.close()
         self._table.close()

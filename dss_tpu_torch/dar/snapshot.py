@@ -278,6 +278,14 @@ class _PendingQuery:
         return any(p is not None for p in self.tier_pending)
 
 
+def _release(pendings) -> None:
+    """Hand back the resident replay units of tier batches that will
+    not be collected (a submit or collect failed beside them)."""
+    for p in pendings:
+        if p is not None:
+            p.release()
+
+
 class DarTable:
     """Device spatial index for one entity class: lock-free reads
     against the published immutable state; copy-on-write writes;
@@ -334,6 +342,11 @@ class DarTable:
         self._fold_thread: Optional[threading.Thread] = None
         self._last_write = 0.0
         self._closed = False
+        # resident warm hook (ops/resident.py): called with a freshly
+        # built snapshot's FastTable BEFORE it is swapped in, so the
+        # new table has its captured buckets scheduled (async — a
+        # capture must never stall the fold) as early as possible
+        self._resident_warm = None
         self._stats_folds = 0
         self._stats_fold_ms = 0.0
         self._stats_swap_ms = 0.0
@@ -536,6 +549,17 @@ class DarTable:
             gen0 = self._gen
         try:
             snap = self._build_snapshot(recs)  # pack + upload, unlocked
+            if self._resident_warm is not None and snap.fast is not None:
+                try:
+                    # schedule the new table's captured buckets (async;
+                    # until a bucket lands, submits launch B1 eagerly)
+                    self._resident_warm(snap.fast)
+                except Exception:  # noqa: BLE001 — warm is best-effort
+                    import logging
+
+                    logging.getLogger("dss.dar").exception(
+                        "resident warm failed"
+                    )
             t_swap = time.perf_counter()
             with self._write_lock:
                 if self._gen != gen0:
@@ -632,6 +656,26 @@ class DarTable:
             # instead of stamping every record's covering
             self.cell_clock.bump_all()
 
+    def set_resident_warm(self, fn) -> None:
+        """Install the fold-time resident warm hook: fn(fast_table) is
+        called with each freshly built snapshot's FastTable before the
+        swap (the QueryCoalescer installs this when its resident loop
+        is enabled)."""
+        self._resident_warm = fn
+
+    def warm_resident(self, kernel, batch_buckets=None,
+                      window_buckets=None) -> int:
+        """Capture the resident bucket grid for every CURRENT tier
+        (boot warm; fold-time warm of future tiers goes through
+        set_resident_warm).  Returns fresh entries built."""
+        n = 0
+        for tier in self._state.tiers:
+            if tier.snap.fast is not None:
+                n += kernel.warm(
+                    tier.snap.fast, batch_buckets, window_buckets
+                )
+        return n
+
     # -- read path (lock-free) -----------------------------------------------
 
     def query(
@@ -674,6 +718,9 @@ class DarTable:
         owner_ids: Optional[np.ndarray] = None,  # i32[B], -1 = no filter
         state: Optional[_State] = None,  # pre-grabbed state (internal)
         host_route: bool = False,  # force chunked exact host scans
+        kernel=None,  # resident selector (ops/resident.py): device
+        #               tiers replay their captured bucket instead of
+        #               launching B1 eagerly
     ) -> Optional[_PendingQuery]:
         """The host/pack half of query_many: grab ONE immutable state,
         pack the query batch, and either answer small batches from the
@@ -734,10 +781,15 @@ class DarTable:
             # caller is on the event loop: re-run via executor
             raise budget.NeedsDevice()
         tier_pending: List = [None] * len(st.tiers)
-        for ti in need_device:
-            tier_pending[ti] = st.tiers[ti].snap.fast.submit(
-                qkeys, alt_lo, alt_hi, t_start, t_end, now=now_arr,
-            )
+        try:
+            for ti in need_device:
+                tier_pending[ti] = st.tiers[ti].snap.fast.submit(
+                    qkeys, alt_lo, alt_hi, t_start, t_end, now=now_arr,
+                    kernel=kernel,
+                )
+        except BaseException:
+            _release(tier_pending)
+            raise
         return _PendingQuery(
             st, b, qkeys, alt_lo, alt_hi, t_start, t_end, now_arr,
             owner_ids, tier_host, tier_pending,
@@ -761,7 +813,11 @@ class DarTable:
             if host is not None:
                 qidx, slots = host
             else:
-                qidx, slots = tier.snap.fast.collect(pending)
+                try:
+                    qidx, slots = tier.snap.fast.collect(pending)
+                except BaseException:
+                    _release(pq.tier_pending)  # the later tiers' units
+                    raise
             if len(qidx):
                 # per-tier shadowing: slots superseded by a newer tier
                 # (or the overlay) were marked dead at write/fold time,
@@ -799,6 +855,7 @@ class DarTable:
         owner_ids: Optional[np.ndarray] = None,  # i32[B], -1 = no filter
         state: Optional[_State] = None,  # pre-grabbed state (internal)
         host_route: bool = False,  # force chunked exact host scans
+        kernel=None,  # resident selector (ops/resident.py)
     ) -> List[List[str]]:
         """Batched search via the fused fast path + overlay scan.
         Lock-free: runs against ONE atomically-grabbed immutable state.
@@ -808,7 +865,7 @@ class DarTable:
             self.query_many_submit(
                 keys_list, alt_lo, alt_hi, t_start, t_end,
                 now=now, owner_ids=owner_ids, state=state,
-                host_route=host_route,
+                host_route=host_route, kernel=kernel,
             )
         )
 

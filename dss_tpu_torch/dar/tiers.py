@@ -128,6 +128,125 @@ class CellClock:
         return self._high
 
 
+class RangeLoad:
+    """Per-key-range query-load EWMA — the measurement half of
+    skew-aware shard placement (the reference's parallel/sharded.py
+    weighted split; the port's mesh slice reads it).
+
+    DAR keys bucket by prefix (`key >> shift`, default 12: ~4096
+    adjacent level-13 cells per bucket, roughly a metro-scale S2
+    region).  Every coalescer-served query stamps its covering's
+    buckets with its measured candidate work (result count; read-cache
+    hits never reach a shard and therefore never stamp).  The
+    accumulated load decays exponentially (`decay_factor`) at the
+    rebalance-planning cadence — once per DSS_SHARD_MOVE_INTERVAL_S,
+    applied by `plan_rebalance` — so the map tracks RECENT traffic: a
+    hot spot that moved cities stops pinning shards to the old metro
+    within a few planning intervals.
+
+    Bucket count is bounded (`max_buckets`): when the dict overflows,
+    the coldest half is dropped — losing cold-bucket precision only
+    degrades the split toward equal-count, never correctness (placement
+    is a performance mapping; answers never depend on it).
+
+    Thread-safe: writers stamp under the lock from serving threads;
+    `weights_for` / `bucket_loads` take a consistent snapshot."""
+
+    __slots__ = ("shift", "decay_factor", "max_buckets", "_load",
+                 "_queries", "_lock")
+
+    def __init__(
+        self,
+        shift: Optional[int] = None,
+        decay_factor: Optional[float] = None,
+        max_buckets: int = 1 << 16,
+    ):
+        if shift is None:
+            shift = int(os.environ.get("DSS_SHARD_LOAD_SHIFT", 12))
+        if decay_factor is None:
+            decay_factor = float(
+                os.environ.get("DSS_SHARD_LOAD_DECAY", 0.5)
+            )
+        self.shift = int(shift)
+        self.decay_factor = float(decay_factor)
+        self.max_buckets = int(max_buckets)
+        self._load: Dict[int, float] = {}
+        self._queries = 0
+        self._lock = threading.Lock()
+
+    def record(self, keys, work: float = 1.0) -> None:
+        """One served query: spread its measured work over the buckets
+        its covering touches.  `work` is the candidate/result count
+        (floored at 1 so pure-miss traffic still registers — an empty
+        hot area still costs per-shard gather work)."""
+        b = np.unique(np.asarray(keys, np.int64).ravel() >> self.shift)
+        if not len(b):
+            return
+        w = max(float(work), 1.0) / len(b)
+        with self._lock:
+            self._queries += 1
+            load = self._load
+            for k in b.tolist():
+                load[k] = load.get(k, 0.0) + w
+            if len(load) > self.max_buckets:
+                # drop the coldest half: bounded bookkeeping, and the
+                # split degrades toward equal-count for cold ranges
+                keep = sorted(
+                    load.items(), key=lambda kv: kv[1], reverse=True
+                )[: self.max_buckets // 2]
+                self._load = dict(keep)
+
+    def decay(self) -> None:
+        """One fold boundary: age the EWMA.  Buckets decayed below
+        noise are dropped so a vacated hot spot releases its shards."""
+        with self._lock:
+            f = self.decay_factor
+            self._load = {
+                k: v * f for k, v in self._load.items() if v * f > 1e-3
+            }
+
+    def total(self) -> float:
+        with self._lock:
+            return sum(self._load.values())
+
+    @property
+    def queries(self) -> int:
+        return self._queries
+
+    def bucket_loads(self) -> "Tuple[np.ndarray, np.ndarray]":
+        """-> (sorted bucket ids i64, loads f64) — a consistent
+        snapshot for split planning."""
+        with self._lock:
+            if not self._load:
+                return _EMPTY_I64, np.zeros(0, np.float64)
+            ks = np.asarray(sorted(self._load), np.int64)
+            vs = np.asarray([self._load[int(k)] for k in ks], np.float64)
+        return ks, vs
+
+    def weights_for(self, post_key: np.ndarray) -> np.ndarray:
+        """Per-posting load weight: w[i] = EWMA load of posting i's
+        bucket, 0 for never-stamped buckets.  The splitter adds its
+        own count baseline, so zero-load (cold start) degrades to the
+        equal-count split exactly."""
+        ks, vs = self.bucket_loads()
+        pk = np.asarray(post_key, np.int64) >> self.shift
+        if not len(ks):
+            return np.zeros(len(pk), np.float64)
+        pos = np.searchsorted(ks, pk)
+        pos[pos == len(ks)] = 0
+        w = vs[pos].copy()
+        w[ks[pos] != pk] = 0.0
+        return w
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "shard_load_buckets": len(self._load),
+                "shard_load_total": round(sum(self._load.values()), 2),
+                "shard_load_queries": self._queries,
+            }
+
+
 class TierSnapshot(NamedTuple):
     """One immutable device snapshot (L0 and L1 are both instances)."""
 

@@ -17,7 +17,10 @@ Division of labor:
 submit() launches on the current stream and starts a non-blocking copy
 of the flat output into pinned host memory, recording an event;
 collect() waits on that event and decodes.  Many batches can be in
-flight at once.  On the CPU both halves are plain synchronous calls.
+flight at once.  With a resident `kernel=` (ops/resident.py) a submit
+whose shape bucket was captured replays that CUDA graph instead of
+launching B1 eagerly.  On the CPU both halves are plain synchronous
+calls.
 
 Small batches (<= HOST_MAX_BATCH queries) answer from the exact host
 scan instead (query_host_auto), with identical results.  The host
@@ -192,15 +195,17 @@ def warmup(device=None) -> None:
 class PendingBatch:
     """In-flight fused query batch: the flat output (pinned host copy
     on CUDA, the result itself on the CPU), the event that marks the
-    copy done, and the host decode state."""
+    copy done, and the host decode state.  `instance` is the resident
+    replay unit whose static output `host` is, held until collect has
+    read it (release())."""
 
     __slots__ = (
         "host", "event", "win_q", "win_blk", "host_inputs", "nw",
-        "max_words",
+        "max_words", "kernel", "instance",
     )
 
     def __init__(self, host, event, win_q, win_blk, host_inputs, nw,
-                 max_words):
+                 max_words, kernel=None, instance=None):
         self.host = host  # i32 [n_words, wordpos..., bits...]
         self.event = event  # torch.cuda.Event or None (CPU)
         self.win_q = win_q
@@ -208,12 +213,20 @@ class PendingBatch:
         self.host_inputs = host_inputs  # for the overflow rerun
         self.nw = nw
         self.max_words = max_words
+        self.kernel = kernel  # the resident selector, kept for the rerun
+        self.instance = instance
 
     def ready(self) -> None:
         """Block until the kernel and the D2H copy have completed
         (readiness only — no decode)."""
         if self.event is not None:
             self.event.synchronize()
+
+    def release(self) -> None:
+        """Hand the replay unit back (idempotent)."""
+        inst, self.instance = self.instance, None
+        if inst is not None:
+            inst.release()
 
 
 class FastTable:
@@ -406,6 +419,9 @@ class FastTable:
         *,
         now,  # int scalar or i64[B] per-query request time
         max_words: Optional[int] = None,
+        kernel=None,  # resident selector (ops/resident.py): maps this
+        #               submit's shape bucket to a captured CUDA graph;
+        #               None (or a miss) launches B1 eagerly
     ) -> Optional[PendingBatch]:
         """Launch one fused query batch (no device sync).  Returns None
         when no query key has any postings.
@@ -421,36 +437,48 @@ class FastTable:
             return None
         if max_words is None:
             max_words = pow2_bucket(nw, lo=1 << 16)
-        b = len(qkeys)
         # fold the liveness rule into the lower time bound per query:
         # t_end >= max(t_start, now) == (t_end >= t_start) & (t_end >= now)
         t0_eff = np.maximum(
             np.asarray(t_start, np.int64), np.asarray(now, np.int64)
         )
-        dev = self.device
+        # pad the batch axis to a pow2 bucket, as the reference does:
+        # a captured graph has fixed shapes.  Pad queries are inert —
+        # no window's meta references an index >= B.
+        b = len(qkeys)
+        bb = pow2_bucket(b, lo=16)
 
-        def up(a, dtype):  # an owned (B,) copy: inputs may be read-only
-            return torch.from_numpy(
-                np.array(np.broadcast_to(np.asarray(a, dtype), (b,)))
-            ).to(dev)
+        def qpad(a, dtype):  # an owned (bb,) copy: inputs may be read-only
+            out = np.zeros(bb, dtype)
+            out[:b] = np.broadcast_to(np.asarray(a, dtype), (b,))
+            return out
 
-        out = fused_window_filter(
-            self.b_alo, self.b_ahi, self.b_t0, self.b_t1,
-            torch.from_numpy(wins).to(dev),
-            up(alt_lo, np.float32), up(alt_hi, np.float32),
-            up(t0_eff, np.int64), up(t_end, np.int64),
-            max_words=max_words,
-        )
-        event = None
-        if out.is_cuda:
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(dev))
-            out = host
+        q = (qpad(alt_lo, np.float32), qpad(alt_hi, np.float32),
+             qpad(t0_eff, np.int64), qpad(t_end, np.int64))
+        inst = None
+        if kernel is not None:
+            inst = kernel.lookup(self, wins.shape[1], bb, max_words)
+        if inst is not None:
+            host, event = inst.replay(wins, *q)
+        else:
+            dev = self.device
+            out = fused_window_filter(
+                self.b_alo, self.b_ahi, self.b_t0, self.b_t1,
+                torch.from_numpy(wins).to(dev),
+                *(torch.from_numpy(a).to(dev) for a in q),
+                max_words=max_words,
+            )
+            host, event = out, None
+            if out.is_cuda:
+                host = torch.empty(out.shape, dtype=out.dtype,
+                                   pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
         return PendingBatch(
-            out, event, win_q, win_blk,
+            host, event, win_q, win_blk,
             (qkeys, alt_lo, alt_hi, t_start, t_end, now), nw, max_words,
+            kernel, inst,
         )
 
     def collect(
@@ -460,25 +488,29 @@ class FastTable:
         exact (not deduped).  The one host sync per batch."""
         if pending is None:
             return np.zeros(0, np.int64), np.zeros(0, np.int64)
-        pending.ready()
-        out = pending.host.numpy()
-        mw = pending.max_words
-        n_words = int(out[0])
+        try:
+            pending.ready()
+            out = pending.host.numpy()
+            mw = pending.max_words
+            n_words = int(out[0])
+            # copies: a replay unit's output is reused once released
+            wordpos = out[1 : 1 + min(n_words, mw)].copy()
+            bits = out[1 + mw : 1 + mw + min(n_words, mw)].astype(np.int32)
+        finally:
+            pending.release()
         if n_words > mw:
             # overflow: rerun at the hard upper bound (4 words per
-            # window), which cannot overflow
+            # window), which cannot overflow, through the same selector
             qkeys, alt_lo, alt_hi, t_start, t_end, now = pending.host_inputs
             hard = pow2_bucket(4 * pending.nw, lo=1 << 16)
             return self.collect(
                 self.submit(
                     qkeys, alt_lo, alt_hi, t_start, t_end,
-                    now=now, max_words=hard,
+                    now=now, max_words=hard, kernel=pending.kernel,
                 )
             )
         if n_words == 0:
             return np.zeros(0, np.int64), np.zeros(0, np.int64)
-        wordpos = out[1 : 1 + n_words]
-        bits = out[1 + mw : 1 + mw + n_words].astype(np.int32)
         wi, bitpos = _expand_hit_words(bits.view(np.uint32))
         wp = wordpos[wi]
         wshift = WORDS.bit_length() - 1  # WORDS is a pow2

@@ -18,9 +18,12 @@ start | end<<8 | qidx<<16]; per-query bounds `q_alo/q_ahi` f32[B] and
 (t0_eff = max(t_start, now)).
 
 The kernel is one launch that writes the whole output, so the wrapper
-allocates it with `torch.empty`.  It keeps a small scratch per device
-and stream (tile counter, epoch, tile statuses), zeroed once when it is
-allocated or grown.  The kernel is built with the other kernels of
+allocates it with `torch.empty`, or writes into the caller's `out`.  It
+keeps a small scratch per device and stream (tile counter, epoch, tile
+statuses), zeroed once when it is allocated or grown; a caller that
+captures the launch into a CUDA graph (ops/resident.py) passes a
+scratch of its own (`new_scratch`), since a graph replays on whatever
+stream it is launched on.  The kernel is built with the other kernels of
 `csrc/` by `ops/cuda_build.py` and bound once with ctypes through a
 plain C function.
 `exact_hits` is the per-lane exact compare, shared with B4's plain
@@ -31,6 +34,7 @@ source shares its compare between B1 and B4.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -55,6 +59,9 @@ _fn = None  # the kernel's C entry, bound at the first launch
 # counter, epoch and tile statuses.  Zeroed once when allocated; each
 # launch leaves it ready for the next one on the same stream.
 _scratch = {}
+# serving threads launch and replay at once: the counts below are
+# bumped under this lock, so no increment is lost
+COUNT_LOCK = threading.Lock()
 
 
 def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
@@ -69,32 +76,48 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def new_scratch(dev, n_tiles: int) -> torch.Tensor:
+    """A zeroed scratch for launches over up to n_tiles tiles of
+    TILE_WINDOWS windows, on one stream or in one captured graph."""
+    cap = max(1024, 1 << max(n_tiles - 1, 0).bit_length())
+    return torch.zeros(SCRATCH_HEAD + cap, dtype=torch.int64, device=dev)
+
+
 def _scratch_for(dev, stream: int, n_tiles: int) -> torch.Tensor:
     """The launch's scratch on (dev, stream), grown to n_tiles statuses."""
     key = (dev.index, stream)
     buf = _scratch.get(key)
     if buf is None or buf.numel() < SCRATCH_HEAD + n_tiles:
-        cap = max(1024, 1 << max(n_tiles - 1, 0).bit_length())
-        buf = torch.zeros(SCRATCH_HEAD + cap, dtype=torch.int64, device=dev)
+        buf = new_scratch(dev, n_tiles)
         _scratch[key] = buf
     return buf
 
 
 def fused_window_filter(
     b_alo, b_ahi, b_t0, b_t1, wins, q_alo, q_ahi, q_t0, q_t1,
-    *, max_words: int,
+    *, max_words: int, out=None, scratch=None,
 ) -> torch.Tensor:
     """Exact window filter + hit bit-packing + word compaction (see
-    the module docstring).  CUDA tensors launch the kernel (or raise);
-    CPU tensors run the plain version.  `fused_window_filter.launches`
-    counts kernel launches."""
+    the module docstring), into `out` when given (i32, 1 + 2*max_words).
+    CUDA tensors launch the kernel (or raise), with `scratch` in place
+    of the stream's own when given; CPU tensors run the plain version.
+    `fused_window_filter.launches` counts the kernel's launches (a call
+    under CUDA graph capture launches nothing and is not counted);
+    `fused_window_filter.graph_replays` counts replays of captured
+    calls (ops/resident.py)."""
     global _fn
     dev = b_alo.device
+    if out is not None:
+        _check(out, "out", torch.int32, 1, dev)
+        if out.shape[0] != 1 + 2 * max_words:
+            raise ValueError(f"out must have 1 + 2*max_words = "
+                             f"{1 + 2 * max_words} elements")
     if dev.type == "cpu":
-        return fused_window_filter_torch(
+        res = fused_window_filter_torch(
             b_alo, b_ahi, b_t0, b_t1, wins, q_alo, q_ahi, q_t0, q_t1,
             max_words=max_words,
         )
+        return res if out is None else out.copy_(res)
     if dev.type != "cuda":
         raise ValueError(f"fused_window_filter: unsupported device {dev}")
     cols = (("b_alo", b_alo, torch.float32), ("b_ahi", b_ahi, torch.float32),
@@ -117,12 +140,19 @@ def fused_window_filter(
     if nw >= 1 << 29 or not 0 <= max_words < 1 << 30 \
             or b_alo.shape[0] >= 1 << 31 or q_alo.shape[0] >= 1 << 31:
         raise ValueError(f"unsupported nw={nw} / max_words={max_words}")
+    n_tiles = -(-nw // TILE_WINDOWS)
+    if scratch is not None:
+        _check(scratch, "scratch", torch.int64, 1, dev)
+        if scratch.shape[0] < SCRATCH_HEAD + n_tiles:
+            raise ValueError(f"scratch needs {SCRATCH_HEAD + n_tiles} words")
     if _fn is None:
         _fn = cuda_build.function("dss_fused_window_filter", _ARGTYPES)
-    out = torch.empty(1 + 2 * max_words, dtype=torch.int32, device=dev)
+    if out is None:
+        out = torch.empty(1 + 2 * max_words, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        scratch = _scratch_for(dev, stream, -(-nw // TILE_WINDOWS))
+        if scratch is None:
+            scratch = _scratch_for(dev, stream, n_tiles)
         err = _fn(
             b_alo.data_ptr(), b_ahi.data_ptr(), b_t0.data_ptr(),
             b_t1.data_ptr(), int(b_alo.shape[0]), wins.data_ptr(), nw,
@@ -130,13 +160,17 @@ def fused_window_filter(
             q_t1.data_ptr(), int(q_alo.shape[0]), int(max_words),
             out.data_ptr(), scratch.data_ptr(), stream,
         )
+        capturing = torch.cuda.is_current_stream_capturing()
     if err != 0:
         raise RuntimeError(f"fused_window_filter launch failed: CUDA error {err}")
-    fused_window_filter.launches += 1
+    if not capturing:
+        with COUNT_LOCK:
+            fused_window_filter.launches += 1
     return out
 
 
 fused_window_filter.launches = 0
+fused_window_filter.graph_replays = 0
 
 
 def _bit_weights(device) -> torch.Tensor:

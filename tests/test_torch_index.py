@@ -109,3 +109,53 @@ def test_index_matches_reference_indexes():
     finally:
         port.close()
         tpu.close()
+
+
+def test_concurrent_query_ids_through_the_coalescer():
+    """Concurrent callers of CudaSpatialIndex.query_ids are drained by
+    its QueryCoalescer, as TpuSpatialIndex's are: the same sorted id
+    lists, the coalescer's gauges in stats(), and a close() that stops
+    the coalescer before the table."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = np.random.default_rng(31)
+    port = CudaSpatialIndex(device="cpu", idle_fold_s=0)
+    tpu = TpuSpatialIndex(idle_fold_s=0)
+    centers = [(37.77, -122.42), (37.80, -122.27)]
+    try:
+        for i in range(400):
+            lat0, lng0 = centers[i % 2]
+            cells = _footprint(rng, lat0, lng0)
+            alo = float(rng.uniform(0, 1000))
+            for ix in (port, tpu):
+                ix.put(f"op{i}", cells, alo, alo + 200.0, NOW - HOUR,
+                       NOW + HOUR, i % 3)
+            if i == 300:
+                port.table.fold()
+                tpu.table.fold()
+        qs = []
+        for j in range(160):
+            lat0, lng0 = centers[j % 2]
+            alo = float(rng.uniform(0, 1000))
+            qs.append((_footprint(rng, lat0, lng0), alo, alo + 300.0,
+                       j % 4 if j % 5 == 0 else None))
+
+        def ask(ix, q):
+            cells, lo, hi, owner = q
+            return ix.query_ids(cells, lo, hi, NOW - HOUR, NOW + HOUR,
+                                now=NOW, owner_id=owner)
+
+        with ThreadPoolExecutor(max_workers=24) as pool:
+            got = list(pool.map(lambda q: ask(port, q), qs, timeout=60))
+            want = list(pool.map(lambda q: ask(tpu, q), qs, timeout=60))
+        assert got == want
+        assert sum(map(len, got)) > 100
+        st = port.stats()
+        assert st["co_items"] + st["co_inline"] >= 1
+        assert set(tpu.stats()) <= set(st)
+        assert port.coalescer.stats()["co_queue_depth"] == 0
+    finally:
+        port.close()
+        tpu.close()
+    with pytest.raises(RuntimeError, match="closed"):
+        port.query_ids(qs[0][0], now=NOW)

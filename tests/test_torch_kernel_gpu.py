@@ -4,7 +4,11 @@ B1 (the fused window filter), B2 and B3 (the quantized window mask) and
 B4 (the exact window mask), each on card tensors against its plain
 version on the same tensors; masks and words must be equal exactly.
 B1's single-pass compaction is also held at the max_words boundaries,
-past 4,096 tiles, over back-to-back launches and on a dirty output.
+past 4,096 tiles, over back-to-back launches and on a dirty output, and
+B1 captured into a CUDA graph (ops/resident.py) against its eager
+launch and plain version: at two buckets, over 50 replays that never
+re-zero the scratch, with two units in flight, and captured while
+another thread serves cold batches.
 
 Needs a CUDA card (marker `gpu`); skips elsewhere.  This file imports
 neither jax nor the reference package, so it runs on a machine that has
@@ -286,3 +290,205 @@ def test_mask_kernels_count_launches_and_reject_bad_input(cuda):
     with pytest.raises(ValueError):  # p3 must be 16-byte aligned
         fc.filter_windows_gridless(ft.p3.reshape(-1)[1:641].reshape(1, 5, 128),
                                    *(a[:32] for a in args))
+
+
+# -- B1 under CUDA graph replay (ops/resident.py) -------------------------------
+
+
+def _graph_batch(ft, rng, b, w, n_cells):
+    """One batch for FastTable.submit -> (submit args, its window and
+    batch buckets, the kernel's padded card inputs)."""
+    qkeys, alo, ahi, t0, t1 = _queries(rng, b, w, n_cells)
+    wins, _, _, nw = ft._pack_windows(qkeys)
+    bb = pow2_bucket(b, lo=16)
+
+    def pad(a, dtype):
+        out = np.zeros(bb, dtype)
+        out[:b] = a
+        return torch.from_numpy(out).to(ft.device)
+
+    kargs = (ft.b_alo, ft.b_ahi, ft.b_t0, ft.b_t1,
+             torch.from_numpy(wins).to(ft.device), pad(alo, np.float32),
+             pad(ahi, np.float32), pad(np.maximum(t0, NOW), np.int64),
+             pad(t1, np.int64))
+    return (qkeys, alo, ahi, t0, t1), wins.shape[1], bb, kargs
+
+
+def _replayed(ft, kern, q):
+    """submit through the selector -> (pinned output copy, decoded)."""
+    pend = ft.submit(*q, now=NOW, kernel=kern)
+    assert pend.instance is not None, "expected a captured bucket"
+    pend.ready()
+    out = pend.host.clone()
+    return out, ft.collect(pend)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed,b,w", [(21, 100, 8), (22, 1000, 8)])
+def test_graph_replay_equals_eager_and_plain(cuda, seed, b, w):
+    """At two (window, batch) buckets: the captured call's output equals
+    an eager B1 launch and the plain version word for word; a replay
+    counts in graph_replays and not in launches."""
+    from dss_tpu_torch.ops.resident import (GraphCache, ResidentKernel,
+                                            max_words_for)
+
+    rng = np.random.default_rng(seed)
+    ft = _table(rng, 20000, 4000, cuda)
+    q, wb, bb, kargs = _graph_batch(ft, rng, b, w, 4000)
+    mw = max_words_for(wb)
+    cache = GraphCache()
+    kern = ResidentKernel(cache, autocompile=False)
+    assert cache.compile(ft, wb, bb, mw, instances=2)
+    assert cache.captures == 2
+    launches = ff.fused_window_filter.launches
+    replays = ff.fused_window_filter.graph_replays
+    graph_out, graph_hits = _replayed(ft, kern, q)
+    assert ff.fused_window_filter.graph_replays == replays + 1
+    assert ff.fused_window_filter.launches == launches
+    eager = ff.fused_window_filter(*kargs, max_words=mw)
+    plain = ff.fused_window_filter_torch(*kargs, max_words=mw)
+    torch.cuda.synchronize()
+    assert int(plain[0]) > 0
+    assert torch.equal(graph_out, eager.cpu())
+    assert torch.equal(graph_out, plain.cpu())
+    want = ft.query_fused(*q, now=NOW)
+    np.testing.assert_array_equal(graph_hits[0], want[0])
+    np.testing.assert_array_equal(graph_hits[1], want[1])
+
+
+@pytest.mark.gpu
+def test_fifty_replays_never_rezero_the_scratch(cuda):
+    """One replay unit, 50 batches of one bucket back to back: the
+    unit's B1 scratch is never zeroed again (its epoch advances on the
+    device) and every replay equals the plain version."""
+    from dss_tpu_torch.ops.resident import (GraphCache, ResidentKernel,
+                                            max_words_for)
+
+    rng = np.random.default_rng(23)
+    ft = _table(rng, 20000, 4000, cuda)
+    batches = [_graph_batch(ft, rng, 200, 8, 4000)]
+    wb, bb = batches[0][1:3]
+    while len(batches) < 50:
+        x = _graph_batch(ft, rng, 200, 8, 4000)
+        if x[1:3] == (wb, bb):
+            batches.append(x)
+    mw = max_words_for(wb)
+    cache = GraphCache()
+    kern = ResidentKernel(cache, autocompile=False, instances=1)
+    cache.compile(ft, wb, bb, mw, instances=1)
+    unit = kern.lookup(ft, wb, bb, mw)
+    scratch_ptr = unit.scratch.data_ptr()
+    unit.release()
+    for i, (q, _, _, kargs) in enumerate(batches):
+        out, _ = _replayed(ft, kern, q)
+        want = ff.fused_window_filter_torch(*kargs, max_words=mw)
+        assert torch.equal(out, want.cpu()), i
+    unit = kern.lookup(ft, wb, bb, mw)
+    assert unit.scratch.data_ptr() == scratch_ptr
+    assert unit.scratch[:ff.SCRATCH_HEAD].any()  # the epoch moved on
+    unit.release()
+    assert kern.hits == 52 and kern.busy == 0
+
+
+@pytest.mark.gpu
+def test_two_units_in_flight_do_not_alias(cuda):
+    """Two batches of one bucket submitted before either is collected
+    take two units, and each decodes its own answer."""
+    from dss_tpu_torch.ops.resident import (GraphCache, ResidentKernel,
+                                            max_words_for)
+
+    rng = np.random.default_rng(24)
+    ft = _table(rng, 20000, 4000, cuda)
+    a = _graph_batch(ft, rng, 100, 8, 4000)
+    while True:
+        b = _graph_batch(ft, rng, 100, 8, 4000)
+        if b[1:3] == a[1:3]:
+            break
+    cache = GraphCache()
+    kern = ResidentKernel(cache, autocompile=False, instances=2)
+    cache.compile(ft, a[1], a[2], max_words_for(a[1]), instances=2)
+    pa = ft.submit(*a[0], now=NOW, kernel=kern)
+    pb = ft.submit(*b[0], now=NOW, kernel=kern)
+    assert pa.instance is not None and pb.instance is not None
+    assert pa.instance is not pb.instance
+    assert pa.host.data_ptr() != pb.host.data_ptr()
+    got_b = ft.collect(pb)
+    got_a = ft.collect(pa)
+    for got, x in ((got_a, a), (got_b, b)):
+        want = ft.query_fused(*x[0], now=NOW)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_capture_while_another_thread_serves_cold(cuda):
+    """Captures (thread-local mode) succeed while another thread runs
+    cold-route batches (eager B1, allocations, pinned copies, event
+    waits) on the default stream, and both sides stay exact."""
+    import threading
+
+    from dss_tpu_torch.ops.resident import (GraphCache, ResidentKernel,
+                                            max_words_for)
+
+    rng = np.random.default_rng(25)
+    ft = _table(rng, 20000, 4000, cuda)
+    cold = [_graph_batch(ft, rng, 300, 8, 4000)[0] for _ in range(4)]
+    want_cold = [ft.query_fused(*q, now=NOW) for q in cold]
+    q, wb, bb, kargs = _graph_batch(ft, rng, 100, 8, 4000)
+    stop = threading.Event()
+    errors, served = [], [0]
+
+    def serve():
+        try:
+            while not stop.is_set():
+                i = served[0] % len(cold)
+                got = ft.query_fused(*cold[i], now=NOW)
+                assert np.array_equal(got[0], want_cold[i][0])
+                assert np.array_equal(got[1], want_cold[i][1])
+                served[0] += 1
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    th = threading.Thread(target=serve)
+    th.start()
+    try:
+        cache = GraphCache()
+        kern = ResidentKernel(cache, autocompile=False, instances=4)
+        for wbi in (wb, 2 * wb):
+            assert cache.compile(ft, wbi, bb, max_words_for(wbi), 4)
+    finally:
+        stop.set()
+        th.join(60)
+    assert not errors, errors
+    assert served[0] > 0 and cache.captures == 8
+    out, _ = _replayed(ft, kern, q)
+    want = ff.fused_window_filter_torch(*kargs, max_words=max_words_for(wb))
+    assert torch.equal(out, want.cpu())
+
+
+@pytest.mark.gpu
+def test_dropped_entry_frees_its_pinned_buffers(cuda):
+    """The captured graph's copies are torch copies of pinned buffers:
+    when a fold drops a table, its entry's units and their pinned
+    buffers are freed, and a capture and replay on the next table stay
+    exact."""
+    import gc
+
+    from dss_tpu_torch.ops.resident import (GraphCache, ResidentKernel,
+                                            max_words_for)
+
+    rng = np.random.default_rng(26)
+    cache = GraphCache()
+    kern = ResidentKernel(cache, autocompile=False, instances=2)
+    for n in range(2):
+        ft = _table(rng, 20000, 4000, cuda)
+        q, wb, bb, kargs = _graph_batch(ft, rng, 100, 8, 4000)
+        assert cache.compile(ft, wb, bb, max_words_for(wb), 2)
+        out, _ = _replayed(ft, kern, q)
+        want = ff.fused_window_filter_torch(*kargs,
+                                            max_words=max_words_for(wb))
+        assert torch.equal(out, want.cpu())
+        del ft, kargs
+        gc.collect()
+        torch.cuda.synchronize()
+        assert cache.size() == 0 and cache.dropped == n + 1
