@@ -45,14 +45,33 @@ Phases (any failure exits non-zero; nothing is caught):
      then the reference's bulk stale drain (bench.py:1157-1186), 16
      bursts of 128 bounded-staleness callers, every answer held against
      the twin, one `bulk_burst` line;
-  8. the device time of each kernel by device kernel name, the kernels
-     line (four kernels; B1's entry with its graph replays), with each
-     kernel's count of comparisons made and of those that disagreed;
-     then the ok line, or exit 1 if any disagreed, a kernel of a path
-     never launched, or the serving phase failed (a caller error other
-     than OverloadedError or DEADLINE_EXCEEDED, an absorbed device
-     loss, no resident batch at 32 threads, no graph replay in the
-     bulk bursts).
+  8. the store: a WAL of 500k SCD operational intents (8 contiguous
+     level-13 cells each, 10-600 m bands, 1-5 h windows), the RID poll
+     recipe's 4,000 ISAs over 512 areas, and a few hundred RID
+     subscriptions, SCD subscriptions and constraints, written with
+     the port's codec and WriteAheadLog; DSSStore(storage="cuda")
+     booted from it (`store_boot`: records, seconds, records/s, each class's tiers and
+     live records, MiB on the card); the resident graph grid warmed;
+     with B1's counts from zero, 512 seeded search_operations held
+     against the oracle at the store clock (`store_oracle`), the bulk
+     stale drain through the store (8 bursts of 128 allow_stale
+     callers, `store_burst`), 1,200 writes (OVN-keyed upserts keyed
+     from a prior search, a third of the new ones one OVN short and
+     refused, fenced updates, deletes, subscriptions; `store_writes`),
+     a reboot from the same WAL compared with the live store
+     (`store_reboot`: the time to recover), and the RID poll recipe
+     through store.rid.search_isas, cache on then off, against a
+     memory twin that takes the same writes (`store_poll`);
+  9. the device time of each kernel by device kernel name, the kernels
+     line (four kernels; B1's entry with its graph replays and its
+     store-phase counts), with each kernel's count of comparisons made
+     and of those that disagreed; then the ok line, or exit 1 if any
+     comparison disagreed, a kernel of a path never launched, or the
+     serving or store phase failed (a caller error other than
+     OverloadedError or DEADLINE_EXCEEDED, an absorbed device loss, no
+     resident batch at 32 threads, no graph replay in the bulk bursts,
+     a refused write that should have passed, no B1 launch or replay
+     in the store phase).
 Times: `ms` is a kernel's device time per wrapper call with the L2
 flushed (a real batch finds its blocks cold): the kernels, memsets and
 copies that 30 calls launched, summed from torch.profiler, over 30;
@@ -67,6 +86,7 @@ Runs the port only: imports neither jax nor the reference package.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -122,6 +142,23 @@ BURST_QUEUED = 80
 BURSTS = 16
 QUERIES_PER_CLIENT = 2048  # pregenerated per client thread, cycled
 SERVING_SAMPLE = 4096  # answers per leg held against the CPU twin
+# the store phase: a WAL of SCD operational intents in the headline
+# recipe's geometry (bench.py:61-105, each intent's KPE cells
+# contiguous), the RID poll recipe's ISAs (bench.py:796-840, :928-931)
+# and a few hundred SCD subscriptions and constraints, booted into
+# DSSStore(storage="cuda").  Half the north star's 1M (BASELINE.json):
+# the boot and the reboot replay one record at a time on the host, and
+# at 1M on an H100 host (about 1,700 records/s) the whole smoke took
+# 1,471 s, past its 1,200 s limit (PERF.md §4).
+STORE_OPS = 500_000
+STORE_SUBS = 300  # SCD subscriptions; as many RID subscriptions
+STORE_CSTS = 200
+POLL_ISAS, POLL_AREAS, POLL_CELLS = 4000, 512, 64
+POLL_RATIO, POLL_ZIPF, POLL_THREADS, POLL_SECS = 100, 1.1, 8, 3.0
+ORACLE_SAMPLE = 512  # store searches held against the oracle
+STORE_BURSTS = 8
+STORE_WRITES = 1200
+REBOOT_SAMPLE = 256  # searches compared between the live and rebooted store
 # kernel -> (its CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "fused_window_filter": ("dss_tpu_torch/csrc/fused_filter.cu",
@@ -368,6 +405,7 @@ class Tally:
 
 
 TALLY = {name: Tally(name) for name in KERNELS}
+STORE_TALLY = Tally("store")  # the store phase's answers and state
 
 
 def resolve_max_words(args, nw, spec) -> int:
@@ -1213,6 +1251,528 @@ def serving_phase(idx, twin, smi) -> tuple:
 
 
 
+class StoreOracle:
+    """oracle.search over the store phase's operations: the WAL's rows
+    (column arrays, found by a sorted postings index) minus those
+    rewritten since, plus the rewritten ones still present.  `now` is
+    the store clock's, so expiry is the store's visibility rule."""
+
+    def __init__(self, cols, now):
+        self.keys, self.alo, self.ahi, self.t0, self.t1 = cols
+        flat = self.keys.ravel()
+        self.order = np.argsort(flat, kind="stable")
+        self.sorted = flat[self.order]
+        self.now = now
+        self.changed = {}  # id -> Record, or None when removed
+
+    def rows(self, keys_row):
+        lo = np.searchsorted(self.sorted, keys_row, "left")
+        hi = np.searchsorted(self.sorted, keys_row, "right")
+        hit = np.concatenate([self.order[a:b] for a, b in zip(lo, hi)])
+        return np.unique(hit // self.keys.shape[1])
+
+    def record(self, r):
+        return Record(f"op{r}", self.keys[r], float(self.alo[r]),
+                      float(self.ahi[r]), int(self.t0[r]), int(self.t1[r]), 0)
+
+    def ids(self, keys_row, alo, ahi, ts, te):
+        cands = [self.record(r) for r in self.rows(keys_row)
+                 if f"op{r}" not in self.changed]
+        cands += [r for r in self.changed.values() if r is not None]
+        recs = dict(enumerate(cands))
+        slots = oracle.search(recs, keys_row, float(alo), float(ahi),
+                              int(ts), int(te), self.now)
+        return sorted(recs[s].entity_id for s in slots)
+
+
+def store_columns(n, seed=5):
+    """The store phase's operational intents as columns: KPE contiguous
+    level-13 cells over the N_CELLS metro region, 10-600 m altitude
+    bands, 1-5 h windows."""
+    rng = np.random.default_rng(seed)
+    start = rng.integers(0, N_CELLS - KPE, n)
+    keys = (start[:, None] + np.arange(KPE)[None, :]).astype(np.int32)
+    alo = rng.uniform(0, 3000, n).astype(np.float32)
+    ahi = alo + rng.uniform(10, 600, n).astype(np.float32)
+    t0 = NOW + rng.integers(-4, 4, n) * HOUR
+    t1 = t0 + rng.integers(1, 6, n) * HOUR
+    return keys, alo, ahi, t0, t1
+
+
+def write_store_wal(path, cols) -> dict:
+    """The store phase's WAL, written with the port's codec and
+    WriteAheadLog: the format record, then one `scd_op_put` per
+    operation, the poll recipe's ISAs, RID subscriptions over its
+    areas, and SCD subscriptions and constraints.  Commit stamps are
+    one microsecond apart, ending at the store clock's NOW.  ->
+    {"rid_recs": the ISA and RID subscription records, "areas": the
+    poll areas' coverings, "window": (t0, t1) of the ISAs}."""
+    from datetime import timedelta
+
+    from dss_tpu_torch.clock import from_nanos
+    from dss_tpu_torch.dar import codec
+    from dss_tpu_torch.dar.wal import WriteAheadLog
+    from dss_tpu_torch.models import rid as ridm
+    from dss_tpu_torch.models import scd as scdm
+    from dss_tpu_torch.models.core import Version, new_ovn_from_time
+
+    keys, alo, ahi, t0, t1 = cols
+    n = len(keys)
+    cells = s2cell.dar_key_to_cell(keys.ravel()).reshape(keys.shape)
+    base = from_nanos(NOW)
+    total = n + POLL_ISAS + 2 * STORE_SUBS + STORE_CSTS
+    stamps = iter(base - timedelta(microseconds=total - k)
+                  for k in range(total))
+    wal = WriteAheadLog(path)
+    for i in range(n):
+        oid = f"op{i}"
+        wal.append({"t": "scd_op_put", "doc": codec.op_to_doc(scdm.Operation(
+            id=oid, owner=f"uss{i % 64}", version=1,
+            ovn=new_ovn_from_time(next(stamps), oid),
+            start_time=from_nanos(int(t0[i])), end_time=from_nanos(int(t1[i])),
+            altitude_lower=float(alo[i]), altitude_upper=float(ahi[i]),
+            uss_base_url="https://uss.example", state="Accepted",
+            cells=cells[i], subscription_id=f"sub{i % STORE_SUBS}"))})
+    # the poll recipe's RID state (bench.py:796-840): POLL_ISAS ISAs
+    # spread over POLL_AREAS disjoint areas of POLL_CELLS cells
+    areas = [s2cell.dar_key_to_cell(np.arange(
+        k * POLL_CELLS, (k + 1) * POLL_CELLS, dtype=np.int64))
+        for k in range(POLL_AREAS)]
+    w0 = base + timedelta(minutes=5)
+    w1 = w0 + timedelta(hours=24)
+    rid_recs = []
+    for k in range(POLL_ISAS):
+        rid_recs.append({"t": "isa_put", "doc": codec.isa_to_doc(
+            ridm.IdentificationServiceArea(
+                id=f"isa{k}", owner="poller", url="https://uss.example/f",
+                cells=areas[k % POLL_AREAS], start_time=w0, end_time=w1,
+                version=Version.from_time(next(stamps)),
+                altitude_lo=0.0, altitude_hi=3000.0))})
+    # display providers' subscriptions over the poll areas
+    for k in range(STORE_SUBS):
+        rid_recs.append({"t": "rid_sub_put", "doc": codec.rid_sub_to_doc(
+            ridm.Subscription(
+                id=f"rsub{k}", owner=f"dp{k % 16}",
+                url="https://dp.example/n", cells=areas[k % POLL_AREAS],
+                start_time=w0, end_time=w1,
+                version=Version.from_time(next(stamps)),
+                altitude_lo=0.0, altitude_hi=3000.0))})
+    for rec in rid_recs:
+        wal.append(rec)
+    rng = np.random.default_rng(6)
+    for j in range(STORE_SUBS + STORE_CSTS):
+        s = int(rng.integers(0, N_CELLS - KPE))
+        c = s2cell.dar_key_to_cell(np.arange(s, s + KPE, dtype=np.int64))
+        if j < STORE_SUBS:
+            wal.append({"t": "scd_sub_put", "doc": codec.scd_sub_to_doc(
+                scdm.Subscription(
+                    id=f"sub{j}", owner=f"uss{j % 64}", version=1,
+                    start_time=base - timedelta(hours=1),
+                    end_time=base + timedelta(hours=6),
+                    base_url="https://uss.example",
+                    notify_for_operations=True, cells=c))})
+            next(stamps)
+        else:
+            cid = f"cst{j}"
+            wal.append({"t": "scd_cst_put", "doc": codec.constraint_to_doc(
+                scdm.Constraint(
+                    id=cid, owner="authority", version=1,
+                    ovn=new_ovn_from_time(next(stamps), cid),
+                    start_time=base - timedelta(hours=1),
+                    end_time=base + timedelta(hours=5),
+                    altitude_lower=0.0, altitude_upper=600.0,
+                    uss_base_url="https://authority.example", cells=c))})
+    wal.close()
+    return {"rid_recs": rid_recs, "areas": areas, "window": (w0, w1)}
+
+
+STORE_CLASSES = ("isa", "rid_sub", "op", "scd_sub", "constraint")
+
+
+def store_counts(store) -> dict:
+    """Per class: the store's records and the index's live records."""
+    held = {"isa": store.rid._isas, "rid_sub": store.rid._subs,
+            "op": store.scd._ops, "scd_sub": store.scd._subs,
+            "constraint": store.scd._csts}
+    out = {}
+    for index, cls in store._class_indexes():
+        st = index.stats()
+        out[cls] = {"records": len(held[cls]),
+                    "live_records": st["live_records"],
+                    "tier_count": st.get("tier_count", 0)}
+    return out
+
+
+def op_query(store, q, i, allow_stale=False):
+    """Query i of batch q through store.scd.search_operations -> the
+    answer as (id, version, ovn) triples."""
+    from dss_tpu_torch.clock import from_nanos
+
+    keys, alo, ahi, ts, te = q
+    cells = s2cell.dar_key_to_cell(keys[i])
+    got = store.scd.search_operations(
+        cells, float(alo[i]), float(ahi[i]), from_nanos(int(ts[i])),
+        from_nanos(int(te[i])), allow_stale=allow_stale)
+    return [(o.id, o.version, o.ovn) for o in got]
+
+
+def store_bursts(store, orc, seed) -> dict:
+    """The reference's bulk stale drain (bench.py:1157-1186) through
+    store.scd.search_operations(..., allow_stale=True): STORE_BURSTS
+    bursts of BURST_CALLERS callers, the op table's submit held until
+    BURST_QUEUED queue; every answer held against the oracle."""
+    index = store.scd._op_index
+    co, table = index.coalescer, index.table
+    submit = table.query_many_submit
+    errors_seen, queued = [], []
+    st0 = co.stats()
+    for k in range(STORE_BURSTS):
+        q = make_batch(seed + k, BURST_CALLERS, N_CELLS, WIDTH)
+        got = [None] * BURST_CALLERS
+        gate = threading.Event()
+
+        def gated(*a, **kw):
+            gate.wait(10.0)
+            return submit(*a, **kw)
+
+        def client(i):
+            try:
+                got[i] = op_query(store, q, i, allow_stale=True)
+            except Exception as e:  # noqa: BLE001 — fails the phase below
+                errors_seen.append(repr(e))
+
+        ths = [threading.Thread(target=client, args=(i,))
+               for i in range(BURST_CALLERS)]
+        table.query_many_submit = gated
+        try:
+            for th in ths:
+                th.start()
+            until = time.perf_counter() + 5.0
+            while (co.stats()["co_queue_depth"] < BURST_QUEUED
+                   and time.perf_counter() < until):
+                time.sleep(0.005)
+            queued.append(co.stats()["co_queue_depth"])
+        finally:
+            del table.query_many_submit
+            gate.set()
+        for th in ths:
+            th.join(60)
+        for i, g in enumerate(got):
+            STORE_TALLY.check(
+                g is not None and [x[0] for x in g] == orc.ids(
+                    q[0][i], q[1][i], q[2][i], q[3][i], q[4][i]),
+                f"store burst {k}: caller {i} != oracle")
+    st1 = co.stats()
+    return {
+        "bursts": STORE_BURSTS, "callers": BURST_CALLERS,
+        "queued_at_release": queued, "client_errors": errors_seen[:3],
+        "route_mix": {r: st1[f"co_route_{r}_batches"]
+                      - st0[f"co_route_{r}_batches"]
+                      for r in ("host", "hostchunk", "device", "resident")},
+        "device_loss_absorbed": st1["co_device_loss_absorbed"],
+    }
+
+
+def store_writes(store, orc) -> dict:
+    """STORE_WRITES writes through the store, in turns: new operations
+    keyed with the OVNs of a prior search (every third one a key short
+    of an overlapping OVN, which the store must refuse with
+    MISSING_OVNS), fenced updates of live operations, deletes, and SCD
+    subscriptions.  The oracle follows every accepted write."""
+    import dataclasses
+
+    from dss_tpu_torch import errors
+    from dss_tpu_torch.clock import from_nanos
+    from dss_tpu_torch.models import scd as scdm
+
+    rng = np.random.default_rng(7)
+    n_ops = len(orc.keys)
+    done = {"new": 0, "refused": 0, "updated": 0, "deleted": 0, "subs": 0}
+    bad = []
+
+    def live_op():
+        while True:
+            i = int(rng.integers(0, n_ops))
+            if f"op{i}" not in orc.changed and orc.t1[i] >= orc.now:
+                return i
+
+    for j in range(STORE_WRITES):
+        kind = j % 6
+        if kind in (0, 1, 2, 3):
+            start = int(rng.integers(0, N_CELLS - KPE))
+            keys = np.arange(start, start + KPE, dtype=np.int32)
+            alo = float(np.float32(rng.uniform(0, 3000)))
+            ahi = float(np.float32(alo + rng.uniform(10, 600)))
+            t0 = NOW + int(rng.integers(0, 4)) * HOUR
+            t1 = t0 + int(rng.integers(1, 6)) * HOUR
+            cells = s2cell.dar_key_to_cell(keys)
+            if kind == 3:  # fenced update of a live op, moved in place
+                i = live_op()
+                old = store.scd.get_operation(f"op{i}")
+                keys, cells = orc.keys[i], old.cells
+                op = dataclasses.replace(
+                    old, altitude_lower=alo, altitude_upper=ahi,
+                    start_time=from_nanos(t0), end_time=from_nanos(t1))
+            else:
+                op = scdm.Operation(
+                    id=f"w{j}", owner=f"uss{j % 64}", version=0,
+                    start_time=from_nanos(t0), end_time=from_nanos(t1),
+                    altitude_lower=alo, altitude_upper=ahi,
+                    uss_base_url="https://uss.example", state="Accepted",
+                    cells=cells, subscription_id=f"sub{j % STORE_SUBS}")
+            prior = store.scd.search_operations(
+                cells, alo, ahi, from_nanos(t0), from_nanos(t1))
+            key = [o.ovn for o in prior]
+            if kind == 3:
+                key.append(old.ovn)
+            short = kind == 2 and len(key) > 0
+            try:
+                stored, _ = store.scd.upsert_operation(
+                    op, key[1:] if short else key)
+            except errors.StatusError as e:
+                if short and e.code == errors.Code.MISSING_OVNS and (
+                        prior[0].id in [d.id for d in e.details]):
+                    done["refused"] += 1
+                else:
+                    bad.append(f"write {j} refused: {e.code!r} {e.message}")
+                continue
+            if short:
+                bad.append(f"write {j} passed a key short of {prior[0].id}")
+            orc.changed[stored.id] = Record(
+                stored.id, np.asarray(keys, np.int32), alo, ahi, t0, t1, 0)
+            done["updated" if kind == 3 else "new"] += 1
+        elif kind == 4:
+            i = live_op()
+            store.scd.delete_operation(f"op{i}", f"uss{i % 64}")
+            orc.changed[f"op{i}"] = None
+            done["deleted"] += 1
+        else:
+            s = int(rng.integers(0, N_CELLS - KPE))
+            store.scd.upsert_subscription(scdm.Subscription(
+                id=f"wsub{j}", owner=f"uss{j % 64}",
+                start_time=from_nanos(NOW), end_time=from_nanos(NOW + HOUR),
+                base_url="https://uss.example", notify_for_operations=True,
+                cells=s2cell.dar_key_to_cell(
+                    np.arange(s, s + KPE, dtype=np.int64))))
+            done["subs"] += 1
+    for msg in bad:
+        STORE_TALLY.check(False, msg)
+    return done
+
+
+def poll_pass(store, twin, areas, window, cache, seed) -> dict:
+    """One closed-loop poll run through store.rid.search_isas
+    (bench.py:845-912): POLL_THREADS threads poll Zipf-favored areas
+    and make one fenced ISA update per POLL_RATIO polls, each update
+    also applied to the memory twin.  A serial pass touches every area
+    first.  -> served queries/s, p50/p99 ms, hit rate, polls, writes."""
+    import dataclasses
+
+    store.configure_serving(cache=cache)
+    t0 = window[0]
+    for area in areas:
+        store.rid.search_isas(area, t0, None)
+    ranks = np.arange(1, len(areas) + 1, dtype=np.float64)
+    probs = ranks ** -POLL_ZIPF
+    probs /= probs.sum()
+    stop = threading.Event()
+    wlock = threading.Lock()
+    lats = [[] for _ in range(POLL_THREADS)]
+    writes = [0] * POLL_THREADS
+    errs = []
+
+    def client(i):
+        rng = np.random.default_rng(seed * 1000 + i)
+        pick = rng.choice(len(areas), size=4096, p=probs)
+        ops = 0
+        while not stop.is_set():
+            a = int(pick[ops % len(pick)])
+            ops += 1
+            try:
+                if ops % (POLL_RATIO + 1) == POLL_RATIO:
+                    eid = f"isa{(i * 7919 + ops) % POLL_ISAS}"
+                    with wlock:
+                        for s in (store, twin):
+                            cur = s.rid.get_isa(eid)
+                            s.rid.insert_isa(dataclasses.replace(
+                                cur, cells=areas[int(eid[3:]) % len(areas)]))
+                    writes[i] += 1
+                    continue
+                t_req = time.perf_counter()
+                store.rid.search_isas(areas[a], t0, None)
+                lats[i].append(time.perf_counter() - t_req)
+            except Exception as e:  # noqa: BLE001 — fails the phase
+                errs.append(repr(e))
+                return
+
+    c0 = store.cache.stats()
+    ths = [threading.Thread(target=client, args=(i,))
+           for i in range(POLL_THREADS)]
+    t_run = time.perf_counter()
+    for th in ths:
+        th.start()
+    time.sleep(POLL_SECS)
+    stop.set()
+    for th in ths:
+        th.join()
+    span = time.perf_counter() - t_run
+    c1 = store.cache.stats()
+    lat = np.sort(np.concatenate([np.asarray(x) for x in lats]))
+    hits = c1["hits"] - c0["hits"]
+    misses = c1["misses"] - c0["misses"]
+    return {
+        "served_qps": len(lat) / span,
+        "p50_ms": float(lat[len(lat) // 2]) * 1e3,
+        "p99_ms": float(lat[int(len(lat) * 0.99)]) * 1e3,
+        "hit_rate": hits / max(1, hits + misses),
+        "polls": int(len(lat)), "writes": int(sum(writes)),
+        "errors": errs[:3],
+    }
+
+
+def store_phase(dev, smi) -> tuple:
+    """Phase 8: the store.  Write the WAL (STORE_OPS operations and the
+    rest), boot DSSStore(storage="cuda") from it, hold a sample of
+    searches against the oracle, reach B1 with the bulk stale drain,
+    write through the store, reboot from the same WAL and compare, and
+    run the RID poll recipe cache on and off against a memory twin.
+    B1's counts are set to 0 just before the searches and read after
+    the poll.  -> (B1's store-phase counts, failures)."""
+    import os
+    import shutil
+
+    from dss_tpu_torch.clock import FakeClock, from_nanos
+    from dss_tpu_torch.dar.dss_store import DSSStore
+    from dss_tpu_torch.runtime import freeze_boot_heap
+
+    failures = []
+    wal_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "store_smoke")
+    shutil.rmtree(wal_dir, ignore_errors=True)
+    os.makedirs(wal_dir)
+    path = os.path.join(wal_dir, "dss.wal")
+    t = time.perf_counter()
+    cols = store_columns(STORE_OPS)
+    rid = write_store_wal(path, cols)
+    n_records = STORE_OPS + POLL_ISAS + 2 * STORE_SUBS + STORE_CSTS
+    log(f"store wal: {n_records} records, "
+        f"{os.path.getsize(path) / 2**20:.1f} MiB, written in "
+        f"{time.perf_counter() - t:.2f} s")
+
+    def boot():
+        mem0 = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        t = time.perf_counter()
+        s = DSSStore(storage="cuda", device=dev, wal_path=path,
+                     clock=FakeClock(from_nanos(NOW)))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        mem = (torch.cuda.memory_allocated() - mem0) if dev.type == "cuda" else 0
+        return s, secs, mem / 2**20
+
+    store, boot_s, mib = boot()
+    log(json.dumps({"store_boot": {
+        "records": n_records, "seconds": boot_s,
+        "records_per_s": n_records / boot_s, "classes": store_counts(store),
+        "mib_on_card": mib, "card": smi}}))
+    freeze_boot_heap()
+
+    # the resident loops and their graph grid, as a server boots them
+    store.configure_serving(resident=True, slo_ms=SLO_MS)
+    t = time.perf_counter()
+    built = store.warm_resident()
+    log(json.dumps({"store_graph_warm": {
+        "entries": built, "seconds": time.perf_counter() - t}}))
+
+    orc = StoreOracle(cols, NOW)
+    ff.fused_window_filter.launches = 0
+    ff.fused_window_filter.graph_replays = 0
+    q = make_batch(50_000, ORACLE_SAMPLE, N_CELLS, WIDTH)
+    t = time.perf_counter()
+    for i in range(ORACLE_SAMPLE):
+        got = op_query(store, q, i)
+        STORE_TALLY.check([x[0] for x in got] == orc.ids(
+            q[0][i], q[1][i], q[2][i], q[3][i], q[4][i]),
+            f"store search {i} != oracle")
+    log(json.dumps({"store_oracle": {
+        "searches": ORACLE_SAMPLE, "mismatches": STORE_TALLY.mismatches,
+        "seconds": time.perf_counter() - t}}))
+
+    store.configure_serving(min_batch=BURST_MIN_BATCH)
+    burst = store_bursts(store, orc, seed=60_000)
+    if burst["client_errors"]:
+        failures.append(f"store burst: {burst['client_errors']}")
+    if burst["device_loss_absorbed"]:
+        failures.append("store burst: device loss absorbed")
+    log(json.dumps({"store_burst": burst}))
+
+    t = time.perf_counter()
+    done = store_writes(store, orc)
+    q = make_batch(51_000, 128, N_CELLS, WIDTH)
+    for i in range(128):
+        STORE_TALLY.check([x[0] for x in op_query(store, q, i)] == orc.ids(
+            q[0][i], q[1][i], q[2][i], q[3][i], q[4][i]),
+            f"store search {i} after the writes != oracle")
+    log(json.dumps({"store_writes": {
+        **done, "seconds": time.perf_counter() - t,
+        "wal_seq": store.wal.seq}}))
+
+    # reboot from the same WAL: the time to recover, and the same state
+    q = make_batch(52_000, REBOOT_SAMPLE, N_CELLS, WIDTH)
+    live = [op_query(store, q, i) for i in range(REBOOT_SAMPLE)]
+    counts = store_counts(store)
+    store.close()
+    del store  # its tables leave the card before the reboot's measure
+    gc.collect()
+    store, reboot_s, mib = boot()
+    recounts = store_counts(store)
+    for cls in STORE_CLASSES:
+        for k in ("records", "live_records"):
+            STORE_TALLY.check(recounts[cls][k] == counts[cls][k],
+                              f"reboot {cls} {k}: {recounts[cls][k]} != "
+                              f"{counts[cls][k]}")
+    for i in range(REBOOT_SAMPLE):
+        STORE_TALLY.check(op_query(store, q, i) == live[i],
+                          f"reboot search {i} != live store")
+    log(json.dumps({"store_reboot": {
+        "records": store.wal.seq, "seconds": reboot_s,
+        "records_per_s": store.wal.seq / reboot_s, "classes": recounts,
+        "mib_on_card": mib, "searches_compared": REBOOT_SAMPLE,
+        "card": smi}}))
+
+    # the RID poll recipe, cache on then off, against a memory twin
+    twin = DSSStore(storage="memory", clock=FakeClock(from_nanos(NOW)))
+    for rec in rid["rid_recs"]:
+        twin.rid.apply_wal(rec)
+    modes = {}
+    for mode, cache in (("cache_on", True), ("cache_off", False)):
+        modes[mode] = poll_pass(store, twin, rid["areas"], rid["window"],
+                                cache, seed=11)
+        if modes[mode]["errors"]:
+            failures.append(f"store poll {mode}: {modes[mode]['errors']}")
+    rng = np.random.default_rng(8)
+    for a in rng.choice(len(rid["areas"]), 256, replace=False):
+        area = rid["areas"][int(a)]
+        got = sorted(x.id for x in store.rid.search_isas(
+            area, rid["window"][0], None))
+        want = sorted(x.id for x in twin.rid.search_isas(
+            area, rid["window"][0], None))
+        STORE_TALLY.check(got == want, f"poll area {a}: store != twin")
+    log(json.dumps({"store_poll": {
+        "isas": POLL_ISAS, "areas": POLL_AREAS, "ratio": POLL_RATIO,
+        "zipf_a": POLL_ZIPF, "threads": POLL_THREADS, "seconds": POLL_SECS,
+        **modes, "answers_checked": 256, "card": smi}}))
+    launches = ff.fused_window_filter.launches
+    replays = ff.fused_window_filter.graph_replays
+    if launches + replays <= 0:
+        failures.append("store phase: B1 never launched")
+    twin.close()
+    store.close()
+    shutil.rmtree(wal_dir, ignore_errors=True)
+    return {"store_launches": launches, "store_graph_replays": replays,
+            "store_boot_s": boot_s, "store_reboot_s": reboot_s}, failures
+
+
 def run(dev, smi) -> tuple:
     """Phases 2-7 on `dev`; -> (the entries of the kernels line, the
     serving phase's failures)."""
@@ -1349,11 +1909,15 @@ def run(dev, smi) -> tuple:
         orc, smi, flush)
     log(f"seconds before serving: {time.perf_counter() - t_all:.2f}")
     serving, failures = serving_phase(idx, twin, smi)
-    log(f"seconds_total: {time.perf_counter() - t_all:.2f}")
     idx.close()
     twin.close()
+    log(f"seconds before the store: {time.perf_counter() - t_all:.2f}")
+    store, bad = store_phase(dev, smi)
+    failures += bad
+    log(f"seconds_total: {time.perf_counter() - t_all:.2f}")
     b1 = entry("fused_window_filter", launches, max_err, b1_t, b_ms)
     b1.update(serving)
+    b1.update(store)
     return [b1] + legacy, failures
 
 
@@ -1377,13 +1941,14 @@ def main() -> int:
               file=sys.stderr)
         return 1
     if failures:
-        print(f"chip_smoke: serving phase failed: {failures}",
+        print(f"chip_smoke: serving or store phase failed: {failures}",
               file=sys.stderr)
         return 1
-    bad = sum(t.mismatches for t in TALLY.values())
+    tallies = list(TALLY.values()) + [STORE_TALLY]
+    bad = sum(t.mismatches for t in tallies)
     if bad:
         print(f"chip_smoke: {bad} of "
-              f"{sum(t.compared for t in TALLY.values())} comparisons "
+              f"{sum(t.compared for t in tallies)} comparisons "
               "disagreed", file=sys.stderr)
         return 1
     # the smoke drives card 0 alone, whatever else the host holds

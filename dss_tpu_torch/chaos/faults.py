@@ -33,6 +33,8 @@ Actions:
   delay        sleep delay_s at the site (stall injection)
 
 Registered sites (grep for the literal to find the seam):
+  wal.append / wal.fsync          dar/wal.py
+  cache.populate                  dar/dss_store.py (read-cache insert)
   device.dispatch                 dar/coalesce.py (cold fused submit)
   resident.submit                 ops/resident.py (stream feeder)
   graph.capture                   ops/resident.py (CUDA graph capture)

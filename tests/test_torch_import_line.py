@@ -1,11 +1,13 @@
 """The port's import line, device rule and state carried across.
 
 - Every module of dss_tpu_torch (the serving modules by name: errors,
-  chaos, deadline, coalesce, trace, stages, plan, resident), chip_smoke
-  and b1_device_time import in a process where `jax` and every
-  `dss_tpu` module are refused.
-- Tables built without device= on a machine without CUDA raise
-  instead of running on the CPU.
+  chaos, deadline, coalesce, trace, stages, plan, resident; the store
+  slice's by name: clock, runtime, chaos.retry, chaos.ladder, models,
+  geo.covering, dar.codec, dar.wal, dar.readcache, dar.store,
+  dar.dss_store, dar.follower), chip_smoke and b1_device_time import
+  in a process where `jax` and every `dss_tpu` module are refused.
+- Tables and stores built without device= on a machine without CUDA
+  raise instead of running on the CPU.
 - convert round trip: reference records and table arrays become port
   state that answers the same.
 """
@@ -29,6 +31,7 @@ from dss_tpu.dar import tiers as ref_tiers
 
 from dss_tpu_torch import convert
 from dss_tpu_torch.dar import tiers
+from dss_tpu_torch.dar.dss_store import DSSStore
 from dss_tpu_torch.dar.index import CudaSpatialIndex
 from dss_tpu_torch.dar.snapshot import DarTable
 from dss_tpu_torch.ops.fastpath import FastTable, warmup
@@ -59,7 +62,11 @@ _PROBE = textwrap.dedent(
     for mod in ("ops.fastpath_cuda", "ops.cuda_build", "ops.resident",
                 "errors", "chaos", "chaos.faults", "dar.deadline",
                 "dar.coalesce", "obs.trace", "obs.stages", "plan",
-                "plan.costs", "plan.planner"):
+                "plan.costs", "plan.planner", "clock", "runtime",
+                "chaos.retry", "chaos.ladder", "models", "models.core",
+                "models.volumes", "models.rid", "models.scd", "geo.s2cell",
+                "geo.covering", "dar.codec", "dar.wal", "dar.readcache",
+                "dar.store", "dar.dss_store", "dar.follower"):
         assert "dss_tpu_torch." + mod in names, (mod, names)
     import chip_smoke  # its helpers; main() only runs as a script
     assert callable(chip_smoke.run) and callable(chip_smoke.make_batch)
@@ -81,7 +88,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         capture_output=True, text=True, timeout=120,
     )
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 28  # every module was reached
+    assert int(res.stdout.split()[-1]) >= 45  # every module was reached
 
 
 def _tiny_table_args():
@@ -97,7 +104,7 @@ def _tiny_table_args():
 
 
 @pytest.mark.parametrize("make", ["fasttable", "dartable", "index", "snapshot",
-                                  "warmup"])
+                                  "warmup", "store"])
 def test_default_device_without_a_card_raises(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args, se = _tiny_table_args()
@@ -109,6 +116,7 @@ def test_default_device_without_a_card_raises(monkeypatch, make):
             [RefRecord("a", np.asarray([1], np.int32), 0.0, 1.0, 0, 1, 0)]
         ),
         "warmup": lambda: warmup(),
+        "store": lambda: DSSStore(storage="cuda"),
     }[make]
     with pytest.raises(RuntimeError, match="cuda"):
         build()

@@ -8,7 +8,9 @@ past 4,096 tiles, over back-to-back launches and on a dirty output, and
 B1 captured into a CUDA graph (ops/resident.py) against its eager
 launch and plain version: at two buckets, over 50 replays that never
 re-zero the scratch, with two units in flight, and captured while
-another thread serves cold batches.
+another thread serves cold batches.  The store: DSSStore(storage="cuda")
+with no device= puts its tables on the card, and a burst of 128 stale
+store searches reaches B1 with the answers of a memory store.
 
 Needs a CUDA card (marker `gpu`); skips elsewhere.  This file imports
 neither jax nor the reference package, so it runs on a machine that has
@@ -492,3 +494,120 @@ def test_dropped_entry_frees_its_pinned_buffers(cuda):
         gc.collect()
         torch.cuda.synchronize()
         assert cache.size() == 0 and cache.dropped == n + 1
+
+
+# -- the store on the card ----------------------------------------------------
+
+
+def _store_pair(rng, n, n_cells):
+    """A DSSStore(storage="cuda") with no device= and a memory store,
+    both holding the same n operations (FakeClocks at NOW)."""
+    from dss_tpu_torch.clock import FakeClock, from_nanos
+    from dss_tpu_torch.dar.dss_store import DSSStore
+    from dss_tpu_torch.geo import s2cell
+    from dss_tpu_torch.models import scd as scdm
+
+    stores = [DSSStore(storage=k, clock=FakeClock(from_nanos(NOW)))
+              for k in ("cuda", "memory")]
+    for i in range(n):
+        s = int(rng.integers(0, n_cells - 8))
+        alo = float(np.float32(rng.uniform(0, 3000)))
+        t0 = NOW + int(rng.integers(-4, 4)) * HOUR
+        op = scdm.Operation(
+            id=f"op{i}", owner=f"uss{i % 7}",
+            start_time=from_nanos(t0),
+            end_time=from_nanos(t0 + int(rng.integers(1, 6)) * HOUR),
+            altitude_lower=alo,
+            altitude_upper=float(np.float32(alo + rng.uniform(10, 600))),
+            uss_base_url="https://uss.example", state="Accepted",
+            cells=s2cell.dar_key_to_cell(np.arange(s, s + 8)),
+        )
+        for st in stores:
+            st.scd.upsert_operation(op, [], key_checked=True)
+    return stores
+
+
+@pytest.mark.gpu
+def test_store_defaults_to_the_card(cuda):
+    rng = np.random.default_rng(40)
+    store, mem = _store_pair(rng, 200, 400)
+    try:
+        assert store.storage == "cuda"
+        for index, _ in store._class_indexes():
+            assert index.table.device.type == "cuda"
+        table = store.scd._op_index.table
+        table.fold()
+        fast = table._state.tiers[0].snap.fast
+        assert fast.b_alo.device.type == "cuda"
+    finally:
+        store.close()
+        mem.close()
+
+
+@pytest.mark.gpu
+def test_store_burst_of_stale_callers_launches_b1(cuda):
+    """The reference's bulk stale drain (bench.py:1157-1186) through
+    store.scd.search_operations: 128 allow_stale callers, min_batch 128,
+    the op table's submit held until 80 queue; B1 launches, and every
+    answer equals the memory store's."""
+    import threading
+    import time
+
+    from dss_tpu_torch.clock import from_nanos
+    from dss_tpu_torch.geo import s2cell
+
+    rng = np.random.default_rng(41)
+    store, mem = _store_pair(rng, 4000, 2000)
+    try:
+        index = store.scd._op_index
+        index.table.fold()
+        assert index.table._state.tiers
+        store.configure_serving(min_batch=128, cache=False)
+        co, table = index.coalescer, index.table
+        submit = table.query_many_submit
+        qs = []
+        for i in range(128):
+            s = int(rng.integers(0, 2000 - 8))
+            alo = float(np.float32(rng.uniform(0, 3000)))
+            t0 = NOW + int(rng.integers(-2, 2)) * HOUR
+            qs.append((s2cell.dar_key_to_cell(np.arange(s, s + 8)), alo,
+                       alo + 300.0, from_nanos(t0), from_nanos(t0 + HOUR)))
+        got = [None] * len(qs)
+        gate = threading.Event()
+
+        def gated(*a, **kw):
+            gate.wait(10.0)
+            return submit(*a, **kw)
+
+        def client(i):
+            got[i] = store.scd.search_operations(*qs[i], allow_stale=True)
+
+        ff.fused_window_filter.launches = 0
+        ff.fused_window_filter.graph_replays = 0
+        ths = [threading.Thread(target=client, args=(i,))
+               for i in range(len(qs))]
+        table.query_many_submit = gated
+        try:
+            for th in ths:
+                th.start()
+            until = time.perf_counter() + 5.0
+            while (co.stats()["co_queue_depth"] < 80
+                   and time.perf_counter() < until):
+                time.sleep(0.005)
+        finally:
+            del table.query_many_submit
+            gate.set()
+        for th in ths:
+            th.join(60)
+        assert (ff.fused_window_filter.launches
+                + ff.fused_window_filter.graph_replays) > 0
+        hits = 0
+        for q, g in zip(qs, got):
+            want = mem.scd.search_operations(*q)
+            assert [(o.id, o.version, o.ovn) for o in g] == [
+                (o.id, o.version, o.ovn) for o in want]
+            hits += len(g)
+        assert hits > 0
+    finally:
+        store.close()
+        mem.close()
