@@ -50,8 +50,12 @@ Phases (any failure exits non-zero; nothing is caught):
      recipe's 4,000 ISAs over 512 areas, and a few hundred RID
      subscriptions, SCD subscriptions and constraints, written with
      the port's codec and WriteAheadLog; DSSStore(storage="cuda")
-     booted from it (`store_boot`: records, seconds, records/s, each class's tiers and
-     live records, MiB on the card); the resident graph grid warmed;
+     booted from it (`store_boot`: records, seconds, records/s, each
+     class's tiers and live records, MiB on the card once the
+     background folds settle, and when the constructor returned); the
+     resident graph grid warmed (`store_graph_warm`: entries beside
+     the cache's bound, reservations and capture failures, and the
+     entries the reference would build for the same tables);
      with B1's counts from zero, 512 seeded search_operations held
      against the oracle at the store clock (`store_oracle`), the bulk
      stale drain through the store (8 bursts of 128 allow_stale
@@ -61,17 +65,38 @@ Phases (any failure exits non-zero; nothing is caught):
      a reboot from the same WAL compared with the live store
      (`store_reboot`: the time to recover), and the RID poll recipe
      through store.rid.search_isas, cache on then off, against a
-     memory twin that takes the same writes (`store_poll`);
-  9. the device time of each kernel by device kernel name, the kernels
+     memory twin that takes the same writes (`store_poll`); B1's eager
+     launches and graph replays in the phase, per entity class
+     (`store_b1_by_class`);
+  9. the services over the same store: RIDService and SCDService, 256
+     ISA searches held against the memory twin and 256 operational-
+     intent queries (the service's own request dicts) against the
+     oracle, one caller at a time, then the bulk stale drain through
+     SCDService.search_operations (allow_stale=True), 8 bursts of 128
+     callers; the `services` line (searches/s, p50/p99, the bursts'
+     route mix, B1's launches and replays from zero, mismatches);
+ 10. the server entry as a process on the card, `python3 -m
+     dss_tpu_torch.cmds.server --storage cuda`, booted from a WAL of
+     50,000 operational intents and the poll recipe's 4,000 ISAs and
+     driven over HTTP with urllib: an ISA's PUT/GET/search/DELETE, an
+     operational intent PUT with its key, queried, updated, DELETEd,
+     256 queries held against the oracle, /metrics and /status, a 3 s
+     closed loop of 8 clients, then SIGTERM within --shutdown_grace;
+     the `http` line (boot, the boot warm's end, entries and capture
+     failures from /metrics, the loop's rate and p50/p99, the route
+     mix); it does not run, and says so, where aiohttp is missing;
+ 11. the device time of each kernel by device kernel name, the kernels
      line (four kernels; B1's entry with its graph replays and its
      store-phase counts), with each kernel's count of comparisons made
      and of those that disagreed; then the ok line, or exit 1 if any
-     comparison disagreed, a kernel of a path never launched, or the
-     serving or store phase failed (a caller error other than
+     comparison disagreed, a kernel of a path never launched, or a
+     serving, store, services or http phase failed (a caller error other than
      OverloadedError or DEADLINE_EXCEEDED, an absorbed device loss, no
      resident batch at 32 threads, no graph replay in the bulk bursts,
      a refused write that should have passed, no B1 launch or replay
-     in the store phase).
+     in the store phase or through the services, a graph capture that
+     failed, or any error, non-2xx answer or unclean exit of the
+     server).
 Times: `ms` is a kernel's device time per wrapper call with the L2
 flushed (a real batch finds its blocks cold): the kernels, memsets and
 copies that 30 calls launched, summed from torch.profiler, over 30;
@@ -159,6 +184,15 @@ ORACLE_SAMPLE = 512  # store searches held against the oracle
 STORE_BURSTS = 8
 STORE_WRITES = 1200
 REBOOT_SAMPLE = 256  # searches compared between the live and rebooted store
+# the services over the store phase's store, and the server binary as
+# a process booted from a WAL of HTTP_OPS intents (cut from the store's
+# 500k so that both phases stay within 120 s)
+SVC_SAMPLE = 256  # ISA searches, and as many op queries, per phase
+HTTP_OPS = 50_000  # the HTTP server's WAL: ops besides the poll ISAs
+HTTP_SEARCHES = 256
+HTTP_LOOP_CLIENTS, HTTP_LOOP_S = 8, 3.0
+HTTP_GRACE_S = 10.0
+HTTP_DEVICE = "cuda"  # the server's --device
 # kernel -> (its CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "fused_window_filter": ("dss_tpu_torch/csrc/fused_filter.cu",
@@ -1285,26 +1319,26 @@ class StoreOracle:
         return sorted(recs[s].entity_id for s in slots)
 
 
-def store_columns(n, seed=5):
+def store_columns(n, seed=5, now=NOW):
     """The store phase's operational intents as columns: KPE contiguous
     level-13 cells over the N_CELLS metro region, 10-600 m altitude
-    bands, 1-5 h windows."""
+    bands, 1-5 h windows starting -4..3 h from `now`."""
     rng = np.random.default_rng(seed)
     start = rng.integers(0, N_CELLS - KPE, n)
     keys = (start[:, None] + np.arange(KPE)[None, :]).astype(np.int32)
     alo = rng.uniform(0, 3000, n).astype(np.float32)
     ahi = alo + rng.uniform(10, 600, n).astype(np.float32)
-    t0 = NOW + rng.integers(-4, 4, n) * HOUR
+    t0 = now + rng.integers(-4, 4, n) * HOUR
     t1 = t0 + rng.integers(1, 6, n) * HOUR
     return keys, alo, ahi, t0, t1
 
 
-def write_store_wal(path, cols) -> dict:
+def write_store_wal(path, cols, now=NOW) -> dict:
     """The store phase's WAL, written with the port's codec and
     WriteAheadLog: the format record, then one `scd_op_put` per
     operation, the poll recipe's ISAs, RID subscriptions over its
     areas, and SCD subscriptions and constraints.  Commit stamps are
-    one microsecond apart, ending at the store clock's NOW.  ->
+    one microsecond apart, ending at `now` (the store clock's).  ->
     {"rid_recs": the ISA and RID subscription records, "areas": the
     poll areas' coverings, "window": (t0, t1) of the ISAs}."""
     from datetime import timedelta
@@ -1319,7 +1353,7 @@ def write_store_wal(path, cols) -> dict:
     keys, alo, ahi, t0, t1 = cols
     n = len(keys)
     cells = s2cell.dar_key_to_cell(keys.ravel()).reshape(keys.shape)
-    base = from_nanos(NOW)
+    base = from_nanos(now)
     total = n + POLL_ISAS + 2 * STORE_SUBS + STORE_CSTS
     stamps = iter(base - timedelta(microseconds=total - k)
                   for k in range(total))
@@ -1416,19 +1450,20 @@ def op_query(store, q, i, allow_stale=False):
     return [(o.id, o.version, o.ovn) for o in got]
 
 
-def store_bursts(store, orc, seed) -> dict:
-    """The reference's bulk stale drain (bench.py:1157-1186) through
-    store.scd.search_operations(..., allow_stale=True): STORE_BURSTS
-    bursts of BURST_CALLERS callers, the op table's submit held until
-    BURST_QUEUED queue; every answer held against the oracle."""
+def drain_bursts(store, bursts, call, want, what) -> dict:
+    """The reference's bulk stale drain (bench.py:1157-1186) on the op
+    class: for each burst, BURST_CALLERS threads run call(item) (a
+    bounded-staleness search -> its ids) while the op table's submit is
+    held until BURST_QUEUED callers queue; every answer is held against
+    want(item)."""
     index = store.scd._op_index
     co, table = index.coalescer, index.table
     submit = table.query_many_submit
+    own = table.__dict__.get("query_many_submit")  # a counting wrapper
     errors_seen, queued = [], []
     st0 = co.stats()
-    for k in range(STORE_BURSTS):
-        q = make_batch(seed + k, BURST_CALLERS, N_CELLS, WIDTH)
-        got = [None] * BURST_CALLERS
+    for k, items in enumerate(bursts):
+        got = [None] * len(items)
         gate = threading.Event()
 
         def gated(*a, **kw):
@@ -1437,12 +1472,12 @@ def store_bursts(store, orc, seed) -> dict:
 
         def client(i):
             try:
-                got[i] = op_query(store, q, i, allow_stale=True)
+                got[i] = call(items[i])
             except Exception as e:  # noqa: BLE001 — fails the phase below
                 errors_seen.append(repr(e))
 
         ths = [threading.Thread(target=client, args=(i,))
-               for i in range(BURST_CALLERS)]
+               for i in range(len(items))]
         table.query_many_submit = gated
         try:
             for th in ths:
@@ -1453,24 +1488,38 @@ def store_bursts(store, orc, seed) -> dict:
                 time.sleep(0.005)
             queued.append(co.stats()["co_queue_depth"])
         finally:
-            del table.query_many_submit
+            if own is None:
+                del table.query_many_submit
+            else:
+                table.query_many_submit = own
             gate.set()
         for th in ths:
             th.join(60)
         for i, g in enumerate(got):
-            STORE_TALLY.check(
-                g is not None and [x[0] for x in g] == orc.ids(
-                    q[0][i], q[1][i], q[2][i], q[3][i], q[4][i]),
-                f"store burst {k}: caller {i} != oracle")
+            STORE_TALLY.check(g is not None and g == want(items[i]),
+                              f"{what} burst {k}: caller {i} != oracle")
     st1 = co.stats()
     return {
-        "bursts": STORE_BURSTS, "callers": BURST_CALLERS,
+        "bursts": len(bursts), "callers": BURST_CALLERS,
         "queued_at_release": queued, "client_errors": errors_seen[:3],
         "route_mix": {r: st1[f"co_route_{r}_batches"]
                       - st0[f"co_route_{r}_batches"]
                       for r in ("host", "hostchunk", "device", "resident")},
         "device_loss_absorbed": st1["co_device_loss_absorbed"],
     }
+
+
+def store_bursts(store, orc, seed) -> dict:
+    """The bulk stale drain through store.scd.search_operations(...,
+    allow_stale=True): STORE_BURSTS bursts of BURST_CALLERS callers."""
+    bursts = []
+    for k in range(STORE_BURSTS):
+        q = make_batch(seed + k, BURST_CALLERS, N_CELLS, WIDTH)
+        bursts.append([(q, i) for i in range(BURST_CALLERS)])
+    return drain_bursts(
+        store, bursts,
+        lambda it: [x[0] for x in op_query(store, *it, allow_stale=True)],
+        lambda it: orc.ids(*(col[it[1]] for col in it[0])), "store")
 
 
 def store_writes(store, orc) -> dict:
@@ -1630,6 +1679,527 @@ def poll_pass(store, twin, areas, window, cache, seed) -> dict:
     }
 
 
+class ClassCounts:
+    """B1's eager launches and graph replays per entity class of a
+    store.  Each class table's submit and collect run under a thread-
+    local class tag, and FastTable.submit — where B1 launches or
+    replays on the store's path, an overflow's re-run included — runs
+    under one lock that reads B1's counters before and after.  The
+    eager launch that precedes each graph capture (on the capture
+    thread, tagged with no class) runs under the same lock and is
+    counted apart (`capture_warmups`).  close() restores all three."""
+
+    def __init__(self, store):
+        from dss_tpu_torch.ops import resident
+
+        self.by = {cls: {"launches": 0, "graph_replays": 0}
+                   for cls in STORE_CLASSES}
+        self.by["capture_warmups"] = {"launches": 0, "graph_replays": 0}
+        self._tag = threading.local()
+        self._lock = threading.Lock()
+        self._tables = []
+        for index, cls in store._class_indexes():
+            t = index.table
+            for name in ("query_many_submit", "query_many_collect"):
+                setattr(t, name, self._tagged(getattr(t, name), cls))
+            self._tables.append(t)
+        self._patched = [(FastTable, "submit", FastTable.submit),
+                         (resident._Instance, "capture",
+                          resident._Instance.capture)]
+        FastTable.submit = self._counted(FastTable.submit)
+        resident._Instance.capture = self._tagged(
+            self._counted(resident._Instance.capture), "capture_warmups")
+
+    def _tagged(self, fn, cls):
+        def run(*a, **kw):
+            prev = getattr(self._tag, "cls", None)
+            self._tag.cls = cls
+            try:
+                return fn(*a, **kw)
+            finally:
+                self._tag.cls = prev
+        return run
+
+    def _counted(self, submit):
+        fwf = ff.fused_window_filter
+
+        def run(obj, *a, **kw):
+            with self._lock:
+                l0, r0 = fwf.launches, fwf.graph_replays
+                try:
+                    return submit(obj, *a, **kw)
+                finally:
+                    cls = getattr(self._tag, "cls", None)
+                    if cls is not None:
+                        self.by[cls]["launches"] += fwf.launches - l0
+                        self.by[cls]["graph_replays"] += (
+                            fwf.graph_replays - r0)
+        return run
+
+    def close(self):
+        for owner, name, fn in self._patched:
+            setattr(owner, name, fn)
+        for t in self._tables:
+            for name in ("query_many_submit", "query_many_collect"):
+                t.__dict__.pop(name, None)
+
+
+def settle(store, quiet_s=1.0, limit_s=120.0) -> float:
+    """Wait until no class table has a fold running, signalled or due
+    (a pending overlay, or churn past the major-compaction ratio), at
+    two checks quiet_s apart.  -> seconds waited."""
+    t0 = time.perf_counter()
+    tables = [index.table for index, _ in store._class_indexes()]
+
+    def busy(t):
+        st = t._state
+        churn = bool(t._delta or len(st.tiers) > 1
+                     or any(x.dead_count for x in st.tiers))
+        return (t._folding or t._fold_event.is_set() or bool(st.pending)
+                or (churn and t._want_major()))
+
+    calm = 0
+    while calm < 2 and time.perf_counter() - t0 < limit_s:
+        calm = 0 if any(busy(t) for t in tables) else calm + 1
+        time.sleep(quiet_s)
+    return time.perf_counter() - t0
+
+
+def tiers_by_class(store) -> dict:
+    return {cls: index.table.stats().get("tier_count", 0)
+            for index, cls in store._class_indexes()}
+
+
+def graph_cache_line(built, seconds, tables) -> dict:
+    """The warm's entries beside the cache's bound and reservations,
+    its capture failures, and the entries the reference's executable
+    cache would build for the same tables (one per block count)."""
+    from dss_tpu_torch.ops import resident
+
+    cache = resident.graph_cache()
+    return {"entries": built, "seconds": seconds, "cache_entries":
+            cache.size(), "cap": cache.cap(), "reserved": cache.reserved(),
+            "evictions": cache.evictions,
+            "capture_failures": cache.capture_failures,
+            "reference_entries": resident.reference_grid_entries(tables)}
+
+
+def store_tables(store) -> list:
+    return [tier.snap.fast for index, _ in store._class_indexes()
+            for tier in index.table._state.tiers
+            if tier.snap.fast is not None]
+
+
+# -- services and HTTP: the top of the main path ------------------------------
+
+
+def svc_square(key, half=0.004) -> list:
+    """A square of +-half degrees around the center of DAR key `key`'s
+    cell (an odd key: a valid level-13 cell)."""
+    lat, lng = s2cell.xyz_to_latlng(
+        s2cell.cell_center(int(s2cell.dar_key_to_cell(key | 1))))
+    lat, lng = float(lat), float(lng)
+    return [(lat - half, lng - half), (lat - half, lng + half),
+            (lat + half, lng + half), (lat + half, lng - half)]
+
+
+def scd_volume(poly, alo, ahi, t0, t1) -> dict:
+    """An SCD Volume4D request dict (t0, t1 in ns)."""
+    from dss_tpu_torch.clock import from_nanos
+    from dss_tpu_torch.services import serialization as ser
+
+    return {
+        "volume": {
+            "outline_polygon": {"vertices": [
+                {"lat": a, "lng": b} for a, b in poly]},
+            "altitude_lower": {"value": alo, "reference": "W84",
+                               "units": "M"},
+            "altitude_upper": {"value": ahi, "reference": "W84",
+                               "units": "M"},
+        },
+        "time_start": {"value": ser.format_time(from_nanos(t0)),
+                       "format": "RFC3339"},
+        "time_end": {"value": ser.format_time(from_nanos(t1)),
+                     "format": "RFC3339"},
+    }
+
+
+def svc_aois(seed, n, now) -> list:
+    """n operational-intent queries as the SCD service's request dicts
+    (area_of_interest: a square over the metro region, a 10-600 m band,
+    a 1-2 h window in whole seconds from `now`), with the DAR keys of
+    the covering the service computes and the oracle's arguments."""
+    from dss_tpu_torch.clock import to_nanos
+    from dss_tpu_torch.services import serialization as ser
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        poly = svc_square(int(rng.integers(0, N_CELLS)))
+        alo = float(rng.integers(0, 2400))
+        ahi = alo + float(rng.integers(10, 600))
+        t0 = now + int(rng.integers(-3, 3)) * HOUR + int(
+            rng.integers(0, 3600)) * 1_000_000_000
+        t1 = t0 + int(rng.integers(1, 3)) * HOUR
+        aoi = scd_volume(poly, alo, ahi, t0, t1)
+        v = ser.volume4d_from_scd_json(aoi)
+        keys = s2cell.cell_to_dar_key(v.calculate_spatial_covering())
+        out.append(({"area_of_interest": aoi},
+                    (keys, alo, ahi, to_nanos(v.start_time),
+                     to_nanos(v.end_time))))
+    return out
+
+
+def isa_area(k) -> str:
+    """The RID search area string over poll area k."""
+    poly = svc_square(k * POLL_CELLS + POLL_CELLS // 2)
+    return ",".join(f"{a},{b}" for a, b in poly)
+
+
+def lat_ms(lats) -> dict:
+    a = np.sort(np.asarray(lats)) * 1e3
+    return {"p50_ms": float(a[len(a) // 2]),
+            "p99_ms": float(a[min(len(a) - 1, int(len(a) * 0.99))])}
+
+
+def services_phase(store, twin, orc, seed) -> tuple:
+    """The services over the store phase's booted store: RIDService and
+    SCDService from the port; SVC_SAMPLE ISA searches held against the
+    memory twin's RIDService, SVC_SAMPLE operational-intent queries
+    held against the oracle (each from one caller), then the bulk stale
+    drain through SCDService.search_operations (it searches with
+    allow_stale=True), STORE_BURSTS bursts.  B1's counts are set to 0
+    just before and read just after.  -> (the `services` line,
+    failures)."""
+    from dss_tpu_torch.services.rid import RIDService
+    from dss_tpu_torch.services.scd import SCDService
+
+    rid_svc = RIDService(store.rid, store.clock)
+    twin_svc = RIDService(twin.rid, twin.clock)
+    scd_svc = SCDService(store.scd, store.clock)
+    failures = []
+    ff.fused_window_filter.launches = 0
+    ff.fused_window_filter.graph_replays = 0
+    t_all = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    lat_isa, lat_op = [], []
+    for k in rng.integers(0, POLL_AREAS, SVC_SAMPLE):
+        area = isa_area(int(k))
+        t = time.perf_counter()
+        got = rid_svc.search_isas(area)
+        lat_isa.append(time.perf_counter() - t)
+        want = twin_svc.search_isas(area)
+        STORE_TALLY.check(
+            sorted(a["id"] for a in got["service_areas"])
+            == sorted(a["id"] for a in want["service_areas"]),
+            f"services: ISA search over area {k} != memory twin")
+    hits = 0
+    for params, args in svc_aois(seed + 1, SVC_SAMPLE, orc.now):
+        t = time.perf_counter()
+        got = scd_svc.search_operations(params, "uss0")
+        lat_op.append(time.perf_counter() - t)
+        ids = sorted(o["id"] for o in got["operation_references"])
+        hits += len(ids)
+        STORE_TALLY.check(ids == orc.ids(*args),
+                          "services: op query != oracle")
+    single_s = sum(lat_isa) + sum(lat_op)  # the service calls alone
+    bursts = [svc_aois(seed + 2 + k, BURST_CALLERS, orc.now)
+              for k in range(STORE_BURSTS)]
+    burst = drain_bursts(
+        store, bursts,
+        lambda it: sorted(o["id"] for o in scd_svc.search_operations(
+            it[0], "uss0")["operation_references"]),
+        lambda it: orc.ids(*it[1]), "services")
+    launches = ff.fused_window_filter.launches
+    replays = ff.fused_window_filter.graph_replays
+    if burst["client_errors"]:
+        failures.append(f"services burst: {burst['client_errors']}")
+    if burst["device_loss_absorbed"]:
+        failures.append("services burst: device loss absorbed")
+    if launches + replays <= 0:
+        failures.append("services: no drain reached B1")
+    return {"services": {
+        "isa_searches": SVC_SAMPLE, "op_queries": SVC_SAMPLE,
+        "op_hits": hits,
+        "searches_per_s": 2 * SVC_SAMPLE / single_s,
+        "isa_search": lat_ms(lat_isa), "op_query": lat_ms(lat_op),
+        "burst": burst, "b1_launches": launches,
+        "b1_graph_replays": replays,
+        "mismatches": STORE_TALLY.mismatches,
+        "seconds": time.perf_counter() - t_all,
+    }}, failures
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_json(base, method, path, body=None, timeout=30.0):
+    """One request with the standard library -> (status, JSON body)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(
+        base + path, data=data, method=method,
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read() or b"null")
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"null")
+
+
+def metric_values(text, suffix) -> dict:
+    """{series: value} of the /metrics lines whose name ends with
+    `suffix` (unlabelled gauges)."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("#") or " " not in line:
+            continue
+        name, val = line.rsplit(" ", 1)
+        if name.endswith(suffix):
+            out[name] = float(val)
+    return out
+
+
+def http_phase(smi) -> tuple:
+    """The server entry as a process on the card:
+    `python3 -m dss_tpu_torch.cmds.server --storage cuda` booted from a
+    WAL of HTTP_OPS operational intents and the poll recipe's ISAs
+    (their windows set from the wall clock, which the server keeps),
+    driven with urllib: an ISA's PUT, GET, search and DELETE; an
+    operational intent PUT with its key, queried, updated and DELETEd;
+    HTTP_SEARCHES op queries held against the oracle of the same WAL;
+    /metrics and /status; a closed loop of HTTP_LOOP_CLIENTS clients;
+    then SIGTERM, which must stop the server within --shutdown_grace.
+    -> (the `http` line, failures).  Without aiohttp it does not run."""
+    import importlib.util
+    import os
+    import shutil
+    import signal
+    import uuid
+
+    if importlib.util.find_spec("aiohttp") is None:
+        return {"http": {"ran": False,
+                         "why": "aiohttp is not installed on this machine"}}, []
+    from dss_tpu_torch.services import serialization as ser
+    from dss_tpu_torch.clock import from_nanos
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "http_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    wal = os.path.join(work, "dss.wal")
+    # wall-clock windows: no intent ends within 30 min of the phase, so
+    # the oracle's `now` and the server's agree on every expiry
+    now = time.time_ns() // 1_000_000_000 * 1_000_000_000
+    cols = store_columns(HTTP_OPS, seed=9, now=now + HOUR // 2)
+    t = time.perf_counter()
+    write_store_wal(wal, cols, now=now)
+    n_records = HTTP_OPS + POLL_ISAS + 2 * STORE_SUBS + STORE_CSTS
+    wal_s = time.perf_counter() - t
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    err_path = os.path.join(work, "server.log")
+    errf = open(err_path, "wb")
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dss_tpu_torch.cmds.server",
+         "--addr", f"127.0.0.1:{port}", "--enable_scd", "--storage", "cuda",
+         "--device", HTTP_DEVICE, "--insecure_no_auth", "--wal_path", wal,
+         "--shutdown_grace", str(HTTP_GRACE_S)],
+        cwd=root, stdout=subprocess.DEVNULL, stderr=errf)
+    line, failures = {}, []
+    try:
+        import urllib.request
+
+        while True:
+            if proc.poll() is not None:
+                raise RuntimeError(f"server exited at boot: rc "
+                                   f"{proc.returncode}")
+            if time.perf_counter() - t_start > 300:
+                raise RuntimeError("server never became healthy")
+            try:
+                with urllib.request.urlopen(base + "/healthy",
+                                            timeout=1) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                pass
+            time.sleep(0.1)
+        boot_s = time.perf_counter() - t_start
+        t_healthy = time.perf_counter()
+        while True:  # the boot warm ends with its log line
+            with open(err_path, "rb") as f:
+                warm = [json.loads(x) for x in f.read().splitlines()
+                        if b"resident graph warm" in x
+                        or b"resident warm failed" in x]
+            if warm:
+                break
+            if time.perf_counter() - t_healthy > 300:
+                raise RuntimeError("the boot warm never ended")
+            time.sleep(0.1)
+        warm_s = time.perf_counter() - t_healthy
+        if "failed" in warm[0]["msg"]:
+            raise RuntimeError(f"boot warm: {warm[0]}")
+
+        def ok(status_body, what, want=200):
+            status, body = status_body
+            if status != want:
+                raise RuntimeError(f"{what}: HTTP {status} {body}")
+            return body
+
+        # an ISA: PUT, GET, search, DELETE
+        w0, w1 = from_nanos(now + 10 * 60 * 10**9), from_nanos(now + HOUR)
+        isa_id = str(uuid.uuid4())
+        poly = svc_square(7 * POLL_CELLS + 1)
+        ext = {"spatial_volume": {"footprint": {"vertices": [
+            {"lat": a, "lng": b} for a, b in poly]},
+            "altitude_lo": 0.0, "altitude_hi": 120.0},
+            "time_start": ser.format_time(w0), "time_end": ser.format_time(w1)}
+        isa_path = f"/v1/dss/identification_service_areas/{isa_id}"
+        v = ok(http_json(base, "PUT", isa_path, {
+            "extents": ext, "flights_url": "https://uss.example/f"}),
+            "ISA PUT")["service_area"]["version"]
+        if ok(http_json(base, "GET", isa_path), "ISA GET")[
+                "service_area"]["version"] != v:
+            raise RuntimeError("ISA GET: another version")
+        found = ok(http_json(base, "GET", "/v1/dss/identification_service_"
+                             "areas?area=" + ",".join(
+                                 f"{a},{b}" for a, b in poly)), "ISA search")
+        if isa_id not in [a["id"] for a in found["service_areas"]]:
+            raise RuntimeError("ISA search missed the new ISA")
+        ok(http_json(base, "DELETE", f"{isa_path}/{v}"), "ISA DELETE")
+        # an operational intent: PUT with its key, query, update, DELETE
+        aoi = scd_volume(svc_square(1001), 0.0, 3000.0,
+                         now + HOUR // 3, now + HOUR)
+        op_id = str(uuid.uuid4())
+        op_path = f"/dss/v1/operation_references/{op_id}"
+        body = {"extents": [aoi], "uss_base_url": "https://uss.example",
+                "new_subscription": {"uss_base_url": "https://uss.example"},
+                "state": "Accepted", "old_version": 0, "key": []}
+        status, conflict = http_json(base, "PUT", op_path, body)
+        key = []
+        if status == 409:
+            key = [c["operation_reference"]["ovn"]
+                   for c in conflict["entity_conflicts"]
+                   if "operation_reference" in c]
+            body["key"] = key
+        elif status != 200:
+            raise RuntimeError(f"op PUT: HTTP {status} {conflict}")
+        put = (ok(http_json(base, "PUT", op_path, body), "op PUT with key")
+               if status == 409 else conflict)
+        ovn = put["operation_reference"]["ovn"]
+        q = ok(http_json(base, "POST", "/dss/v1/operation_references/query",
+                         {"area_of_interest": aoi}), "op query")
+        if op_id not in [o["id"] for o in q["operation_references"]]:
+            raise RuntimeError("op query missed the new intent")
+        body.update(old_version=1, key=key + [ovn], state="Activated")
+        upd = ok(http_json(base, "PUT", op_path, body), "op update")
+        if upd["operation_reference"]["version"] != 2:
+            raise RuntimeError(f"op update: {upd['operation_reference']}")
+        ok(http_json(base, "DELETE", op_path), "op DELETE")
+        # HTTP_SEARCHES op queries against the oracle of the same WAL
+        orc = StoreOracle(cols, time.time_ns())
+        mism = 0
+        aois = svc_aois(71, HTTP_SEARCHES, now + HOUR // 2)
+        for params, args in aois:
+            got = ok(http_json(base, "POST",
+                               "/dss/v1/operation_references/query", params),
+                     "op query")
+            ids = sorted(o["id"] for o in got["operation_references"])
+            good = ids == orc.ids(*args)
+            mism += not good
+            STORE_TALLY.check(good, "http: op query != oracle")
+        status_doc = ok(http_json(base, "GET", "/status"), "/status")
+        # a closed loop of clients, one search each per request
+        stop = threading.Event()
+        lats, errs = [[] for _ in range(HTTP_LOOP_CLIENTS)], []
+
+        def client(i):
+            k = i
+            while not stop.is_set():
+                params = aois[k % len(aois)][0]
+                k += HTTP_LOOP_CLIENTS
+                t = time.perf_counter()
+                status, _ = http_json(
+                    base, "POST", "/dss/v1/operation_references/query",
+                    params)
+                if status != 200:
+                    errs.append(status)
+                    return
+                lats[i].append(time.perf_counter() - t)
+
+        ths = [threading.Thread(target=client, args=(i,))
+               for i in range(HTTP_LOOP_CLIENTS)]
+        t = time.perf_counter()
+        for th in ths:
+            th.start()
+        time.sleep(HTTP_LOOP_S)
+        stop.set()
+        for th in ths:
+            th.join(30)
+        span = time.perf_counter() - t
+        if errs:
+            raise RuntimeError(f"closed loop: HTTP {errs[:3]}")
+        loop = np.concatenate([np.asarray(x) for x in lats])
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+            metrics = r.read().decode()
+        fails = metric_values(metrics, "_co_res_graph_capture_failures")
+        entries = metric_values(metrics, "_co_res_aot_buckets")
+        mix = {r: int(sum(metric_values(
+            metrics, f"_co_route_{r}_batches").values()))
+            for r in ("host", "hostchunk", "device", "resident")}
+        plans = {r: int(sum(metric_values(
+            metrics, f"_co_plan_{r}").values()))
+            for r in ("cache", "inline", "hostchunk", "device", "resident")}
+        line = {
+            "wal_records": n_records, "wal_s": wal_s,
+            "boot_s": boot_s, "boot_records_per_s": n_records / boot_s,
+            "healthy_to_warm_end_s": warm_s, "warm_log": warm[0]["msg"],
+            "graph_entries": max(entries.values(), default=0),
+            "capture_failures": max(fails.values(), default=0),
+            "searches": HTTP_SEARCHES, "mismatches": mism,
+            "loop": {"clients": HTTP_LOOP_CLIENTS, "seconds": span,
+                     "queries_per_s": len(loop) / span, **lat_ms(loop)},
+            "route_mix": mix, "plan_mix": plans,
+            "status_keys": sorted(status_doc),
+            "b1": "not expected: the executor holds at most 32 callers,"
+                  " and drains of <= 64 take the host scan",
+            "card": smi,
+        }
+        if line["capture_failures"] > 0:
+            failures.append(f"http: {line['capture_failures']} capture "
+                            "failures")
+    finally:
+        t = time.perf_counter()
+        rc = None
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=HTTP_GRACE_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(30)
+                failures.append("http: the server outlived its grace")
+        else:
+            rc = proc.returncode
+            failures.append(f"http: the server died (rc {rc})")
+        errf.close()
+        line.update(sigterm_exit_s=time.perf_counter() - t, exit_code=rc)
+        if rc != 0:
+            with open(err_path, "rb") as f:
+                tail = f.read()[-2000:].decode(errors="replace")
+            failures.append(f"http: exit code {rc}: {tail}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"http": line}, failures
+
+
 def store_phase(dev, smi) -> tuple:
     """Phase 8: the store.  Write the WAL (STORE_OPS operations and the
     rest), boot DSSStore(storage="cuda") from it, hold a sample of
@@ -1659,34 +2229,49 @@ def store_phase(dev, smi) -> tuple:
         f"{os.path.getsize(path) / 2**20:.1f} MiB, written in "
         f"{time.perf_counter() - t:.2f} s")
 
+    def card_mib(mem0):
+        if dev.type != "cuda":
+            return 0.0
+        torch.cuda.synchronize()
+        return (torch.cuda.memory_allocated() - mem0) / 2**20
+
     def boot():
+        """-> (store, seconds, its memory line): MiB on the card when
+        the constructor returns and once its background folds settle,
+        beside the tiers per class."""
         mem0 = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
         t = time.perf_counter()
         s = DSSStore(storage="cuda", device=dev, wal_path=path,
                      clock=FakeClock(from_nanos(NOW)))
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
+        at_return = card_mib(mem0)
         secs = time.perf_counter() - t
-        mem = (torch.cuda.memory_allocated() - mem0) if dev.type == "cuda" else 0
-        return s, secs, mem / 2**20
+        waited = settle(s)
+        return s, secs, {"mib_on_card": card_mib(mem0),
+                         "mib_at_return": at_return, "settle_s": waited,
+                         "tiers": tiers_by_class(s)}
 
-    store, boot_s, mib = boot()
+    store, boot_s, mem = boot()
     log(json.dumps({"store_boot": {
         "records": n_records, "seconds": boot_s,
         "records_per_s": n_records / boot_s, "classes": store_counts(store),
-        "mib_on_card": mib, "card": smi}}))
+        **mem, "card": smi}}))
     freeze_boot_heap()
 
     # the resident loops and their graph grid, as a server boots them
     store.configure_serving(resident=True, slo_ms=SLO_MS)
     t = time.perf_counter()
     built = store.warm_resident()
-    log(json.dumps({"store_graph_warm": {
-        "entries": built, "seconds": time.perf_counter() - t}}))
+    warm = graph_cache_line(built, time.perf_counter() - t,
+                            store_tables(store))
+    log(json.dumps({"store_graph_warm": warm}))
+    if warm["capture_failures"]:
+        failures.append(f"store warm: {warm['capture_failures']} capture "
+                        "failures")
 
     orc = StoreOracle(cols, NOW)
     ff.fused_window_filter.launches = 0
     ff.fused_window_filter.graph_replays = 0
+    counts = ClassCounts(store)
     q = make_batch(50_000, ORACLE_SAMPLE, N_CELLS, WIDTH)
     t = time.perf_counter()
     for i in range(ORACLE_SAMPLE):
@@ -1720,24 +2305,27 @@ def store_phase(dev, smi) -> tuple:
     # reboot from the same WAL: the time to recover, and the same state
     q = make_batch(52_000, REBOOT_SAMPLE, N_CELLS, WIDTH)
     live = [op_query(store, q, i) for i in range(REBOOT_SAMPLE)]
-    counts = store_counts(store)
+    held = store_counts(store)
+    counts.close()
+    by_class = counts.by
     store.close()
     del store  # its tables leave the card before the reboot's measure
     gc.collect()
-    store, reboot_s, mib = boot()
+    store, reboot_s, mem = boot()
+    counts = ClassCounts(store)
     recounts = store_counts(store)
     for cls in STORE_CLASSES:
         for k in ("records", "live_records"):
-            STORE_TALLY.check(recounts[cls][k] == counts[cls][k],
+            STORE_TALLY.check(recounts[cls][k] == held[cls][k],
                               f"reboot {cls} {k}: {recounts[cls][k]} != "
-                              f"{counts[cls][k]}")
+                              f"{held[cls][k]}")
     for i in range(REBOOT_SAMPLE):
         STORE_TALLY.check(op_query(store, q, i) == live[i],
                           f"reboot search {i} != live store")
     log(json.dumps({"store_reboot": {
         "records": store.wal.seq, "seconds": reboot_s,
         "records_per_s": store.wal.seq / reboot_s, "classes": recounts,
-        "mib_on_card": mib, "searches_compared": REBOOT_SAMPLE,
+        **mem, "searches_compared": REBOOT_SAMPLE,
         "card": smi}}))
 
     # the RID poll recipe, cache on then off, against a memory twin
@@ -1764,12 +2352,34 @@ def store_phase(dev, smi) -> tuple:
         **modes, "answers_checked": 256, "card": smi}}))
     launches = ff.fused_window_filter.launches
     replays = ff.fused_window_filter.graph_replays
+    counts.close()
+    for cls, n in counts.by.items():
+        for k in n:
+            by_class[cls][k] += n[k]
+    log(json.dumps({"store_b1_by_class": by_class, "launches": launches,
+                    "graph_replays": replays}))
     if launches + replays <= 0:
         failures.append("store phase: B1 never launched")
+
+    # the services over the same store, before it closes
+    store.configure_serving(resident=True, slo_ms=SLO_MS,
+                            min_batch=BURST_MIN_BATCH)
+    warm = graph_cache_line(store.warm_resident(), 0.0, store_tables(store))
+    svc, bad = services_phase(store, twin, orc, seed=80_000)
+    svc["services"]["graph_warm"] = warm
+    svc["services"]["card"] = smi
+    log(json.dumps(svc))
+    failures += bad
+    if warm["capture_failures"]:
+        failures.append(f"services warm: {warm['capture_failures']} "
+                        "capture failures")
     twin.close()
     store.close()
     shutil.rmtree(wal_dir, ignore_errors=True)
     return {"store_launches": launches, "store_graph_replays": replays,
+            "store_by_class": by_class,
+            "services_launches": svc["services"]["b1_launches"],
+            "services_graph_replays": svc["services"]["b1_graph_replays"],
             "store_boot_s": boot_s, "store_reboot_s": reboot_s}, failures
 
 
@@ -1914,6 +2524,10 @@ def run(dev, smi) -> tuple:
     log(f"seconds before the store: {time.perf_counter() - t_all:.2f}")
     store, bad = store_phase(dev, smi)
     failures += bad
+    log(f"seconds before http: {time.perf_counter() - t_all:.2f}")
+    http, bad = http_phase(smi)
+    log(json.dumps(http))
+    failures += bad
     log(f"seconds_total: {time.perf_counter() - t_all:.2f}")
     b1 = entry("fused_window_filter", launches, max_err, b1_t, b_ms)
     b1.update(serving)
@@ -1941,8 +2555,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     if failures:
-        print(f"chip_smoke: serving or store phase failed: {failures}",
-              file=sys.stderr)
+        print(f"chip_smoke: a serving, store, services or http phase "
+              f"failed: {failures}", file=sys.stderr)
         return 1
     tallies = list(TALLY.values()) + [STORE_TALLY]
     bad = sum(t.mismatches for t in tallies)

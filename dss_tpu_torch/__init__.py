@@ -11,8 +11,11 @@ keeps its own copy of every helper it needs.
                      PyTorch version.
   ops.fastpath     — `FastTable`: exact block columns on the device,
                      host window packing and hit decode.
-  dar.*            — `DarTable` (tiered snapshots, overlay, folds) and
-                     `CudaSpatialIndex`.
+  dar.*            — `DarTable` (tiered snapshots, overlay, folds),
+                     `CudaSpatialIndex`, the coalescer and `DSSStore`.
+  services, auth,  — the RID/SCD services, JWT auth, the REST app and
+  api, cmds          the server binary (`python -m
+                     dss_tpu_torch.cmds.server`).
   geo.s2cell       — the numpy S2 cell math the index needs.
   convert          — builds port objects from a reference table's
                      plain arrays.

@@ -1583,7 +1583,8 @@ class QueryCoalescer:
         # is attached.  The co_res_aot_* names are the reference's; here
         # they count captured-graph entries (hits, misses, entries, build
         # time), and co_res_graph_* adds what graphs have and
-        # executables do not (busy entries, graphs captured)
+        # executables do not (busy entries, graphs captured, captures
+        # that failed)
         if self._res_loop is not None:
             rs = self._res_loop.stats()
         else:
@@ -1591,7 +1592,8 @@ class QueryCoalescer:
                 "ring_depth": 0, "ring_cap": 0, "inflight": 0,
                 "enqueued": 0, "rejected": 0, "graph_hits": 0,
                 "graph_misses": 0, "graph_buckets": 0, "graph_busy": 0,
-                "graph_captures": 0, "graph_capture_ms_total": 0.0,
+                "graph_captures": 0, "graph_capture_failures": 0,
+                "graph_capture_ms_total": 0.0,
             }
         out.update(
             co_res_ring_depth=rs["ring_depth"],
@@ -1605,6 +1607,7 @@ class QueryCoalescer:
             co_res_aot_compile_ms_total=rs["graph_capture_ms_total"],
             co_res_graph_busy=rs["graph_busy"],
             co_res_graph_captures=rs["graph_captures"],
+            co_res_graph_capture_failures=rs["graph_capture_failures"],
         )
         # planner decision mix (co_plan_*): how often each of the six
         # routes was the chosen plan — the cache row is filled from

@@ -129,12 +129,6 @@ _EMPTY_ATTACHMENT_STATS = {
 }
 
 
-def _later_slice(what: str, slice_: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet; it comes with the {slice_} slice"
-    )
-
-
 def _copy_rec(rec):
     """Shallow defensive copy for search-result assembly: callers may
     mutate the returned object (e.g. the SCD service blanks `ovn` for
@@ -1326,7 +1320,7 @@ class DSSStore:
         else:
             raise ValueError(f"unknown storage backend {storage!r}")
         if region_url:
-            _later_slice("region mode (region_url=)", "region")
+            errors.later_slice("region mode (region_url=)", "region")
         self.storage = storage
         self.clock = clock or Clock()
         # the graceful-degradation ladder (chaos/ladder.py): ONE
@@ -1460,23 +1454,23 @@ class DSSStore:
         return n
 
     def shm_serve(self, req):
-        _later_slice("the shared-memory front (shm_serve)", "shm front")
+        errors.later_slice("the shared-memory front (shm_serve)", "shm front")
 
     def attach_shm_front(self, region, **kwargs):
-        _later_slice("the shared-memory front (attach_shm_front)", "shm front")
+        errors.later_slice("the shared-memory front (attach_shm_front)", "shm front")
 
     def attach_federation(self, router) -> None:
-        _later_slice("federation (attach_federation)", "region")
+        errors.later_slice("federation (attach_federation)", "region")
 
     def attach_push(self, pipeline) -> None:
-        _later_slice("the push pipeline (attach_push)", "push")
+        errors.later_slice("the push pipeline (attach_push)", "push")
 
     def attach_tuner(self, controller) -> None:
-        _later_slice("the self-tuning controller (attach_tuner)",
+        errors.later_slice("the self-tuning controller (attach_tuner)",
                      "measurement surfaces")
 
     def attach_mesh_replica(self, replica, min_batch: int = 64) -> None:
-        _later_slice("the mesh replica (attach_mesh_replica)", "mesh")
+        errors.later_slice("the mesh replica (attach_mesh_replica)", "mesh")
 
     def close(self):
         for index, _ in self._class_indexes():

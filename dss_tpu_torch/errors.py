@@ -186,3 +186,11 @@ def retry_write_conflicts(fn):
         raise AssertionError("unreachable")
 
     return wrapper
+
+
+def later_slice(what: str, slice_: str):
+    """Raise for a part of the reference that a later slice of the port
+    brings: a flag, argument or hook that is set, never at import."""
+    raise NotImplementedError(
+        f"{what} is not ported yet; it comes with the {slice_} slice"
+    )

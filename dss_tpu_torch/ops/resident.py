@@ -40,7 +40,21 @@ Capture runs on a background thread (compile_async) while other threads
 serve, so it uses the thread-local capture mode: another thread's
 allocation, event wait or cold-route launch is no capture error.  Every
 buffer a graph touches, the scratch included, exists before the capture
-begins, and one eager launch on the capture stream comes first.
+begins, and one eager launch on the capture stream comes first.  An
+entry allocates all its units' pinned and device buffers first, and
+units are allocated and captured only under one cache-wide lock, so no
+replay unit's pinned allocation ever overlaps a capture.  A capture
+that fails anyway is counted (`capture_failures`,
+co_res_graph_capture_failures); its bucket launches B1 eagerly.
+
+A grid warm (boot, fold, device recovery) reserves its keys: the LRU
+bound never evicts a reserved entry, and it grows to the reserved count
+plus MISS_HEADROOM entries (at most DSS_RES_AOT_CAP) for miss-driven
+builds.  A table's reservations go with it when it dies.  The
+reference's executables are shared between tables of equal block
+count, so its grid for one store can be smaller; the port's is one per
+table (`reference_grid_entries` counts the reference's for the same
+tables).
 
 On the CPU a GraphCache entry holds the same static buffers and
 captures nothing: a replay runs the plain version into them.  Only a
@@ -94,6 +108,18 @@ def window_bucket_grid() -> Tuple[int, ...]:
     return _env_buckets(
         "DSS_RES_WINDOW_BUCKETS", (256, 1024, 4096, 16384, 65536)
     )
+
+
+# LRU room for miss-driven entries beside the reserved warm grids
+MISS_HEADROOM = 32
+
+
+def reference_grid_entries(tables) -> int:
+    """The entries the reference's AotCache would build to warm the
+    default grid for these FastTables: one per (block count, window
+    bucket, batch bucket), where the port builds one per table."""
+    return (len({int(ft.n_blocks) for ft in tables})
+            * len(batch_bucket_grid()) * len(window_bucket_grid()))
 
 
 def max_words_for(window_bucket: int) -> int:
@@ -221,7 +247,10 @@ class GraphCache:
     idempotent and thread-safe.  Entries are evicted by last use past
     `max_entries` (DSS_RES_AOT_CAP, the reference's name for the same
     bound on its executables) and dropped at once when their
-    table is garbage (a fold replaced it)."""
+    table is garbage (a fold replaced it).  Reserved keys (a warmed
+    grid) are never evicted; the bound is then the larger of
+    `max_entries` and the reserved count plus MISS_HEADROOM (at most
+    `max_entries`)."""
 
     def __init__(self, max_entries: Optional[int] = None):
         self._lock = threading.RLock()
@@ -232,6 +261,10 @@ class GraphCache:
             else int(max_entries)
         )
         self._use: Dict[tuple, int] = {}
+        self._reserved: set = set()
+        # held while units are allocated and while they are captured:
+        # a pinned allocation never overlaps another thread's capture
+        self._build_lock = threading.Lock()
         self._tick = 0
         self._tokens: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
         self._next_token = itertools.count(1)
@@ -239,6 +272,7 @@ class GraphCache:
         self.dropped = 0  # entries of tables that died
         self.compiles = 0  # entries built
         self.captures = 0  # CUDA graphs captured (0 on the CPU)
+        self.capture_failures = 0  # builds that raised (eager launches)
         self.capture_ms_total = 0.0
         # background capture thread: misses schedule their bucket here
         # so the NEXT batch in the same bucket hits
@@ -261,6 +295,7 @@ class GraphCache:
                 del self._entries[k]
                 self._use.pop(k, None)
                 self.dropped += 1
+            self._reserved = {k for k in self._reserved if k[0] != tok}
 
     def key_for(self, ft, window_bucket: int, batch_bucket: int,
                 max_words: int) -> tuple:
@@ -285,32 +320,57 @@ class GraphCache:
         with self._lock:
             return sum(len(e.units) for e in self._entries.values())
 
+    def reserved(self) -> int:
+        with self._lock:
+            return len(self._reserved)
+
+    def cap(self) -> int:
+        """The LRU bound in force: DSS_RES_AOT_CAP, or the reserved
+        grids plus room for miss-driven entries when they need more."""
+        with self._lock:
+            return self._cap()
+
+    def _cap(self) -> int:
+        return max(self._max,
+                   len(self._reserved) + min(MISS_HEADROOM, self._max))
+
     def compile(self, ft, window_bucket: int, batch_bucket: int,
-                max_words: Optional[int] = None, instances: int = 2) -> bool:
+                max_words: Optional[int] = None, instances: int = 2,
+                reserve: bool = False) -> bool:
         """Build (and on the card capture) one bucket of `ft`.  Returns
         True when a fresh entry was built (False: already cached).
-        Runs off any serving path: boot, fold and miss-driven warms."""
+        `reserve` pins the key against eviction (grid warms).  Runs off
+        any serving path: boot, fold and miss-driven warms."""
         if max_words is None:
             max_words = max_words_for(window_bucket)
         key = self.key_for(ft, window_bucket, batch_bucket, max_words)
         with self._lock:
+            if reserve:
+                self._reserved.add(key)
             if key in self._entries:
                 return False
         t0 = time.perf_counter()
-        # chaos seam: an injected failure models a capture error for
-        # one bucket; the capture thread logs it and submits in that
-        # bucket keep launching B1 eagerly
-        fault_point("graph.capture", detail=str(key))
-        entry = _Entry(self._lock)
-        cols = (ft.b_alo, ft.b_ahi, ft.b_t0, ft.b_t1)
-        captured = 0
-        for _ in range(max(1, int(instances))):
-            unit = _Instance(entry, cols, int(window_bucket),
-                             int(batch_bucket), int(max_words), ft.device)
-            if ft.device.type == "cuda":
-                unit.capture()
-                captured += 1
-            entry.units.append(unit)
+        try:
+            # chaos seam: an injected failure models a capture error
+            # for one bucket; it is counted, and submits in that bucket
+            # keep launching B1 eagerly
+            fault_point("graph.capture", detail=str(key))
+            entry = _Entry(self._lock)
+            cols = (ft.b_alo, ft.b_ahi, ft.b_t0, ft.b_t1)
+            with self._build_lock:
+                entry.units = [
+                    _Instance(entry, cols, int(window_bucket),
+                              int(batch_bucket), int(max_words), ft.device)
+                    for _ in range(max(1, int(instances)))
+                ]
+                if ft.device.type == "cuda":
+                    for unit in entry.units:
+                        unit.capture()
+        except BaseException:
+            with self._lock:
+                self.capture_failures += 1
+            raise
+        captured = len(entry.units) if ft.device.type == "cuda" else 0
         dt = (time.perf_counter() - t0) * 1000
         with self._lock:
             if key in self._entries:
@@ -321,9 +381,11 @@ class GraphCache:
             self.compiles += 1
             self.captures += captured
             self.capture_ms_total += dt
-            while len(self._entries) > self._max:
+            cap = self._cap()
+            while len(self._entries) > cap:
                 victim = min(
-                    (k for k in self._entries if k != key),
+                    (k for k in self._entries
+                     if k != key and k not in self._reserved),
                     key=lambda k: self._use.get(k, 0),
                     default=None,
                 )
@@ -335,13 +397,17 @@ class GraphCache:
         return True
 
     def compile_async(self, ft, window_bucket: int, batch_bucket: int,
-                      max_words: int, instances: int = 2) -> None:
+                      max_words: int, instances: int = 2,
+                      reserve: bool = False) -> None:
         """Schedule a bucket on the background capture thread (miss-
         driven warm: the serving path never blocks on it, and the next
         batch landing in this bucket hits).  Deduped per key; only a
-        weak reference to the table is kept until the build runs."""
+        weak reference to the table is kept until the build runs.
+        `reserve` pins the key at once (fold-time grid warms)."""
         key = self.key_for(ft, window_bucket, batch_bucket, max_words)
         with self._lock:
+            if reserve:
+                self._reserved.add(key)
             if key in self._entries or key in self._pending_keys:
                 return
             self._pending_keys.add(key)
@@ -367,7 +433,8 @@ class GraphCache:
                     self.compile(ft, wb, bb, mw, instances)
                 del ft
             except Exception:  # noqa: BLE001 — a bad bucket must not
-                import logging  # kill the capture thread
+                import logging  # kill the capture thread (compile()
+                # counted it in capture_failures)
 
                 logging.getLogger("dss.resident").exception(
                     "graph capture failed for %s", key
@@ -379,6 +446,11 @@ class GraphCache:
 
 # the process-wide cache every ResidentKernel shares
 _CACHE = GraphCache()
+
+
+def graph_cache() -> GraphCache:
+    """The process-wide GraphCache (boot-warm logs, tests, the smoke)."""
+    return _CACHE
 
 
 class ResidentKernel:
@@ -425,13 +497,15 @@ class ResidentKernel:
         return unit
 
     def warm(self, ft, batch_buckets=None, window_buckets=None) -> int:
-        """Build the bucket grid for one FastTable, SYNCHRONOUSLY.
-        Returns the number of fresh entries built.  For boot/test warm
-        only — anything on a fold or serving path wants warm_async."""
+        """Build the bucket grid for one FastTable, SYNCHRONOUSLY, its
+        keys reserved.  Returns the number of fresh entries built.  For
+        boot/test warm only — anything on a fold or serving path wants
+        warm_async."""
         n = 0
         for bb in batch_buckets or batch_bucket_grid():
             for wb in window_buckets or window_bucket_grid():
-                if self.cache.compile(ft, wb, bb, None, self.instances):
+                if self.cache.compile(ft, wb, bb, None, self.instances,
+                                      reserve=True):
                     n += 1
         return n
 
@@ -443,7 +517,8 @@ class ResidentKernel:
         for bb in batch_buckets or batch_bucket_grid():
             for wb in window_buckets or window_bucket_grid():
                 self.cache.compile_async(
-                    ft, wb, bb, max_words_for(wb), self.instances
+                    ft, wb, bb, max_words_for(wb), self.instances,
+                    reserve=True,
                 )
 
     def buckets(self) -> int:
@@ -668,5 +743,6 @@ class ResidentLoop:
                 "graph_dropped": cache.dropped,
                 "graph_compiles": cache.compiles,
                 "graph_captures": cache.captures,
+                "graph_capture_failures": cache.capture_failures,
                 "graph_capture_ms_total": round(cache.capture_ms_total, 1),
             }

@@ -122,7 +122,8 @@ def test_stats_keys_match_reference():
             t.close()
     assert got["ref"] <= got["port"]
     assert got["port"] - got["ref"] == {"co_res_graph_busy",
-                                        "co_res_graph_captures"}
+                                        "co_res_graph_captures",
+                                        "co_res_graph_capture_failures"}
 
 
 def test_concurrent_callers_same_sorted_ids():

@@ -4,8 +4,12 @@
   chaos, deadline, coalesce, trace, stages, plan, resident; the store
   slice's by name: clock, runtime, chaos.retry, chaos.ladder, models,
   geo.covering, dar.codec, dar.wal, dar.readcache, dar.store,
-  dar.dss_store, dar.follower), chip_smoke and b1_device_time import
-  in a process where `jax` and every `dss_tpu` module are refused.
+  dar.dss_store, dar.follower; the API slice's by name: build_info,
+  obs.metrics, obs.logging, auth, auth.jwt, auth.authorizer, services,
+  services.serialization, services.rid, services.scd, api, api.app,
+  cmds, cmds.dummy_oauth, cmds.server), chip_smoke and b1_device_time
+  import in a process where `jax` and every `dss_tpu` module are
+  refused.
 - Tables and stores built without device= on a machine without CUDA
   raise instead of running on the CPU.
 - convert round trip: reference records and table arrays become port
@@ -66,7 +70,12 @@ _PROBE = textwrap.dedent(
                 "chaos.retry", "chaos.ladder", "models", "models.core",
                 "models.volumes", "models.rid", "models.scd", "geo.s2cell",
                 "geo.covering", "dar.codec", "dar.wal", "dar.readcache",
-                "dar.store", "dar.dss_store", "dar.follower"):
+                "dar.store", "dar.dss_store", "dar.follower",
+                "build_info", "obs.metrics", "obs.logging", "auth",
+                "auth.jwt", "auth.authorizer", "services",
+                "services.serialization", "services.rid", "services.scd",
+                "api", "api.app", "cmds", "cmds.dummy_oauth",
+                "cmds.server"):
         assert "dss_tpu_torch." + mod in names, (mod, names)
     import chip_smoke  # its helpers; main() only runs as a script
     assert callable(chip_smoke.run) and callable(chip_smoke.make_batch)

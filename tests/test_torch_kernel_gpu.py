@@ -469,6 +469,58 @@ def test_capture_while_another_thread_serves_cold(cuda):
 
 
 @pytest.mark.gpu
+def test_warm_captures_while_sixteen_threads_allocate_and_replay(cuda):
+    """A warm thread captures a grid while 16 threads build replay units
+    of their own buckets (pinned and card allocations, and captures)
+    and replay a warmed bucket: no capture fails, and every replay
+    equals the plain version."""
+    import threading
+
+    from dss_tpu_torch.ops.resident import (GraphCache, ResidentKernel,
+                                            max_words_for)
+
+    rng = np.random.default_rng(27)
+    ft = _table(rng, 20000, 4000, cuda)
+    q, wb, bb, kargs = _graph_batch(ft, rng, 100, 8, 4000)
+    want = ff.fused_window_filter_torch(*kargs,
+                                        max_words=max_words_for(wb)).cpu()
+    cache = GraphCache()
+    assert cache.compile(ft, wb, bb, max_words_for(wb), 16)
+    errors, replays = [], [0]
+    lock = threading.Lock()
+
+    def worker(i):
+        try:
+            kern = ResidentKernel(cache, autocompile=False)
+            for j in range(4):  # 3 keys of its own (window buckets below
+                # the warmed and served ones), one built twice
+                cache.compile(ft, 32 << (j % 3), 16 * (i + 1),
+                              max_words_for(32), 2)
+                out, _ = _replayed(ft, kern, q)
+                assert torch.equal(out, want)
+                with lock:
+                    replays[0] += 1
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    warm = ResidentKernel(cache, autocompile=False, instances=6)
+    warmer = threading.Thread(
+        target=lambda: warm.warm(ft, batch_buckets=(4096, 8192),
+                                 window_buckets=(1024, 4096, 16384)))
+    ths = [threading.Thread(target=worker, args=(i,)) for i in range(16)]
+    warmer.start()
+    for th in ths:
+        th.start()
+    warmer.join(300)
+    for th in ths:
+        th.join(300)
+    assert not errors, errors
+    assert wb >= 256 and cache.capture_failures == 0
+    assert replays[0] == 64
+    assert cache.captures == 16 + 6 * 6 + 16 * 3 * 2 == cache.instances()
+
+
+@pytest.mark.gpu
 def test_dropped_entry_frees_its_pinned_buffers(cuda):
     """The captured graph's copies are torch copies of pinned buffers:
     when a fold drops a table, its entry's units and their pinned

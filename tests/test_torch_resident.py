@@ -107,7 +107,8 @@ def test_graph_cache_key_hits_and_lru_eviction():
     """The key names the table, not its block count: two tables of
     equal block count get different entries.  warm() is idempotent;
     lookups hit warmed buckets and count misses; the LRU bound evicts
-    the least recently used entry; on the CPU nothing is captured."""
+    the least recently used of the unreserved (miss-driven) entries; on
+    the CPU nothing is captured."""
     t1, t2 = _table(seed=1), _table(seed=2)
     try:
         ft1 = t1._state.tiers[0].snap.fast
@@ -119,19 +120,31 @@ def test_graph_cache_key_hits_and_lru_eviction():
         assert k1 != cache.key_for(ft2, 256, 128, max_words_for(256))
         assert k1[1:] == (256, 128, 1 << 16)
         kern = ResidentKernel(cache, autocompile=False)
-        assert kern.warm(ft1, batch_buckets=(128,), window_buckets=(256,)) == 1
-        assert kern.warm(ft1, (128,), (256,)) == 0
+        # a miss-driven build, unreserved
+        assert cache.compile(ft1, 256, 128, max_words_for(256), 2)
+        assert not cache.compile(ft1, 256, 128, max_words_for(256), 2)
         assert cache.compiles == 1 and cache.captures == 0
+        assert cache.reserved() == 0
         unit = kern.lookup(ft1, 256, 128, max_words_for(256))
         assert unit is not None and kern.hits == 1
         unit.release()
         assert kern.lookup(ft2, 256, 128, max_words_for(256)) is None
         assert kern.misses == 1
         # LRU: ft1's entry is the oldest use once three more land
-        kern.warm(ft2, batch_buckets=(16, 32, 64), window_buckets=(256,))
+        for bb in (16, 32, 64):
+            cache.compile(ft2, 256, bb, max_words_for(256), 2)
         assert cache.size() == 3 and cache.evictions == 1
         assert kern.lookup(ft1, 256, 128, max_words_for(256)) is None
         assert kern.lookup(ft2, 256, 64, max_words_for(256)) is not None
+        # a warm reserves its grid: past the bound, only unreserved
+        # entries go
+        assert kern.warm(ft1, (128, 512), (256,)) == 2
+        assert kern.warm(ft1, (128, 512), (256,)) == 0
+        assert cache.reserved() == 2 and cache.cap() == 5
+        assert cache.size() == 5 and cache.evictions == 1
+        cache.compile(ft2, 1024, 16, max_words_for(1024), 2)
+        assert cache.size() == 5 and cache.evictions == 2
+        assert kern.lookup(ft1, 256, 512, max_words_for(256)) is not None
     finally:
         t1.close()
         t2.close()
@@ -478,3 +491,68 @@ def test_configure_toggles_resident_loop_and_fold_hook():
     finally:
         co.close()
         t.close()
+
+
+# -- a store's warm grid against the cache's bound ------------------------------
+
+
+def _warm_a_five_class_store(cache):
+    """Warm a 5-class, two-tier-per-class store twice and look up its
+    grid; returns the cache tokens of its tables."""
+    from dss_tpu_torch.dar.dss_store import DSSStore
+
+    store = DSSStore(storage="cuda", device="cpu")
+    try:
+        store.configure_serving(resident=True)
+        tables = []
+        for i, (index, _) in enumerate(store._class_indexes()):
+            t = index.table
+            rng = np.random.default_rng(40 + i)
+            _fill(t, 300, 50, rng, prefix="a")
+            assert t.compact()
+            _fill(t, 40, 50, rng, prefix="b")
+            assert t.fold()
+            tiers = [tier.snap.fast for tier in t._state.tiers]
+            assert len(tiers) == 2
+            tables += tiers
+        grid = [(wb, bb) for bb in resident.batch_bucket_grid()
+                for wb in resident.window_bucket_grid()]
+        evictions = cache.evictions
+        assert store.warm_resident() == len(tables) * len(grid) == 160
+        assert cache.evictions == evictions
+        assert cache.cap() >= 160 + resident.MISS_HEADROOM
+        assert store.warm_resident() == 0
+        kern = ResidentKernel(cache, autocompile=False)
+        for ft in tables:
+            for wb, bb in grid:
+                unit = kern.lookup(ft, wb, bb, max_words_for(wb))
+                assert unit is not None, (wb, bb)
+                unit.release()
+        assert (kern.hits, kern.misses, kern.busy) == (160, 0, 0)
+        assert cache.capture_failures == 0
+        # the reference keys by block count: its grid is no larger
+        ref_n = resident.reference_grid_entries(tables)
+        assert ref_n % len(grid) == 0 and ref_n <= 160
+        return {cache.key_for(ft, 256, 16, 1 << 16)[0] for ft in tables}
+    finally:
+        store.close()
+
+
+def test_store_warm_grid_survives_its_own_warm(monkeypatch):
+    """A 5-class store with two tiers per class warms more entries than
+    DSS_RES_AOT_CAP's default 128: the warm reserves its keys, so none
+    is evicted, a second warm builds nothing, and every bucket of every
+    tier then hits.  The reference's grid for the same tables (one
+    entry per block count) is counted beside it.  The reservations go
+    with the tables."""
+    monkeypatch.delenv("DSS_RES_AOT_CAP", raising=False)
+    monkeypatch.setenv("DSS_RES_BATCH_BUCKETS",
+                       "16,32,64,128,512,1024,2048,4096")
+    monkeypatch.setenv("DSS_RES_WINDOW_BUCKETS", "256,1024")
+    monkeypatch.setenv("DSS_CO_RES_INFLIGHT", "1")  # 3 units an entry
+    cache = resident._CACHE
+    assert cache._max == 128
+    toks = _warm_a_five_class_store(cache)
+    gc.collect()
+    assert not any(k[0] in toks for k in cache._reserved)
+    assert not any(k[0] in toks for k in cache._entries)

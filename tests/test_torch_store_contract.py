@@ -410,7 +410,7 @@ def test_scenario_equals_reference(scenario, backend):
 GRAPH_KEYS = {
     f"dss_dar_{cls}_co_res_graph_{k}"
     for cls in ("isa", "rid_sub", "op", "scd_sub", "constraint")
-    for k in ("busy", "captures")
+    for k in ("busy", "captures", "capture_failures")
 }
 
 
