@@ -45,7 +45,7 @@ Phases (any failure exits non-zero; nothing is caught):
      then the reference's bulk stale drain (bench.py:1157-1186), 16
      bursts of 128 bounded-staleness callers, every answer held against
      the twin, one `bulk_burst` line;
-  8. the store: a WAL of 500k SCD operational intents (8 contiguous
+  8. the store: a WAL of 300k SCD operational intents (8 contiguous
      level-13 cells each, 10-600 m bands, 1-5 h windows), the RID poll
      recipe's 4,000 ISAs over 512 areas, and a few hundred RID
      subscriptions, SCD subscriptions and constraints, written with
@@ -171,11 +171,12 @@ SERVING_SAMPLE = 4096  # answers per leg held against the CPU twin
 # recipe's geometry (bench.py:61-105, each intent's KPE cells
 # contiguous), the RID poll recipe's ISAs (bench.py:796-840, :928-931)
 # and a few hundred SCD subscriptions and constraints, booted into
-# DSSStore(storage="cuda").  Half the north star's 1M (BASELINE.json):
-# the boot and the reboot replay one record at a time on the host, and
-# at 1M on an H100 host (about 1,700 records/s) the whole smoke took
-# 1,471 s, past its 1,200 s limit (PERF.md §4).
-STORE_OPS = 500_000
+# DSSStore(storage="cuda").  Cut from the north star's 1M
+# (BASELINE.json): the boot and the reboot replay one record at a time
+# on the host, at 1,800-2,800 records/s on the H100's hosts, and at 1M
+# the whole smoke took 1,471 s, past its 1,200 s limit; at 500k it took
+# 923 s once the native and push phases came (PERF.md §4).
+STORE_OPS = 300_000
 STORE_SUBS = 300  # SCD subscriptions; as many RID subscriptions
 STORE_CSTS = 200
 POLL_ISAS, POLL_AREAS, POLL_CELLS = 4000, 512, 64
@@ -186,13 +187,27 @@ STORE_WRITES = 1200
 REBOOT_SAMPLE = 256  # searches compared between the live and rebooted store
 # the services over the store phase's store, and the server binary as
 # a process booted from a WAL of HTTP_OPS intents (cut from the store's
-# 500k so that both phases stay within 120 s)
+# 300k so that both phases stay within 120 s)
 SVC_SAMPLE = 256  # ISA searches, and as many op queries, per phase
 HTTP_OPS = 50_000  # the HTTP server's WAL: ops besides the poll ISAs
 HTTP_SEARCHES = 256
 HTTP_LOOP_CLIENTS, HTTP_LOOP_S = 8, 3.0
 HTTP_GRACE_S = 10.0
 HTTP_DEVICE = "cuda"  # the server's --device
+# the native phase: the main path's batches (seeds 200-207 and the
+# three after the fold and the compaction) once with the native host
+# halves and once with numpy forced; the host scan at these batch sizes
+NATIVE_SEEDS = tuple(range(200, 208)) + (401, 402, 403)
+HOST_BATCHES = (1, 16, 64)
+HOST_REPS = 30
+# the push phase, the reference's fan-out recipe (bench.py:1514-1665):
+# PUSH_SUBS RID subscriptions of 8 cells each over one PUSH_CELLS-cell
+# area, PUSH_USS webhooks, one warm and PUSH_WRITES timed writes, each
+# matching every subscription; then its fan-out smoke (bench.py:
+# 1691-1760) with PUSH_SMOKE_SUBS subscriptions over real HTTP
+PUSH_SUBS, PUSH_USS, PUSH_CELLS, PUSH_WRITES = 10_240, 32, 256, 8
+PUSH_SMOKE_SUBS, PUSH_SMOKE_USS, PUSH_SMOKE_CELLS = 64, 8, 64
+PUSH_CRASH_EVENTS = 200
 # kernel -> (its CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "fused_window_filter": ("dss_tpu_torch/csrc/fused_filter.cu",
@@ -440,6 +455,8 @@ class Tally:
 
 TALLY = {name: Tally(name) for name in KERNELS}
 STORE_TALLY = Tally("store")  # the store phase's answers and state
+NATIVE_TALLY = Tally("native")  # native host halves against numpy
+PUSH_TALLY = Tally("push")  # matched ids and deliveries
 
 
 def resolve_max_words(args, nw, spec) -> int:
@@ -681,6 +698,156 @@ def busy_window(idx, twin, qs, smi) -> dict:
             "device_busy_share": busy / 1e3 / (wall * 1e3),
             "device_busy_share_of_window": busy / (hi - lo),
             "device_ms_by_name": by_name, "card": smi}
+
+
+def native_phase(idx, smi) -> tuple:
+    """The native host halves at the main path's configuration: the
+    NATIVE_SEEDS batches of BATCH queries through DarTable.query_many's
+    two halves, each once with dss_tpu_torch.native and once with the
+    numpy paths forced (fastpath._NATIVE = (None,)), in turns; every
+    answer, and the L0 table's packed windows and decoded (qidx, slot)
+    pairs, equal bit for bit.  Then the exact host scan (query_host_auto) on batches of
+    HOST_BATCHES queries, and the coverings of the services phase's 256
+    polygons (numpy forced through covering._native = None), both ways.
+    B1's counts are set to 0 just before and read just after.  ->
+    (the `native` line, B1's counts in the phase)."""
+    from dss_tpu_torch.geo import covering
+    from dss_tpu_torch.ops import fastpath as fp
+
+    ft = idx.table._state.snap.fast
+    qs = [make_batch(s, BATCH, N_CELLS, WIDTH) for s in NATIVE_SEEDS]
+    ff.fused_window_filter.launches = 0
+    ff.fused_window_filter.graph_replays = 0
+    t_all = time.perf_counter()
+    runs = {mode: {"stages": [], "answers": [], "packs": [], "pairs": [],
+                   "pack_ms": [], "decode_ms": []}
+            for mode in ("native", "numpy")}
+
+    def one(mode, q, keep=True):
+        fp._NATIVE = None if mode == "native" else (None,)
+        try:
+            st, got = card_batch(idx, q)
+            t = time.perf_counter()
+            pack = ft._pack_windows(q[0])
+            pack_ms = (time.perf_counter() - t) * 1e3
+            pending = ft.submit(*q, now=NOW)
+            pending.ready()
+            t = time.perf_counter()
+            pairs = ft.collect(pending)
+            decode_ms = (time.perf_counter() - t) * 1e3
+        finally:
+            fp._NATIVE = None
+        if keep:
+            r = runs[mode]
+            for k, v in (("stages", st), ("answers", got), ("packs", pack),
+                         ("pairs", pairs), ("pack_ms", pack_ms),
+                         ("decode_ms", decode_ms)):
+                r[k].append(v)
+
+    one("native", qs[0], keep=False)  # warm-up, both ways
+    one("numpy", qs[0], keep=False)
+    # the two ways in turns, batch by batch, each first on every other
+    # batch: the host's drift falls on both alike
+    for i, q in enumerate(qs):
+        for mode in (("native", "numpy") if i % 2 == 0
+                     else ("numpy", "native")):
+            one(mode, q)
+    for r in runs.values():
+        stages = r["stages"]
+        r["line"] = {
+            "p50_submit_ms": statistics.median(
+                st["submit"] for st in stages) * 1e3,
+            "p50_device_wait_ms": statistics.median(
+                st["device_wait"] for st in stages) * 1e3,
+            "p50_collect_ms": statistics.median(
+                st["collect"] for st in stages) * 1e3,
+            "p50_batch_ms": statistics.median(
+                sum(st.values()) for st in stages) * 1e3,
+            "p50_l0_pack_ms": statistics.median(r["pack_ms"]),
+            "p50_l0_decode_ms": statistics.median(r["decode_ms"]),
+        }
+    nat, num = runs["native"], runs["numpy"]
+    for i in range(len(qs)):
+        NATIVE_TALLY.check(nat["answers"][i] == num["answers"][i],
+                           f"native: batch {i} answers != numpy")
+        a, b = nat["packs"][i], num["packs"][i]
+        NATIVE_TALLY.check(
+            a[3] == b[3] and all(np.array_equal(x, y)
+                                 for x, y in zip(a[:3], b[:3])),
+            f"native: batch {i} packed windows != numpy")
+        NATIVE_TALLY.check(
+            all(np.array_equal(x, y) and x.dtype == y.dtype
+                for x, y in zip(nat["pairs"][i], num["pairs"][i])),
+            f"native: batch {i} decoded pairs != numpy")
+    hits = sum(len(p[0]) for p in nat["pairs"])
+    launches = ff.fused_window_filter.launches
+    replays = ff.fused_window_filter.graph_replays
+
+    host = {}
+    for b in HOST_BATCHES:
+        q = make_batch(500 + b, b, N_CELLS, WIDTH)
+        row = {}
+        got = {}
+        for mode in ("native", "numpy"):
+            fp._NATIVE = None if mode == "native" else (None,)
+            try:
+                res = ft.query_host_auto(*q, now=NOW)
+                times = []
+                for _ in range(HOST_REPS):
+                    t = time.perf_counter()
+                    ft.query_host_auto(*q, now=NOW)
+                    times.append((time.perf_counter() - t) * 1e3)
+            finally:
+                fp._NATIVE = None
+            got[mode] = None if res is None else sorted(
+                zip(res[0].tolist(), res[1].tolist()))
+            row[f"{mode}_p50_ms"] = statistics.median(times)
+        NATIVE_TALLY.check(got["native"] is not None
+                           and got["native"] == got["numpy"],
+                           f"native: host scan of {b} != numpy")
+        row["pairs"] = len(got["native"] or ())
+        host[str(b)] = row
+
+    polys = [[(v["lat"], v["lng"]) for v in p["area_of_interest"]["volume"]
+              ["outline_polygon"]["vertices"]]
+             for p, _ in svc_aois(80_001, SVC_SAMPLE, NOW)]
+    cov = {}
+    for mode in ("native", "numpy"):
+        saved = covering._native
+        if mode == "numpy":
+            covering._native = None
+        try:
+            t = time.perf_counter()
+            cells = [covering.covering_polygon(p) for p in polys]
+            cov[mode] = ((time.perf_counter() - t) * 1e3 / len(polys), cells)
+        finally:
+            covering._native = saved
+    NATIVE_TALLY.check(
+        all(np.array_equal(a, b) for a, b in zip(cov["native"][1],
+                                                 cov["numpy"][1])),
+        "native: coverings != numpy")
+    line = {
+        "native_available": True,
+        "batches": len(qs), "batch": BATCH, "hits_l0": hits,
+        "native": nat["line"], "numpy": num["line"],
+        "collect_speedup": num["line"]["p50_collect_ms"]
+        / nat["line"]["p50_collect_ms"],
+        # paired: batches whose native batch time beat numpy's
+        "batches_native_faster": sum(
+            sum(a.values()) < sum(b.values())
+            for a, b in zip(nat["stages"], num["stages"])),
+        "host_scan": host,
+        "covering": {"polygons": len(polys),
+                     "native_ms_per_polygon": cov["native"][0],
+                     "numpy_ms_per_polygon": cov["numpy"][0],
+                     "cells": int(sum(len(c) for c in cov["native"][1]))},
+        "b1_launches": launches, "b1_graph_replays": replays,
+        "compared": NATIVE_TALLY.compared,
+        "mismatches": NATIVE_TALLY.mismatches,
+        "seconds": time.perf_counter() - t_all, "card": smi,
+    }
+    return {"native": line}, {"native_phase_launches": launches,
+                              "native_phase_graph_replays": replays}
 
 
 def entry(name, launches, max_err, t, b_ms) -> dict:
@@ -2003,6 +2170,8 @@ def http_phase(smi) -> tuple:
     write_store_wal(wal, cols, now=now)
     n_records = HTTP_OPS + POLL_ISAS + 2 * STORE_SUBS + STORE_CSTS
     wal_s = time.perf_counter() - t
+    log(json.dumps(replay_profile(wal, n_records, torch.device(HTTP_DEVICE),
+                                  smi)))
     port = free_port()
     base = f"http://127.0.0.1:{port}"
     err_path = os.path.join(work, "server.log")
@@ -2012,7 +2181,7 @@ def http_phase(smi) -> tuple:
         [sys.executable, "-m", "dss_tpu_torch.cmds.server",
          "--addr", f"127.0.0.1:{port}", "--enable_scd", "--storage", "cuda",
          "--device", HTTP_DEVICE, "--insecure_no_auth", "--wal_path", wal,
-         "--shutdown_grace", str(HTTP_GRACE_S)],
+         "--shutdown_grace", str(HTTP_GRACE_S), "--inline_reads", "on"],
         cwd=root, stdout=subprocess.DEVNULL, stderr=errf)
     line, failures = {}, []
     try:
@@ -2169,6 +2338,7 @@ def http_phase(smi) -> tuple:
                      "queries_per_s": len(loop) / span, **lat_ms(loop)},
             "route_mix": mix, "plan_mix": plans,
             "status_keys": sorted(status_doc),
+            "inline_reads": "on",
             "b1": "not expected: the executor holds at most 32 callers,"
                   " and drains of <= 64 take the host scan",
             "card": smi,
@@ -2192,12 +2362,436 @@ def http_phase(smi) -> tuple:
             failures.append(f"http: the server died (rc {rc})")
         errf.close()
         line.update(sigterm_exit_s=time.perf_counter() - t, exit_code=rc)
+        # the server's own account: the native halves at boot, and
+        # where its READ handlers ran (logged at shutdown)
+        with open(err_path, "rb") as f:
+            msgs = [json.loads(x).get("msg", "")
+                    for x in f.read().splitlines() if x.startswith(b"{")]
+        nat = [m for m in msgs if m.startswith("native host halves:")]
+        reads = [m for m in msgs if m.startswith("reads: ")]
+        line["native_ready"] = bool(nat) and "loaded" in nat[0]
+        if not line["native_ready"]:
+            failures.append(f"http: native halves not loaded ({nat})")
+        if reads:
+            n = [int(w) for w in reads[0].replace(",", "").split()
+                 if w.isdigit()]
+            line["reads"] = dict(zip(("inline", "rerun", "executor"), n))
+            line["inline_share"] = n[0] / max(1, sum(n))
+        else:
+            failures.append("http: no reads line at shutdown")
         if rc != 0:
             with open(err_path, "rb") as f:
                 tail = f.read()[-2000:].decode(errors="replace")
             failures.append(f"http: exit code {rc}: {tail}")
     shutil.rmtree(work, ignore_errors=True)
     return {"http": line}, failures
+
+
+def replay_profile(wal, n_records, dev, smi) -> dict:
+    """An in-process boot of DSSStore(storage="cuda") from `wal` under
+    cProfile: the boot's seconds and the top 12 functions by cumulative
+    time, for the replay that cuts the store phase to 300k.  -> the
+    `store_replay_profile` line."""
+    import cProfile
+    import os
+    import pstats
+
+    from dss_tpu_torch.dar.dss_store import DSSStore
+
+    prof = cProfile.Profile()
+    t = time.perf_counter()
+    store = prof.runcall(DSSStore, storage="cuda", device=dev, wal_path=wal)
+    secs = time.perf_counter() - t
+    store.close()
+    st = pstats.Stats(prof)
+    rows = sorted(st.stats.items(), key=lambda kv: kv[1][3], reverse=True)
+    top = []
+    for (path, line_no, fn), (cc, nc, tt, ct, _) in rows[:12]:
+        where = path
+        for root in sys.path:
+            if root and path.startswith(root + os.sep):
+                where = os.path.relpath(path, root)
+                break
+        top.append({"function": f"{where}:{line_no}({fn})", "ncalls": nc,
+                    "tottime_s": tt, "cumtime_s": ct})
+    return {"store_replay_profile": {
+        "records": n_records, "seconds_under_cprofile": secs,
+        "records_per_s": n_records / secs, "top": top, "card": smi}}
+
+
+class Receiver:
+    """A stdlib HTTP server on a thread of this process that records
+    every POST it is sent (the webhook of the fan-out smoke)."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.got = []
+        self.lock = threading.Lock()
+        rec = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                with rec.lock:
+                    rec.got.append((self.path, json.loads(body)))
+                self.send_response(204)
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        self.srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.srv.server_address[1]}"
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join(10)
+
+
+def fanout_store(dev, n_subs, n_uss, n_cells, transport, urls, **pipe_kw):
+    """The reference's _fanout_store (bench.py:1514-1562) on the port: a
+    DSSStore(storage="cuda") with an attached PushPipeline, n_uss
+    registered webhooks (urls(u)), and n_subs RID subscriptions of 8
+    cells each over one n_cells-cell area; with a storage="memory" twin
+    holding the same subscriptions.  The subscriptions are folded into
+    a device tier.  -> (store, pipe, twin, area)."""
+    from datetime import datetime, timedelta, timezone
+    import uuid
+
+    from dss_tpu_torch.dar.dss_store import DSSStore
+    from dss_tpu_torch.models import rid as ridm
+    from dss_tpu_torch.push import PushPipeline
+
+    store = DSSStore(storage="cuda", device=dev)
+    twin = DSSStore(storage="memory")
+    pipe = PushPipeline(workers=pipe_kw.pop("workers", 4),
+                        transport=transport, **pipe_kw)
+    store.attach_push(pipe)
+    for u in range(n_uss):
+        pipe.register_hook(f"uss{u:03d}", urls(u))
+    area = s2cell.dar_key_to_cell(np.arange(n_cells, dtype=np.int64))
+    t0 = datetime.now(timezone.utc) + timedelta(minutes=5)
+    for k in range(n_subs):
+        lo = k % max(1, n_cells - 8)
+        for s in (store, twin):
+            sub = ridm.Subscription(
+                id=str(uuid.UUID(int=10_000 + k, version=4)),
+                owner=f"uss{k % n_uss:03d}",
+                url=f"https://uss{k % n_uss:03d}.example/notify",
+                cells=area[lo:lo + 8], start_time=t0,
+                end_time=t0 + timedelta(hours=23),
+                altitude_lo=0.0, altitude_hi=3000.0,
+            )
+            if s.rid.insert_subscription(sub) is None:
+                raise RuntimeError("push: a subscription was refused")
+    table = store.rid._sub_index.table
+    table.fold()
+    if table.stats()["tier_count"] < 1 or table._state.pending:
+        raise RuntimeError("push: the subscriptions never reached a tier")
+    return store, pipe, twin, area
+
+
+def push_phase(dev, smi) -> tuple:
+    """The reference's fan-out recipe (bench.py:1514-1665) on the card:
+    PUSH_SUBS subscriptions, PUSH_USS hooks, one ISA, one warm and
+    PUSH_WRITES timed writes, each matching every subscription through
+    MatchStage's rqmatch route (B1 over the subscription DAR), every
+    write's matched id set held against the memory twin's, every
+    notification delivered (a counting transport) and acked; then the
+    fan-out smoke (bench.py:1691-1760).  B1's counts are set to 0 just
+    before the warm write and read after the drain.  -> (the `push`
+    line, B1's counts in the phase, failures)."""
+    from datetime import datetime, timedelta, timezone
+    import uuid
+
+    from dss_tpu_torch.models import rid as ridm
+
+    failures = []
+    delivered = []
+    dlock = threading.Lock()
+
+    def transport(url, body, headers):
+        with dlock:
+            delivered.append(body["subscription"]["id"])
+
+    t_all = time.perf_counter()
+    store, pipe, twin, area = fanout_store(
+        dev, PUSH_SUBS, PUSH_USS, PUSH_CELLS, transport,
+        lambda u: f"https://uss{u:03d}.example/notify",
+        max_depth=(PUSH_WRITES + 2) * PUSH_SUBS + 1024)
+    setup_s = time.perf_counter() - t_all
+    try:
+        t0 = datetime.now(timezone.utc)
+        isa = ridm.IdentificationServiceArea(
+            id=str(uuid.UUID(int=1, version=4)), owner="bench",
+            url="https://uss.example/flights", cells=area, start_time=t0,
+            end_time=t0 + timedelta(hours=24),
+            altitude_lo=0.0, altitude_hi=3000.0)
+        isa = store.rid.insert_isa(isa)
+        twin.rid.insert_isa(isa)
+        pre = store.stats()
+        ff.fused_window_filter.launches = 0
+        ff.fused_window_filter.graph_replays = 0
+
+        def write() -> float:
+            """One write matched on the card and on the twin; -> the
+            card's seconds (match, bump, journal and enqueue)."""
+            t = time.perf_counter()
+            got = sorted(s.id for s in store.rid
+                         .update_notification_idxs_in_cells(area, entity=isa))
+            secs = time.perf_counter() - t
+            want = sorted(s.id for s in twin.rid
+                          .update_notification_idxs_in_cells(area,
+                                                             entity=isa))
+            PUSH_TALLY.check(got == want and len(got) == PUSH_SUBS,
+                             f"push: {len(got)} matched != twin's "
+                             f"{len(want)}")
+            return secs
+
+        warm_s = write()  # the first rqmatch batch
+        match_s = sum(write() for _ in range(PUSH_WRITES))
+        t_run_end = time.perf_counter()
+        if not pipe.drain(timeout_s=300.0):
+            failures.append(f"push: queue never drained "
+                            f"(depth {pipe.log.depth()})")
+        drain_s = time.perf_counter() - t_run_end
+        launches = ff.fused_window_filter.launches
+        replays = ff.fused_window_filter.graph_replays
+        post = store.stats()
+        rq_plans = (post["dss_dar_rid_sub_co_plan_rqmatch"]
+                    - pre["dss_dar_rid_sub_co_plan_rqmatch"])
+        ps = pipe.stats()
+        want_acks = (PUSH_WRITES + 1) * PUSH_SUBS
+        with dlock:
+            n_delivered = len(delivered)
+            per_sub = np.unique(np.asarray(delivered), return_counts=True)[1]
+        PUSH_TALLY.check(n_delivered == want_acks
+                         and bool((per_sub == PUSH_WRITES + 1).all()),
+                         f"push: {n_delivered} deliveries != {want_acks}")
+        if rq_plans < 1:
+            failures.append(f"push: {rq_plans} rqmatch plans")
+        if launches + replays <= 0:
+            failures.append("push: B1 never launched in the phase")
+        if ps["dss_push_acked_total"] != want_acks:
+            failures.append(f"push: {ps['dss_push_acked_total']} acks != "
+                            f"{want_acks}")
+        if ps["dss_push_dropped_total"] or ps["dss_push_parked_total"]:
+            failures.append(f"push: dropped {ps['dss_push_dropped_total']},"
+                            f" parked {ps['dss_push_parked_total']}")
+        lag = pipe.pool.lag_percentiles_ms()
+        line = {
+            "subscriptions": PUSH_SUBS, "uss_hooks": PUSH_USS,
+            "timed_writes": PUSH_WRITES, "matched_per_write": PUSH_SUBS,
+            "setup_s": setup_s, "warm_write_s": warm_s,
+            "match_write_qps": PUSH_WRITES / match_s,
+            "matched_pairs_per_s": PUSH_WRITES * PUSH_SUBS / match_s,
+            "rqmatch_plans": int(rq_plans),
+            "b1_launches": launches, "b1_graph_replays": replays,
+            "acked": ps["dss_push_acked_total"], "delivered": n_delivered,
+            "dropped": ps["dss_push_dropped_total"],
+            "parked": ps["dss_push_parked_total"],
+            "delivery_lag_p50_ms": lag["p50"],
+            "delivery_lag_p99_ms": lag["p99"],
+            "drain_s": drain_s,
+        }
+    finally:
+        store.close()  # joins the delivery workers first
+        twin.close()
+    smoke, bad = fanout_smoke(dev)
+    failures += bad
+    line.update(fanout_smoke=smoke, compared=PUSH_TALLY.compared,
+                mismatches=PUSH_TALLY.mismatches,
+                seconds=time.perf_counter() - t_all, card=smi)
+    return {"push": line}, {"push_phase_launches": launches,
+                            "push_phase_graph_replays": replays}, failures
+
+
+_CRASH_CHILD = """
+import json, sys, time
+from dss_tpu_torch.push.deliver import DeliveryPool
+from dss_tpu_torch.push.queue import DeliveryLog
+
+wal, sink = sys.argv[1], sys.argv[2]
+log = DeliveryLog(wal, fsync=False)
+fh = open(sink, "a", encoding="utf-8", buffering=1)
+
+def transport(url, body, headers):
+    fh.write(json.dumps({"nid": body["nid"]}) + chr(10))
+    fh.flush()
+    time.sleep(0.005)
+
+pool = DeliveryPool(log, workers=1, transport=transport)
+pool.start()
+while True:
+    time.sleep(0.1)
+"""
+
+
+def fanout_smoke(dev) -> tuple:
+    """The reference's fan-out smoke (bench.py:1691-1760) on the port:
+    (1) PUSH_SMOKE_SUBS subscriptions delivered over real HTTP
+    (http_transport to a receiver thread of this process); one no-fault
+    write, then a seeded plan of one push.match fault (absorbed onto
+    the host oracle: the same ids) and two push.deliver faults
+    (retried, nothing parked); (2) a delivery worker process SIGKILLed
+    mid-drain over a shared delivery WAL: every acked notification was
+    delivered before the kill, and the replay redelivers exactly the
+    unacked ones.  -> (its line, failures)."""
+    import os
+    import shutil
+    import signal
+
+    from dss_tpu_torch import chaos
+    from dss_tpu_torch.push.deliver import DeliveryPool, http_transport
+    from dss_tpu_torch.push.queue import DeliveryLog
+
+    failures = []
+    chaos.clear_plan()
+    chaos.registry().reset_counters()
+    rx = Receiver()
+    out = {}
+    try:
+        store, pipe, twin, area = fanout_store(
+            dev, PUSH_SMOKE_SUBS, PUSH_SMOKE_USS, PUSH_SMOKE_CELLS,
+            http_transport(3.0), lambda u: f"{rx.url}/uss{u:03d}",
+            workers=2)
+        try:
+            oracle = sorted(s.id for s in
+                            store.rid.update_notification_idxs_in_cells(area))
+            twin_ids = sorted(s.id for s in
+                              twin.rid.update_notification_idxs_in_cells(area))
+            PUSH_TALLY.check(oracle == twin_ids
+                             and len(oracle) == PUSH_SMOKE_SUBS,
+                             "fanout smoke: no-fault match != twin")
+            if not pipe.drain(30.0):
+                failures.append("fanout smoke: no-fault drain timed out")
+            base_acked = pipe.log.acked
+            chaos.install_plan({"seed": 17, "events": [
+                {"site": "push.match", "action": "error", "count": 1},
+                {"site": "push.deliver", "action": "error", "count": 2},
+            ]})
+            got = sorted(s.id for s in
+                         store.rid.update_notification_idxs_in_cells(area))
+            PUSH_TALLY.check(got == oracle,
+                             "fanout smoke: faulted match != no-fault")
+            if not pipe.drain(30.0):
+                failures.append("fanout smoke: faulted drain timed out")
+            injected = chaos.registry().injected_by_site()
+            ps = pipe.stats()
+            absorbed = pipe.stage("rid_sub").absorbed
+            if absorbed < 1:
+                failures.append("fanout smoke: push.match not absorbed")
+            if injected.get("push.match") != 1 or injected.get(
+                    "push.deliver") != 2:
+                failures.append(f"fanout smoke: injected {injected}")
+            if ps["dss_push_parked_total"] or (
+                    ps["dss_push_acked_total"] != base_acked
+                    + PUSH_SMOKE_SUBS):
+                failures.append(f"fanout smoke: acked "
+                                f"{ps['dss_push_acked_total']}, parked "
+                                f"{ps['dss_push_parked_total']}")
+            if store.health.mode() != chaos.HEALTHY:
+                failures.append("fanout smoke: the ladder left healthy")
+        finally:
+            chaos.clear_plan()
+            store.close()
+            twin.close()
+        with rx.lock:
+            http_got = list(rx.got)
+        per_sub = {}
+        for _, body in http_got:
+            sid = body["subscription"]["id"]
+            per_sub[sid] = per_sub.get(sid, 0) + 1
+        PUSH_TALLY.check(len(http_got) == 2 * PUSH_SMOKE_SUBS
+                         and set(per_sub.values()) == {2}
+                         and sorted(per_sub) == oracle,
+                         f"fanout smoke: {len(http_got)} HTTP deliveries")
+        out.update(http_deliveries=len(http_got), match_absorbed=absorbed,
+                   fault_injected=injected,
+                   fault_retries=ps["dss_push_requeued_total"],
+                   parked=ps["dss_push_parked_total"])
+    finally:
+        rx.close()
+
+    # (2) SIGKILL a delivery worker process mid-drain
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "push_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    wal = os.path.join(work, "push.wal")
+    sink = os.path.join(work, "delivered.jsonl")
+    n_evt = PUSH_CRASH_EVENTS
+    log_ = DeliveryLog(wal, fsync=False)
+    log_.register_hook("u1", "https://u1.example/notify")
+    for i in range(n_evt):
+        log_.enqueue("u1", "https://u1.example/notify", {"nid": i + 1})
+    log_.close()
+
+    def read_sink():
+        if not os.path.exists(sink):
+            return []
+        got = []
+        with open(sink, "r", encoding="utf-8") as fh:
+            for ln in fh:
+                try:
+                    got.append(json.loads(ln)["nid"])
+                except (ValueError, KeyError):
+                    pass  # a torn tail write racing the reader
+        return got
+
+    child = subprocess.Popen([sys.executable, "-c", _CRASH_CHILD, wal, sink],
+                             cwd=root, stdout=subprocess.DEVNULL,
+                             stderr=subprocess.DEVNULL)
+    t = time.perf_counter()
+    try:
+        while len(read_sink()) < n_evt // 4:
+            if child.poll() is not None:
+                raise RuntimeError("fanout smoke: the worker died early")
+            if time.perf_counter() - t > 120:
+                raise RuntimeError("fanout smoke: the worker never "
+                                   "delivered")
+            time.sleep(0.01)
+        os.kill(child.pid, signal.SIGKILL)
+    finally:
+        if child.poll() is None:
+            child.kill()
+        child.wait(10)
+    before = read_sink()
+    log2 = DeliveryLog(wal, fsync=False)
+    pending = {n.body["nid"] for n in log2._open.values()}
+    acked = set(range(1, n_evt + 1)) - pending
+    lost = acked - set(before)
+    PUSH_TALLY.check(not lost, f"fanout smoke: {len(lost)} acked "
+                               "notifications lost at the kill")
+    redelivered = []
+    rlock = threading.Lock()
+
+    def transport2(url, body, headers):
+        with rlock:
+            redelivered.append(body["nid"])
+
+    pool2 = DeliveryPool(log2, workers=2, transport=transport2)
+    pool2.start()
+    t = time.perf_counter()
+    while log2.depth() and time.perf_counter() - t < 30:
+        time.sleep(0.01)
+    pool2.close()
+    log2.close()
+    PUSH_TALLY.check(sorted(redelivered) == sorted(pending),
+                     "fanout smoke: the replay did not redeliver exactly "
+                     "the unacked notifications")
+    PUSH_TALLY.check(set(before) | set(redelivered)
+                     == set(range(1, n_evt + 1)),
+                     "fanout smoke: a notification was never delivered")
+    out.update(crash_events=n_evt, delivered_before_kill=len(before),
+               acked_before_kill=len(acked), redelivered=len(redelivered))
+    shutil.rmtree(work, ignore_errors=True)
+    return out, failures
 
 
 def store_phase(dev, smi) -> tuple:
@@ -2392,6 +2986,15 @@ def run(dev, smi) -> tuple:
     lib = cuda_build.build()
     log(f"build: {lib.name} ({len(cuda_build.sources())} sources, one nvcc "
         f"each, in parallel) in {time.perf_counter() - t:.2f} s")
+    # the native host halves: no silent numpy run on the card
+    from dss_tpu_torch import native
+
+    t = time.perf_counter()
+    if not native.ensure_built():
+        raise RuntimeError("dss_tpu_torch.native did not build (g++)")
+    log(json.dumps({"native_available": native.available(),
+                    "library": native.SO_PATH,
+                    "seconds": time.perf_counter() - t}))
 
     t = time.perf_counter()
     recs, keys = make_records(N_ENTITIES, N_CELLS, KPE)
@@ -2514,6 +3117,8 @@ def run(dev, smi) -> tuple:
         "card": smi,
         "seconds_total": time.perf_counter() - t_all,
     }}))
+    nat_line, nat_counts = native_phase(idx, smi)
+    log(json.dumps(nat_line))
     legacy = legacy_phase(
         idx, twin, [(name, f, q) for name, f, q, mw in cases if mw is None],
         orc, smi, flush)
@@ -2528,14 +3133,25 @@ def run(dev, smi) -> tuple:
     http, bad = http_phase(smi)
     log(json.dumps(http))
     failures += bad
+    log(f"seconds before push: {time.perf_counter() - t_all:.2f}")
+    push, push_counts, bad = push_phase(dev, smi)
+    log(json.dumps(push))
+    failures += bad
     log(f"seconds_total: {time.perf_counter() - t_all:.2f}")
     b1 = entry("fused_window_filter", launches, max_err, b1_t, b_ms)
     b1.update(serving)
     b1.update(store)
+    b1.update(nat_counts)
+    b1.update(push_counts)
     return [b1] + legacy, failures
 
 
 def main() -> int:
+    # importing the port starts the native library's build on a thread
+    # when it is stale: let that g++ finish, whatever follows
+    for th in threading.enumerate():
+        if th.name == "dss-native-build":
+            th.join()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -2555,10 +3171,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
     if failures:
-        print(f"chip_smoke: a serving, store, services or http phase "
-              f"failed: {failures}", file=sys.stderr)
+        print(f"chip_smoke: a serving, store, services, http or push "
+              f"phase failed: {failures}", file=sys.stderr)
         return 1
-    tallies = list(TALLY.values()) + [STORE_TALLY]
+    tallies = list(TALLY.values()) + [STORE_TALLY, NATIVE_TALLY, PUSH_TALLY]
     bad = sum(t.mismatches for t in tallies)
     if bad:
         print(f"chip_smoke: {bad} of "

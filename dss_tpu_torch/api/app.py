@@ -416,9 +416,14 @@ def make_wal_seq_middleware(wal_seq_fn):
 
 def _native_ready() -> bool:
     """Whether the native host halves (covering, window pack, host
-    query) are built.  The port has none yet, so inline reads stay on
-    the executor, as the reference's do without `native`."""
-    return False
+    query) are loaded.  Without them a search can fall back to a
+    multi-ms numpy covering, so inline reads stay on the executor."""
+    try:
+        from dss_tpu_torch import native
+
+        return native.available()
+    except Exception:  # pragma: no cover
+        return False
 
 
 async def _params(request) -> dict:
@@ -478,6 +483,11 @@ def build_app(
         # rest forward to the leader (already wrapped by log/deadline)
         middlewares.append(worker_proxy)
     app = web.Application(middlewares=middlewares)
+    # where each READ handler ran: on the event loop (inline), re-run
+    # on the executor after an inline attempt raised NeedsDevice, or on
+    # the executor from the start.  The server logs it at shutdown.
+    read_routes = {"inline": 0, "rerun": 0, "executor": 0}
+    app["dss_read_routes"] = read_routes
     if worker_proxy is not None and hasattr(worker_proxy, "on_cleanup"):
         app.on_cleanup.append(worker_proxy.on_cleanup)
     if health_fn is not None:
@@ -500,6 +510,7 @@ def build_app(
         if not inline_reads or not _native_ready():
             # without the native covering kernel a search can fall back
             # to a multi-ms numpy BFS — keep that off the event loop
+            read_routes["executor"] += 1
             return await _call(fn, *args, request=request)
         from dss_tpu_torch.dar import budget as _budget
         from dss_tpu_torch.dar import deadline as _deadline
@@ -523,8 +534,11 @@ def build_app(
         _readcache.take_note()
         try:
             with _trace.use(th), _trace.span("service"):
-                return fn(*args)
+                out = fn(*args)
+            read_routes["inline"] += 1
+            return out
         except _budget.NeedsDevice:
+            read_routes["rerun"] += 1
             if sink is not None:
                 # drop the aborted inline attempt's partial stage
                 # timings — the executor re-run records the real ones

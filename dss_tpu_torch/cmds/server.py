@@ -150,8 +150,10 @@ def make_parser() -> argparse.ArgumentParser:
         "--push",
         action="store_true",
         default=os.environ.get("DSS_PUSH", "") == "1",
-        help="the reverse-query push pipeline (push slice).  Env "
-        "fallback DSS_PUSH=1",
+        help="attach the reverse-query push pipeline: subscription "
+        "matches ride the planner's rqmatch route and matched writes "
+        "are delivered to registered webhooks (/aux/v1/push/*; "
+        "DSS_PUSH_* knobs).  Env fallback DSS_PUSH=1",
     )
     p.add_argument(
         "--jax_coordinator",
@@ -306,7 +308,6 @@ LATER_SLICE_FLAGS = {
     "process_id": (None, "mesh"),
     "num_processes": (None, "mesh"),
     "multihost_dryrun": (0, "mesh"),
-    "push": (False, "push"),
     "self_tune": (False, "tuner"),
     "autotune_profile": ("", "tuner"),
 }
@@ -363,6 +364,13 @@ def build(args) -> web.Application:
         "enabled" if store.cache.enabled else "disabled",
         store.cache.capacity,
         store.cache.stale_lag,
+    )
+    from dss_tpu_torch import native
+
+    log.info(
+        "native host halves: %s (inline reads %s)",
+        "loaded" if native.available() else "not built yet (numpy)",
+        "on" if _inline_reads(args) else "off",
     )
     rid = RIDService(store.rid, clock)
     scd = SCDService(store.scd, clock) if args.enable_scd else None
@@ -423,6 +431,20 @@ def build(args) -> web.Application:
     metrics = MetricsRegistry()
     metrics.set_info("dss_build_info", build_info())
 
+    push = None
+    if args.push:
+        from dss_tpu_torch.push import PushPipeline
+        from dss_tpu_torch.push.pipeline import env_knobs as _push_knobs
+
+        push = PushPipeline(metrics=metrics, **_push_knobs())
+        store.attach_push(push)
+        log.info(
+            "push pipeline: %d delivery workers, queue bound %d, log "
+            "%s (DSS_PUSH_* knobs)",
+            push.pool._workers, push.log.max_depth,
+            os.environ.get("DSS_PUSH_LOG") or "(in-memory)",
+        )
+
     app = build_app(
         rid,
         scd,
@@ -434,6 +456,7 @@ def build(args) -> web.Application:
         status_fn=store.freshness_status,
         health_fn=store.health.mode_name,
         default_timeout_s=args.default_timeout,
+        push=push,
         trace_requests=args.trace_requests,
         profile_dir=args.profile_dir,
         inline_reads=_inline_reads(args),
@@ -443,9 +466,10 @@ def build(args) -> web.Application:
 
     async def _close_store(app):
         # after the graceful stop: let the boot warm finish, then stop
-        # the folds, coalescers and resident loops, so that no daemon
-        # thread is inside a torch call when the interpreter exits (it
-        # would abort the process: "terminate called without an active
+        # the push delivery workers, folds, coalescers and resident
+        # loops (store.close, push first), so that no daemon thread is
+        # inside a torch call when the interpreter exits (it would
+        # abort the process: "terminate called without an active
         # exception")
         def close():
             if warm_thread is not None:
@@ -453,6 +477,12 @@ def build(args) -> web.Application:
             store.close()
 
         await asyncio.get_running_loop().run_in_executor(None, close)
+        r = app["dss_read_routes"]
+        log.info(
+            "reads: %d inline on the event loop, %d re-run on the "
+            "executor (NeedsDevice), %d on the executor",
+            r["inline"], r["rerun"], r["executor"],
+        )
 
     app.on_cleanup.append(_close_store)
 

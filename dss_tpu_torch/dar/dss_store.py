@@ -56,10 +56,11 @@ from dss_tpu_torch.models.core import Version, new_ovn_from_time
 MAX_RID_SUBSCRIPTIONS_PER_AREA = 10  # DSS0030
 MAX_SCD_SUBSCRIPTIONS_PER_AREA = 10
 
-# The stable gauge key sets of the attachments this slice leaves out
-# (the reference's federation.empty_stats, shmring.empty_stats,
-# push.empty_stats and tune.empty_stats): a standalone store exports
-# them empty so dashboards never miss a series.
+# The stable gauge key sets of the attachments the port leaves out so
+# far (the reference's federation.empty_stats and shmring.empty_stats,
+# then tune.empty_stats): a standalone store exports them empty so
+# dashboards never miss a series.  The push family between them comes
+# from push.empty_stats() (or the attached pipeline's stats()).
 _SHM_WORKER_STATS = (
     "enqueued", "served", "cache_hits", "cache_misses", "ring_full",
     "timeouts", "oversize", "proxy_fallbacks", "assembly_misses",
@@ -89,27 +90,8 @@ _EMPTY_ATTACHMENT_STATS = {
     "dss_shm_saturation": 0.0,
     "dss_shm_ring_full_total": 0,
     **{f"dss_shm_worker_{n}": {} for n in _SHM_WORKER_STATS},
-    "dss_push_queue_depth": 0,
-    "dss_push_queue_depth_emergency": 0,
-    "dss_push_queue_depth_bulk": 0,
-    "dss_push_enqueued_total": 0,
-    "dss_push_acked_total": 0,
-    "dss_push_dropped_total": 0,
-    "dss_push_requeued_total": 0,
-    "dss_push_hooks": 0,
-    "dss_push_delivered_total": 0,
-    "dss_push_failures_total": 0,
-    "dss_push_parked_total": 0,
-    "dss_push_delivery_lag_p50_ms": 0.0,
-    "dss_push_delivery_lag_p99_ms": 0.0,
-    "dss_push_oldest_pending_s": 0.0,
-    "dss_push_skipped_total": 0,
-    "dss_push_fed_forwarded_total": 0,
-    "dss_push_fed_ingested_total": 0,
-    "dss_push_match_batches_total": 0,
-    "dss_push_match_queries_total": 0,
-    "dss_push_match_absorbed_total": 0,
-    "dss_push_breaker_state": {},
+}
+_EMPTY_TUNE_STATS = {
     "dss_tune_enabled": 0,
     "dss_tune_frozen": 0,
     "dss_tune_guard_open": 0,
@@ -166,7 +148,7 @@ def _bump_sub(subs: Dict[str, object], sub_id: str):
 
 class _PushMixin:
     """Reverse-query push wiring shared by both sub-stores
-    (dss_tpu/push/): DSSStore.attach_push hands the pipeline to the
+    (dss_tpu_torch/push/): DSSStore.attach_push hands the pipeline to the
     unwrapped impls; the notify paths then (a) run subscriber matching
     through the pipeline's rqmatch route instead of the read-side
     coalescer — bit-identical by the MatchStage contract, but priced
@@ -1370,6 +1352,10 @@ class DSSStore:
                 )
                 co.set_load_view(self.range_load)
                 co.set_health(self.health)
+        # reverse-query push pipeline (push/pipeline.py): None until
+        # attach_push wires the durable delivery queue onto the write
+        # path; stats() exports the stable dss_push_* key set either way
+        self.push = None
         self._replaying = False
         self._replay()
 
@@ -1463,7 +1449,19 @@ class DSSStore:
         errors.later_slice("federation (attach_federation)", "region")
 
     def attach_push(self, pipeline) -> None:
-        errors.later_slice("the push pipeline (attach_push)", "push")
+        """Wire the reverse-query push pipeline (push/pipeline.py) onto
+        the write path: subscription-match lookups route through the
+        pipeline's MatchStages (planner rqmatch candidate -> B1 on the
+        card, host oracle fallback — bit-identical either way), matched
+        writes fan out through the WAL-backed delivery queue, and the
+        delivery workers start.  Ladder edges (PUSH_DEGRADED) ride the
+        pipeline's own health hook."""
+        if self.push is not None:
+            raise RuntimeError("push pipeline already attached")
+        pipeline.bind_store(self)
+        getattr(self.rid, "_local", self.rid).set_push(pipeline)
+        getattr(self.scd, "_local", self.scd).set_push(pipeline)
+        self.push = pipeline
 
     def attach_tuner(self, controller) -> None:
         errors.later_slice("the self-tuning controller (attach_tuner)",
@@ -1473,6 +1471,10 @@ class DSSStore:
         errors.later_slice("the mesh replica (attach_mesh_replica)", "mesh")
 
     def close(self):
+        # push first: its delivery workers are joined before the
+        # indexes (and their torch state) go away
+        if self.push is not None:
+            self.push.close()
         for index, _ in self._class_indexes():
             closer = getattr(index, "close", None)
             if closer is not None:
@@ -1506,11 +1508,25 @@ class DSSStore:
             chaos.registry().injected_by_site()
         )
         out["dss_breaker_state"] = {}
-        # federation, shm-front, push and tuner families: empty until
-        # their slices attach them
+        # federation and shm-front families: empty until their slices
+        # attach them
         out.update(
             {k: (dict(v) if isinstance(v, dict) else v)
              for k, v in _EMPTY_ATTACHMENT_STATS.items()}
+        )
+        # push-pipeline gauges: stable key set whether or not the
+        # pipeline is attached (dss_push_breaker_state renders as a
+        # labeled family keyed by uss)
+        from dss_tpu_torch import push as _pushmod
+
+        if self.push is not None:
+            out.update(self.push.stats())
+        else:
+            out.update(_pushmod.empty_stats())
+        # tuner family: empty until its slice attaches it
+        out.update(
+            {k: (dict(v) if isinstance(v, dict) else v)
+             for k, v in _EMPTY_TUNE_STATS.items()}
         )
         # trace recorder gauges (obs/trace.py)
         out.update(trace.stats())
@@ -1541,5 +1557,5 @@ class DSSStore:
             "degraded_mode": self.health.mode_name(),
             "degraded": self.health.active(),
             "federation": None,
-            "push": None,
+            "push": None if self.push is None else self.push.status(),
         }

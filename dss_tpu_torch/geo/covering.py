@@ -1,9 +1,10 @@
 """Level-13 cell coverings of footprints, with the reference's semantics.
 
-A copy of the reference's `dss_tpu/geo/covering.py`, numpy path only:
-the reference's native C++ covering (`covering.cc`), which its tests
-pin equal to this path, is not ported yet, so every covering here runs
-the Python code below.
+A copy of the reference's `dss_tpu/geo/covering.py`.  Where the port's
+native library (dss_tpu_torch.native, `covering.cc`) is built, the
+single-face rect covering takes its C++ fast path, which
+tests/test_torch_native.py pins equal to the Python code below cell for
+cell; everything else runs the Python code.
 
 Mirrors the behavior of the upstream DSS's pkg/geo/s2.go and
 pkg/models/geo.go:
@@ -35,6 +36,11 @@ from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
+
+try:
+    from dss_tpu_torch import native as _native
+except Exception:  # pragma: no cover — native layer is optional
+    _native = None
 
 from dss_tpu_torch.geo import s2cell
 from dss_tpu_torch.geo.s2cell import (
@@ -530,6 +536,18 @@ def _loop_covering(loop: Loop, area_km2: Optional[float] = None) -> np.ndarray:
         area_km2 = loop_area_km2(loop)
     area_ok = area_km2 <= MAX_AREA_KM2
 
+    # native fast path: the C++ library implements exactly the
+    # single-face rect covering below (bit-identical predicates).  It
+    # returns None whenever any of the fallback conditions hold, and
+    # this function continues unchanged.
+    if _native is not None and _native.available():
+        try:
+            cells = _native.loop_covering(loop.v, area_ok)
+        except _native.CoveringTooLarge:
+            raise AreaTooLargeError("covering exceeds maximum cell count")
+        if cells is not None:
+            return cells
+
     vertex_ids = cell_id_from_point(loop.v, level=DAR_LEVEL)
     loop_vertex_cells = {int(c) for c in np.atleast_1d(vertex_ids)}
 
@@ -600,6 +618,25 @@ def covering_from_loop_points(points_xyz) -> np.ndarray:
     """Covering of the loop through the given points, with the reference's
     winding-retry / area-limit / polyline-fallback semantics
     (pkg/geo/s2.go:97-122)."""
+    # native fast path: winding retry + area gate + rect covering in
+    # ONE call (same op order as the code below).  None -> run the full
+    # Python path (multi-face, face-edge margin, oversized rect, no
+    # library).
+    if _native is not None and _native.available():
+        arr = np.ascontiguousarray(points_xyz, dtype=np.float64)
+        try:
+            cells = _native.points_covering(arr, MAX_AREA_KM2)
+            if cells is not None:
+                return cells
+        except _native.AreaTooLarge as e:
+            raise AreaTooLargeError(
+                f"area is too large ({e.area:f}km² > {MAX_AREA_KM2:f}km²)"
+            )
+        except _native.Degenerate:
+            return covering_polyline(arr)
+        except _native.CoveringTooLarge:
+            raise AreaTooLargeError("covering exceeds maximum cell count")
+
     pts = list(np.asarray(points_xyz, dtype=np.float64))
     loop = Loop(np.asarray(pts))
     area = loop_area_km2(loop)

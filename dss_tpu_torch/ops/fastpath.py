@@ -23,9 +23,10 @@ launching B1 eagerly.  On the CPU both halves are plain synchronous
 calls.
 
 Small batches (<= HOST_MAX_BATCH queries) answer from the exact host
-scan instead (query_host_auto), with identical results.  The host
-halves here are the numpy versions; the reference's C++ twins
-(dss_tpu/native) give the same output bit for bit.
+scan instead (query_host_auto), with identical results.  The three host
+halves (window pack, hit decode, host scan) prefer the C++ library of
+dss_tpu_torch.native where it is built, and fall back to the numpy
+versions below, which give the same output bit for bit.
 
 Every table also carries the quantized `p3` columns of the legacy
 path: query_batch filters windows conservatively on the device (B2,
@@ -50,6 +51,23 @@ from dss_tpu_torch.ops.fused_filter import (
 INT32_MAX = np.int32(2**31 - 1)
 INT32_MIN = np.int32(-(2**31))
 DEAD_T1 = np.int64(-(2**62))  # t_end of dead postings: never >= any now
+
+_NATIVE: Optional[tuple] = None  # one-shot import cache (module|None,)
+
+
+def _native_mod():
+    """The dss_tpu_torch.native module, or None when it can't import.
+    The import is cached; native.available() stays cheap per call (a
+    lazy dlopen behind a lock-free fast path).  Setting _NATIVE to
+    (None,) forces the numpy paths."""
+    global _NATIVE
+    if _NATIVE is None:
+        try:
+            from dss_tpu_torch import native
+        except Exception:  # pragma: no cover
+            native = None
+        _NATIVE = (native,)
+    return _NATIVE[0]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -331,10 +349,11 @@ class FastTable:
         # host copies of the per-slot exact values (host route +
         # liveness); `live` is normalized to a contiguous buffer here,
         # where no concurrent mutator exists yet: mark_dead() flips
-        # bits of THIS array in place
+        # bits of THIS array in place, and the native host scan caches
+        # a uint8 view of the same memory (_hostq_cols)
         self.slot_exact = {k: np.asarray(v) for k, v in slot_exact.items()}
         self.slot_exact["live"] = np.ascontiguousarray(
-            self.slot_exact["live"]
+            self.slot_exact["live"], dtype=bool
         )
 
     def mark_dead(self, slot: int) -> None:
@@ -388,12 +407,40 @@ class FastTable:
         win_end = np.minimum(np.repeat(hi, n_blocks) - blk0, BLOCK).astype(np.int32)
         return win_q, win_key, win_blk, win_start, win_end
 
+    def _sample_index(self):
+        """(host_key i32, sample, sample0) for the native range
+        lookups: 1/64- and 1/4096-sampled key columns that keep the
+        search's top levels cache-resident.  The table is immutable, so
+        built once and cached; None samples below 2^14 postings (flat
+        search is already cache-resident)."""
+        hk = np.ascontiguousarray(self.host_key, np.int32)
+        sample = getattr(self, "_hk_sample", None)
+        sample0 = getattr(self, "_hk_sample0", None)
+        if sample is None and len(hk) > 1 << 14:
+            sample = self._hk_sample = np.ascontiguousarray(hk[::64])
+            sample0 = self._hk_sample0 = np.ascontiguousarray(
+                sample[::64]
+            )
+        return hk, sample, sample0
+
     def _pack_windows(self, qkeys: np.ndarray):
         """Expand + pack windows for the kernel: one (2, bucket) i32
         array [blk, start|end<<8|qidx<<16].  Returns
-        (wins, win_q, win_blk, nw); nw == 0 means no work."""
+        (wins, win_q, win_blk, nw); nw == 0 means no work.  Prefers the
+        native pack (binary searches + ragged expansion in two
+        GIL-released calls), bit-identical to the numpy path below."""
         if len(qkeys) > (1 << 15):
             raise ValueError("fused path supports batches up to 32768")
+        nat = _native_mod()
+        if nat is not None and nat.available():
+            qk = np.ascontiguousarray(qkeys, np.int32)
+            hk, sample, sample0 = self._sample_index()
+            res = nat.pack_windows(
+                hk, qk.ravel(), qk.shape[1], BLOCK, pow2_bucket,
+                sample=sample, sample0=sample0,
+            )
+            if res is not None:
+                return res
         win_q, _, win_blk, win_start, win_end = self._expand_windows(qkeys)
         nw = len(win_blk)
         if nw == 0:
@@ -511,9 +558,26 @@ class FastTable:
             )
         if n_words == 0:
             return np.zeros(0, np.int64), np.zeros(0, np.int64)
+        wshift = WORDS.bit_length() - 1  # WORDS is a pow2
+        nat = _native_mod()
+        if nat is not None and nat.available():
+            # native decode: popcount/ctz expansion + pad/tombstone
+            # filter in one GIL-released call over the copies above
+            # (never the replay unit's pinned buffer, which is handed
+            # back by now), same output order
+            res = nat.decode_hits(
+                wordpos, bits.view(np.uint32),
+                np.ascontiguousarray(pending.win_q, np.int32),
+                np.ascontiguousarray(pending.win_blk, np.int32),
+                wshift, BLOCK,
+                np.ascontiguousarray(self.host_ent, np.int32),
+                self.n_postings,
+                self.slot_exact["live"].view(np.uint8),
+            )
+            if res is not None:
+                return res
         wi, bitpos = _expand_hit_words(bits.view(np.uint32))
         wp = wordpos[wi]
-        wshift = WORDS.bit_length() - 1  # WORDS is a pow2
         win = wp >> wshift
         lane = ((wp & (WORDS - 1)) << 5) + bitpos
         offs = pending.win_blk[win].astype(np.int64) * BLOCK + lane
@@ -599,7 +663,33 @@ class FastTable:
     ):
         """Exact host-path answer for small batches: (qidx, slots), or
         None when the batch should go to the device (or the table has
-        no exact columns)."""
+        no exact columns).  Prefers the native scan (one GIL-released
+        call; same compares on the same values as query_host), and
+        falls back to the numpy path where the library is absent."""
+        mb = self.HOST_MAX_BATCH if max_batch is None else int(max_batch)
+        if len(qkeys) > mb or self.slot_exact is None:
+            return None
+        nat = _native_mod()
+        if nat is not None and nat.available():
+            cols = self._hostq_columns()
+            res = nat.query_host(
+                *cols[:8],
+                np.ascontiguousarray(qkeys, np.int32),
+                np.ascontiguousarray(alt_lo, np.float32),
+                np.ascontiguousarray(alt_hi, np.float32),
+                np.ascontiguousarray(t_start, np.int64),
+                np.ascontiguousarray(t_end, np.int64),
+                np.ascontiguousarray(
+                    np.broadcast_to(np.asarray(now, np.int64), (len(qkeys),))
+                ),
+                self.HOST_MAX_CANDIDATES
+                if max_candidates is None
+                else int(max_candidates),
+                sample=cols[8], sample0=cols[9],
+            )
+            if res is None:
+                return None  # candidate gate: device path
+            return res[0], res[1].astype(np.int64)
         ranges = self.host_candidates(
             qkeys, max_batch=max_batch, max_candidates=max_candidates
         )
@@ -608,6 +698,29 @@ class FastTable:
         return self.query_host(
             qkeys, alt_lo, alt_hi, t_start, t_end, now=now, ranges=ranges
         )
+
+    def _hostq_columns(self):
+        """The table-side columns of the native host scan, prepared
+        once: (host_key, host_ent, host_live u8, slot live u8, alt_lo,
+        alt_hi, t0, t1, sample, sample0) in the native dtypes.  The live view shares
+        memory with slot_exact["live"] (made a contiguous bool buffer in
+        _adopt), so a mark_dead() after this is seen by the scan."""
+        cols = getattr(self, "_hostq_cols", None)
+        if cols is None:
+            se = self.slot_exact
+            hk, sample, sample0 = self._sample_index()
+            cols = self._hostq_cols = (
+                hk,
+                np.ascontiguousarray(self.host_ent, np.int32),
+                np.ascontiguousarray(self.host_live).view(np.uint8),
+                se["live"].view(np.uint8),
+                np.ascontiguousarray(se["alt_lo"], np.float32),
+                np.ascontiguousarray(se["alt_hi"], np.float32),
+                np.ascontiguousarray(se["t0"], np.int64),
+                np.ascontiguousarray(se["t1"], np.int64),
+                sample, sample0,
+            )
+        return cols
 
     def query_host(
         self, qkeys, alt_lo, alt_hi, t_start, t_end, *, now, ranges,

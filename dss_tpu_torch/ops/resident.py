@@ -43,7 +43,10 @@ buffer a graph touches, the scratch included, exists before the capture
 begins, and one eager launch on the capture stream comes first.  An
 entry allocates all its units' pinned and device buffers first, and
 units are allocated and captured only under one cache-wide lock, so no
-replay unit's pinned allocation ever overlaps a capture.  A capture
+replay unit's pinned allocation ever overlaps a capture.  The units'
+pinned buffers are registered host memory, outside PyTorch's caching
+host allocator (see _locked_host), and every capture runs on one
+high-priority stream of the cache's, never a resident loop's stream.  A capture
 that fails anyway is counted (`capture_failures`,
 co_res_graph_capture_failures); its bucket launches B1 eagerly.
 
@@ -129,11 +132,33 @@ def max_words_for(window_bucket: int) -> int:
     return max(1 << 16, int(window_bucket))
 
 
+def _locked_host(nbytes: int) -> torch.Tensor:
+    """Zeroed host memory page-locked with cudaHostRegister, as a uint8
+    tensor, outside PyTorch's caching host allocator.  That allocator,
+    when a pinned block is freed, records an event on every stream the
+    block was copied on, and queries such events at later pinned
+    allocations.  A freed replay unit's capture stream may be capturing
+    on another thread by then: the event joins that capture, and the
+    next pinned allocation anywhere fails querying it ("invalid
+    argument").  Registered memory takes no part in that bookkeeping.
+    It is unregistered when the buffer is garbage."""
+    page = 4096
+    raw = np.zeros(nbytes + page, np.uint8)
+    off = (-raw.ctypes.data) % page
+    buf = raw[off:off + nbytes]
+    ptr = buf.ctypes.data
+    rt = torch.cuda.cudart()
+    torch.cuda.check_error(rt.cudaHostRegister(ptr, nbytes, 0))
+    weakref.finalize(raw, rt.cudaHostUnregister, ptr)
+    return torch.from_numpy(buf)
+
+
 class _Instance:
     """One replay unit of a GraphCache entry: pinned inputs (window
     list, then the four query-bound vectors, in one buffer), their
     device twin, B1's output and its pinned copy, B1's scratch, and the
-    captured graph (None on the CPU)."""
+    captured graph (None on the CPU).  On the card the pinned buffers
+    are registered host memory (_locked_host)."""
 
     __slots__ = ("entry", "cols", "mw", "h_in", "h_views", "d_in",
                  "d_views", "out", "host", "scratch", "graph", "busy")
@@ -151,14 +176,15 @@ class _Instance:
         nbytes = sum(int(np.prod(shape)) * dt.itemsize for dt, shape in parts)
         # zeroed: pad windows (meta 0) match nothing, so the warm-up
         # launch before a capture reads a well-formed empty batch
-        self.h_in = torch.zeros(nbytes, dtype=torch.uint8, pin_memory=cuda)
+        self.h_in = (_locked_host(nbytes) if cuda
+                     else torch.zeros(nbytes, dtype=torch.uint8))
         self.d_in = (torch.zeros(nbytes, dtype=torch.uint8, device=device)
                      if cuda else self.h_in)
         self.h_views = self._views(self.h_in, parts)
         self.d_views = self._views(self.d_in, parts)
         self.out = torch.zeros(1 + 2 * mw, dtype=torch.int32, device=device)
-        self.host = (torch.zeros(1 + 2 * mw, dtype=torch.int32,
-                                 pin_memory=True) if cuda else self.out)
+        self.host = (_locked_host(4 * (1 + 2 * mw)).view(torch.int32)
+                     if cuda else self.out)
         self.scratch = ff.new_scratch(device, -(-wb // ff.TILE_WINDOWS))
 
     @staticmethod
@@ -178,11 +204,10 @@ class _Instance:
                                out=self.out, scratch=self.scratch)
         self.host.copy_(self.out, non_blocking=True)
 
-    def capture(self) -> None:
-        """One eager call on a side stream, then the capture of the
+    def capture(self, stream) -> None:
+        """One eager call on the capture stream, then the capture of the
         same call (thread-local mode: other threads keep serving)."""
         dev = self.out.device
-        stream = torch.cuda.Stream(dev)
         # the buffers were zeroed on this thread's current stream
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.device(dev), torch.cuda.stream(stream):
@@ -265,6 +290,10 @@ class GraphCache:
         # held while units are allocated and while they are captured:
         # a pinned allocation never overlaps another thread's capture
         self._build_lock = threading.Lock()
+        # the one stream every capture runs on (made under the build
+        # lock), from the high-priority pool: no resident loop's
+        # stream (the default-priority pool) is ever the one capturing
+        self._capture_streams: Dict[torch.device, torch.cuda.Stream] = {}
         self._tick = 0
         self._tokens: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
         self._next_token = itertools.count(1)
@@ -364,8 +393,12 @@ class GraphCache:
                     for _ in range(max(1, int(instances)))
                 ]
                 if ft.device.type == "cuda":
+                    stream = self._capture_streams.get(ft.device)
+                    if stream is None:
+                        stream = self._capture_streams[ft.device] = (
+                            torch.cuda.Stream(ft.device, priority=-1))
                     for unit in entry.units:
-                        unit.capture()
+                        unit.capture(stream)
         except BaseException:
             with self._lock:
                 self.capture_failures += 1

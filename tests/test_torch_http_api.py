@@ -249,4 +249,7 @@ def test_later_slice_arguments_raise():
         build_app(federation=object())
     with pytest.raises(NotImplementedError, match="shm front slice"):
         p_app.make_worker_proxy_middleware("http://127.0.0.1:1")
-    assert p_app._native_ready() is False
+    # inline reads follow the native library (no longer a later slice)
+    from dss_tpu_torch import native
+
+    assert p_app._native_ready() is native.available()

@@ -7,7 +7,9 @@
   dar.dss_store, dar.follower; the API slice's by name: build_info,
   obs.metrics, obs.logging, auth, auth.jwt, auth.authorizer, services,
   services.serialization, services.rid, services.scd, api, api.app,
-  cmds, cmds.dummy_oauth, cmds.server), chip_smoke and b1_device_time
+  cmds, cmds.dummy_oauth, cmds.server; the native/push slice's by
+  name: native, native._buildlib, push, push.queue, push.deliver,
+  push.match, push.pipeline), chip_smoke and b1_device_time
   import in a process where `jax` and every `dss_tpu` module are
   refused.
 - Tables and stores built without device= on a machine without CUDA
@@ -75,7 +77,9 @@ _PROBE = textwrap.dedent(
                 "auth.jwt", "auth.authorizer", "services",
                 "services.serialization", "services.rid", "services.scd",
                 "api", "api.app", "cmds", "cmds.dummy_oauth",
-                "cmds.server"):
+                "cmds.server", "native", "native._buildlib", "push",
+                "push.queue", "push.deliver", "push.match",
+                "push.pipeline"):
         assert "dss_tpu_torch." + mod in names, (mod, names)
     import chip_smoke  # its helpers; main() only runs as a script
     assert callable(chip_smoke.run) and callable(chip_smoke.make_batch)

@@ -548,6 +548,76 @@ def test_dropped_entry_frees_its_pinned_buffers(cuda):
         assert cache.size() == 0 and cache.dropped == n + 1
 
 
+@pytest.mark.gpu
+def test_tables_die_while_another_thread_captures(cuda):
+    """Entries of dead tables are freed (a fold's old tiers) while a
+    warm thread captures on another table and a third thread launches
+    B1 eagerly (pinned copies from PyTorch's host allocator): no
+    capture fails, no eager call raises, and every answer is exact.
+    The units' pinned buffers are registered memory, never blocks of
+    the caching host allocator, and the captures run on one stream that
+    no resident loop uses."""
+    import gc
+    import threading
+
+    from dss_tpu_torch.ops.resident import (GraphCache, ResidentKernel,
+                                            max_words_for)
+
+    rng = np.random.default_rng(28)
+    cache = GraphCache()
+    warm_ft = _table(rng, 20000, 4000, cuda)
+    eager_ft = _table(rng, 20000, 4000, cuda)
+    eq = _graph_batch(eager_ft, rng, 100, 8, 4000)[0]
+    want = eager_ft.query_fused(*eq, now=NOW)
+    errors = []
+    stop = threading.Event()
+
+    def churn():  # build, replay and drop tables' entries
+        try:
+            kern = ResidentKernel(cache, autocompile=False, instances=2)
+            for _ in range(12):
+                ft = _table(rng, 5000, 2000, cuda)
+                q, wb, bb, kargs = _graph_batch(ft, rng, 100, 8, 2000)
+                cache.compile(ft, wb, bb, max_words_for(wb), 2)
+                out, _ = _replayed(ft, kern, q)
+                plain = ff.fused_window_filter_torch(
+                    *kargs, max_words=max_words_for(wb))
+                assert torch.equal(out, plain.cpu())
+                del ft, kargs
+                gc.collect()
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    def eager():
+        try:
+            while not stop.is_set():
+                got = eager_ft.query_fused(*eq, now=NOW)
+                assert all(np.array_equal(a, b) for a, b in zip(got, want))
+        except BaseException as e:  # noqa: BLE001
+            errors.append(e)
+
+    warm = ResidentKernel(cache, autocompile=False, instances=6)
+    ths = [threading.Thread(target=churn),
+           threading.Thread(target=lambda: warm.warm(
+               warm_ft, batch_buckets=(128, 1024, 4096),
+               window_buckets=(256, 1024, 4096, 16384)))]
+    eth = threading.Thread(target=eager)
+    eth.start()
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(300)
+    stop.set()
+    eth.join(60)
+    assert not errors, errors
+    assert cache.capture_failures == 0
+    assert cache.dropped >= 11
+    unit = next(iter(cache._entries.values())).units[0]
+    assert unit.host.is_pinned() and unit.h_in.is_pinned()
+    # a fresh pinned allocation after all that still succeeds
+    assert torch.zeros(1 << 20, dtype=torch.uint8, pin_memory=True).is_pinned()
+
+
 # -- the store on the card ----------------------------------------------------
 
 

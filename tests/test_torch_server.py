@@ -259,7 +259,7 @@ def test_later_slice_flags_name_their_slice(monkeypatch):
         "--region_url http://x": "region", "--sharded_replica 1,2": "mesh",
         "--jax_coordinator h:1": "mesh", "--process_id 0": "mesh",
         "--num_processes 2": "mesh", "--multihost_dryrun 2": "mesh",
-        "--push": "push", "--self_tune": "tuner",
+        "--self_tune": "tuner",
         "--autotune_profile p.json": "tuner",
     }
     assert {f"--{k}" for k in p_server.LATER_SLICE_FLAGS} == {
@@ -283,7 +283,8 @@ def test_the_binary_refuses_later_slices_and_a_missing_card():
     env = {k: v for k, v in os.environ.items()
            if k not in ("DSS_PUSH", "DSS_TUNE", "DSS_FED_MAP")}
     procs = {
-        "push": _popen("dss_tpu_torch.cmds.server", "--push", env=env),
+        "tuner": _popen("dss_tpu_torch.cmds.server", "--self_tune",
+                        env=env),
         "mesh": _popen("dss_tpu_torch.cmds.server", "--sharded_replica",
                        "1,2", env=env),
         "card": _popen("dss_tpu_torch.cmds.server", "--insecure_no_auth",
@@ -297,7 +298,7 @@ def test_the_binary_refuses_later_slices_and_a_missing_card():
             if p.poll() is None:
                 p.kill()
         out[k] = (p.returncode, p.stderr.read().decode(errors="replace"))
-    assert out["push"][0] == 1 and "the push slice" in out["push"][1]
+    assert out["tuner"][0] == 1 and "the tuner slice" in out["tuner"][1]
     assert out["mesh"][0] == 1 and "the mesh slice" in out["mesh"][1]
     assert out["card"][0] != 0
     assert "torch.cuda.is_available() is False" in out["card"][1]

@@ -461,7 +461,6 @@ def test_later_slices_raise():
     try:
         for name, args in (
             ("attach_federation", (None,)),
-            ("attach_push", (None,)),
             ("attach_shm_front", (None,)),
             ("attach_tuner", (None,)),
             ("attach_mesh_replica", (None,)),
