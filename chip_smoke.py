@@ -85,7 +85,21 @@ Phases (any failure exits non-zero; nothing is caught):
      the `http` line (boot, the boot warm's end, entries and capture
      failures from /metrics, the loop's rate and p50/p99, the route
      mix); it does not run, and says so, where aiohttp is missing;
- 11. the device time of each kernel by device kernel name, the kernels
+ 11. the shared-memory serving front, `python3 -m dss_tpu_torch.cmds.server
+     --storage cuda --workers 4`, booted from the http phase's WAL: the
+     leader owns the card, its four read workers run `--device cpu`;
+     the reference's shm-smoke drill (bench.py:3339-3590) over
+     keep-alive connections pinned to each worker and to the leader's
+     loopback port (a burst through the ring equal to the leader and
+     the oracle, worker cache hits, a write fencing exactly its cells,
+     read-your-writes, a SIGKILLed worker with 0 5xx from the
+     survivors, reclaimed, respawned and revived, the ladder HEALTHY,
+     SIGTERM with searches in flight), closed loops of 8 and 32 client
+     processes beside the http phase's `--workers 0` loops of the same
+     clients, the leader's account of the front from /metrics, and
+     nvidia-smi's compute apps with each process's /dev/nvidia
+     descriptors (the leader alone on the card); the `shm_front` line;
+ 12. the device time of each kernel by device kernel name, the kernels
      line (four kernels; B1's entry with its graph replays and its
      store-phase counts), with each kernel's count of comparisons made
      and of those that disagreed; then the ok line, or exit 1 if any
@@ -96,7 +110,7 @@ Phases (any failure exits non-zero; nothing is caught):
      a refused write that should have passed, no B1 launch or replay
      in the store phase or through the services, a graph capture that
      failed, or any error, non-2xx answer or unclean exit of the
-     server).
+     server or of the shm front).
 Times: `ms` is a kernel's device time per wrapper call with the L2
 flushed (a real batch finds its blocks cold): the kernels, memsets and
 copies that 30 calls launched, summed from torch.profiler, over 30;
@@ -194,6 +208,19 @@ HTTP_SEARCHES = 256
 HTTP_LOOP_CLIENTS, HTTP_LOOP_S = 8, 3.0
 HTTP_GRACE_S = 10.0
 HTTP_DEVICE = "cuda"  # the server's --device
+# closed loops of client PROCESSES (bench.py:689-790: out-of-process
+# clients, so client CPU is not billed to the smoke's GIL), each
+# thread on one keep-alive connection: HTTP_LOOP_CLIENTS clients, then
+# 4x as many, over LOOP_PROCS processes, LOOP_WARM_S + HTTP_LOOP_S
+LOOP_PROCS, LOOP_WARM_S = 4, 1.0
+LOOP_CLIENTS = (HTTP_LOOP_CLIENTS, 4 * HTTP_LOOP_CLIENTS)
+# the shm front (`--workers SHM_WORKERS`) booted from the http phase's
+# WAL: the reference's shm-smoke drill (bench.py:3339-3590) and the
+# loops above against the front
+SHM_WORKERS = 4
+SHM_BURST = 64  # op queries, and as many ISA areas, per process
+SHM_KILL_BURST_S = 3.0
+SHM_RESPAWN_S = 120.0
 # the native phase: the main path's batches (seeds 200-207 and the
 # three after the fold and the compaction) once with the native host
 # halves and once with numpy forced; the host scan at these batch sizes
@@ -2122,14 +2149,14 @@ def http_json(base, method, path, body=None, timeout=30.0):
 
 
 def metric_values(text, suffix) -> dict:
-    """{series: value} of the /metrics lines whose name ends with
-    `suffix` (unlabelled gauges)."""
+    """{series: value} of the /metrics lines whose family name ends
+    with `suffix`, labelled or not."""
     out = {}
     for line in text.splitlines():
         if line.startswith("#") or " " not in line:
             continue
         name, val = line.rsplit(" ", 1)
-        if name.endswith(suffix):
+        if name.split("{", 1)[0].endswith(suffix):
             out[name] = float(val)
     return out
 
@@ -2142,9 +2169,13 @@ def http_phase(smi) -> tuple:
     driven with urllib: an ISA's PUT, GET, search and DELETE; an
     operational intent PUT with its key, queried, updated and DELETEd;
     HTTP_SEARCHES op queries held against the oracle of the same WAL;
-    /metrics and /status; a closed loop of HTTP_LOOP_CLIENTS clients;
-    then SIGTERM, which must stop the server within --shutdown_grace.
-    -> (the `http` line, failures).  Without aiohttp it does not run."""
+    /metrics and /status; a closed loop of HTTP_LOOP_CLIENTS client
+    threads, then the process-client loops of LOOP_CLIENTS (the shm
+    front's comparison); then SIGTERM, which must stop the server
+    within --shutdown_grace.  -> (the `http` line, failures, the state
+    the shm front phase boots from: its WAL, columns, clock and
+    queries; the caller removes its directory).  Without aiohttp it
+    does not run."""
     import importlib.util
     import os
     import shutil
@@ -2153,7 +2184,8 @@ def http_phase(smi) -> tuple:
 
     if importlib.util.find_spec("aiohttp") is None:
         return {"http": {"ran": False,
-                         "why": "aiohttp is not installed on this machine"}}, []
+                         "why": "aiohttp is not installed on this machine"}
+                }, [], None
     from dss_tpu_torch.services import serialization as ser
     from dss_tpu_torch.clock import from_nanos
 
@@ -2317,6 +2349,11 @@ def http_phase(smi) -> tuple:
         if errs:
             raise RuntimeError(f"closed loop: HTTP {errs[:3]}")
         loop = np.concatenate([np.asarray(x) for x in lats])
+        bodies = [params for params, _ in aois]
+        loop_procs = [proc_loop(base, bodies, c, work) for c in LOOP_CLIENTS]
+        for lp in loop_procs:
+            if lp["errors"] or set(lp["codes"]) != {"200"}:
+                failures.append(f"http: process loop {lp}")
         with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
             metrics = r.read().decode()
         fails = metric_values(metrics, "_co_res_graph_capture_failures")
@@ -2336,6 +2373,7 @@ def http_phase(smi) -> tuple:
             "searches": HTTP_SEARCHES, "mismatches": mism,
             "loop": {"clients": HTTP_LOOP_CLIENTS, "seconds": span,
                      "queries_per_s": len(loop) / span, **lat_ms(loop)},
+            "loop_procs": loop_procs,
             "route_mix": mix, "plan_mix": plans,
             "status_keys": sorted(status_doc),
             "inline_reads": "on",
@@ -2383,8 +2421,690 @@ def http_phase(smi) -> tuple:
             with open(err_path, "rb") as f:
                 tail = f.read()[-2000:].decode(errors="replace")
             failures.append(f"http: exit code {rc}: {tail}")
-    shutil.rmtree(work, ignore_errors=True)
-    return {"http": line}, failures
+    state = {"work": work, "wal": wal, "cols": cols, "now": now,
+             "aois": aois, "n_records": n_records}
+    return {"http": line}, failures, state
+
+
+_LOOP_CLIENT = r"""
+import http.client, json, sys, threading, time
+
+host, port, path, bodies_file, threads, start_at, warm_s, run_s, k0 = (
+    sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4],
+    int(sys.argv[5]), float(sys.argv[6]), float(sys.argv[7]),
+    float(sys.argv[8]), int(sys.argv[9]))
+with open(bodies_file, "rb") as f:
+    bodies = [json.dumps(b).encode() for b in json.load(f)]
+hdr = {"Content-Type": "application/json"}
+lats, codes, errors = [], {}, []
+lock = threading.Lock()
+
+
+def client(i):
+    conn = http.client.HTTPConnection(host, port, timeout=30)
+    k = k0 + i
+    own, own_codes = [], {}
+    while time.time() < start_at:
+        time.sleep(0.001)
+    t_warm, t_end = start_at + warm_s, start_at + warm_s + run_s
+    while True:
+        t = time.time()
+        if t >= t_end:
+            break
+        try:
+            conn.request("POST", path, bodies[k % len(bodies)], hdr)
+            r = conn.getresponse()
+            r.read()
+            code = str(r.status)
+        except (OSError, http.client.HTTPException) as e:
+            with lock:
+                errors.append(repr(e))
+            conn.close()
+            conn = http.client.HTTPConnection(host, port, timeout=30)
+            continue
+        k += 1009
+        if t >= t_warm:
+            own.append(time.time() - t)
+            own_codes[code] = own_codes.get(code, 0) + 1
+    conn.close()
+    with lock:
+        lats.extend(own)
+        for c, n in own_codes.items():
+            codes[c] = codes.get(c, 0) + n
+
+
+ths = [threading.Thread(target=client, args=(i,)) for i in range(threads)]
+for th in ths:
+    th.start()
+for th in ths:
+    th.join()
+print(json.dumps({"lats": lats, "codes": codes, "errors": errors[:5],
+                  "n_errors": len(errors)}))
+"""
+
+
+def proc_loop(base, bodies, clients, work, path="/dss/v1/operation_"
+              "references/query") -> dict:
+    """A closed loop of `clients` clients over LOOP_PROCS processes of
+    the standard library alone, each client thread on one keep-alive
+    connection, cycling `bodies`: LOOP_WARM_S of warm-up, then
+    HTTP_LOOP_S timed.  -> queries/s, p50/p99 ms, status codes."""
+    import os
+
+    bodies_file = os.path.join(work, "loop_bodies.json")
+    with open(bodies_file, "w") as f:
+        json.dump(bodies, f)
+    host, port = base.rsplit("//", 1)[1].split(":")
+    procs = min(LOOP_PROCS, clients)
+    start_at = time.time() + 1.0  # every process up before the clock
+    ps = [subprocess.Popen(
+        [sys.executable, "-c", _LOOP_CLIENT, host, port, path, bodies_file,
+         str(clients // procs + (i < clients % procs)), str(start_at),
+         str(LOOP_WARM_S), str(HTTP_LOOP_S), str(97 * i)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for i in range(procs)]
+    outs = []
+    for p in ps:
+        out, err = p.communicate(timeout=60 + LOOP_WARM_S + HTTP_LOOP_S)
+        if p.returncode != 0:
+            raise RuntimeError(f"loop client exited {p.returncode}: "
+                               f"{err.decode()[-1000:]}")
+        outs.append(json.loads(out))
+    lats = np.concatenate([np.asarray(o["lats"], float) for o in outs])
+    codes = {}
+    for o in outs:
+        for c, n in o["codes"].items():
+            codes[c] = codes.get(c, 0) + n
+    return {"clients": clients, "procs": procs, "seconds": HTTP_LOOP_S,
+            "queries_per_s": len(lats) / HTTP_LOOP_S,
+            **(lat_ms(lats) if len(lats) else {}), "codes": codes,
+            "errors": sum(o["n_errors"] for o in outs),
+            "error_sample": [e for o in outs for e in o["errors"]][:3]}
+
+
+class Pinned:
+    """One keep-alive connection: serial requests on it stay on the
+    process that accepted it (SO_REUSEPORT hashes connections, not
+    requests)."""
+
+    def __init__(self, base):
+        import http.client
+
+        host, port = base.rsplit("//", 1)[1].split(":")
+        self.conn = http.client.HTTPConnection(host, int(port), timeout=30)
+
+    def req(self, method, path, body=None):
+        data = None if body is None else json.dumps(body).encode()
+        self.conn.request(method, path, data,
+                          {"Content-Type": "application/json"})
+        r = self.conn.getresponse()
+        raw = r.read()
+        return r.status, (json.loads(raw) if raw.startswith((b"{", b"["))
+                          else raw.decode(errors="replace"))
+
+    def close(self):
+        self.conn.close()
+
+
+def metric_series(text, name) -> dict:
+    """{labels: value} of the /metrics family `name` ('' for an
+    unlabelled series)."""
+    import re
+
+    pat = re.compile(rf"^{re.escape(name)}(?:\{{([^}}]*)\}})? (\S+)$")
+    out = {}
+    for line in text.splitlines():
+        m = pat.match(line)
+        if m:
+            out[m.group(1) or ""] = float(m.group(2))
+    return out
+
+
+def metric_sum(text, name) -> float:
+    return sum(metric_series(text, name).values())
+
+
+def is_process(pid) -> bool:
+    """Whether `pid` names a process, not one of its threads (a
+    `children` file may list a child's threads too, as gVisor's does)."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            for ln in f:
+                if ln.startswith("Tgid:"):
+                    return int(ln.split()[1]) == pid
+    except OSError:
+        pass
+    return False
+
+
+def fleet_pids(leader_pid) -> dict:
+    """{worker index: pid} of the leader's read workers, from every
+    leader thread's children (respawns come from a watcher thread)."""
+    import os
+
+    out = {}
+    for task in os.listdir(f"/proc/{leader_pid}/task"):
+        try:
+            with open(f"/proc/{leader_pid}/task/{task}/children") as f:
+                kids = [int(x) for x in f.read().split()]
+        except OSError:
+            continue
+        for pid in kids:
+            if not is_process(pid):
+                continue
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    argv = f.read().decode(errors="replace").split("\0")
+            except OSError:
+                continue
+            if "--shm_worker_index" in argv:
+                out[int(argv[argv.index("--shm_worker_index") + 1])] = pid
+    return out
+
+
+def nvidia_fds(pid) -> int:
+    """Open /dev/nvidia* descriptors of a process."""
+    import os
+
+    n = 0
+    try:
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            try:
+                n += os.readlink(f"/proc/{pid}/fd/{fd}").startswith(
+                    "/dev/nvidia")
+            except OSError:
+                pass
+    except OSError:
+        return -1
+    return n
+
+
+def shm_front_phase(smi, state, workers0) -> tuple:
+    """The shared-memory serving front on the card: `python3 -m
+    dss_tpu_torch.cmds.server --storage cuda --device cuda --workers
+    SHM_WORKERS` booted from the http phase's WAL; the leader owns the
+    card and its workers run `--device cpu`.  The reference's shm-smoke
+    drill (bench.py:3339-3590), with keep-alive connections pinned to
+    each worker and one to the leader's loopback port: SHM_BURST op
+    queries and as many ISA searches through every worker, equal to
+    the leader's answers and the op queries to the oracle, then again
+    (worker cache hits); a write fencing exactly the cells it touches;
+    read-your-writes on a worker; the process-client loops of
+    LOOP_CLIENTS beside the `--workers 0` server's (`workers0`); a
+    worker SIGKILLed in a burst (0 5xx from the survivors, its slots
+    reclaimed, the ladder HEALTHY, the worker respawned and revived);
+    the leader's /metrics (the ring, the plans, the owner's route mix,
+    the merged stage histograms); only the leader on the card
+    (nvidia-smi's compute apps); SIGTERM with searches in flight.
+    -> (the `shm_front` line, failures)."""
+    import os
+    import re
+    import signal
+    import urllib.request
+    import uuid
+
+    from dss_tpu_torch.clock import from_nanos
+    from dss_tpu_torch.services import serialization as ser
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work, wal, now, aois = (state["work"], state["wal"], state["now"],
+                            state["aois"])
+    orc = StoreOracle(state["cols"], time.time_ns())
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    err_path = os.path.join(work, "fleet.log")
+    errf = open(err_path, "wb")
+    # the ring's region file under `work`; a worker that dies of a
+    # signal leaves its Python stack in the log
+    env = dict(os.environ, TMPDIR=work, PYTHONFAULTHANDLER="1")
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dss_tpu_torch.cmds.server",
+         "--addr", f"127.0.0.1:{port}", "--enable_scd", "--storage", "cuda",
+         "--device", HTTP_DEVICE, "--insecure_no_auth", "--wal_path", wal,
+         "--workers", str(SHM_WORKERS), "--shutdown_grace",
+         str(HTTP_GRACE_S), "--inline_reads", "on"],
+        cwd=root, stdout=subprocess.DEVNULL, stderr=errf, env=env)
+    line, failures, sessions = {"card": smi}, [], []
+
+    def fail(what):
+        failures.append(f"shm_front: {what}")
+
+    def ok(status_body, what, want=200):
+        status, body = status_body
+        if status != want:
+            raise RuntimeError(f"shm_front {what}: HTTP {status} {body}")
+        return body
+
+    def worker_session(limit_s, want=None):
+        """A keep-alive connection to the public port -> (worker
+        index, pid, session), retried until it lands on a worker in
+        `want` (any when None)."""
+        t_end = time.perf_counter() + limit_s
+        while time.perf_counter() < t_end:
+            if proc.poll() is not None:
+                raise RuntimeError(f"the leader exited (rc "
+                                   f"{proc.returncode})")
+            sess = Pinned(base)
+            try:
+                st, text = sess.req("GET", "/metrics")
+            except OSError:
+                sess.close()
+                time.sleep(0.2)
+                continue
+            m = re.search(r'process="worker-(\d+):(\d+)"', str(text))
+            if st == 200 and m and (want is None or int(m.group(1)) in want):
+                if ok(sess.req("GET", "/healthy"), "worker /healthy") \
+                        is not None:
+                    sessions.append(sess)
+                    return int(m.group(1)), int(m.group(2)), sess
+            sess.close()
+        raise RuntimeError(f"no worker in {want} answered within "
+                           f"{limit_s} s")
+
+    try:
+        # -- boot: the leader's loopback port, then every worker -------
+        leader_url = None
+        while leader_url is None:
+            if proc.poll() is not None:
+                raise RuntimeError(f"the leader exited at boot (rc "
+                                   f"{proc.returncode})")
+            if time.perf_counter() - t_start > 300:
+                raise RuntimeError("no worker started")
+            for pid in fleet_pids(proc.pid).values():
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    argv = f.read().decode().split("\0")
+                leader_url = argv[argv.index("--leader_url") + 1]
+                break
+            time.sleep(0.1)
+        while True:
+            try:
+                with urllib.request.urlopen(leader_url + "/healthy",
+                                            timeout=1) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                pass
+            if proc.poll() is not None or \
+                    time.perf_counter() - t_start > 300:
+                raise RuntimeError("the leader never became healthy")
+            time.sleep(0.1)
+        leader_s = time.perf_counter() - t_start
+        t_h = time.perf_counter()
+        while True:  # the leader's boot warm ends with its log line
+            with open(err_path, "rb") as f:
+                warm = [json.loads(x) for x in f.read().splitlines()
+                        if b"resident graph warm" in x
+                        or b"resident warm failed" in x]
+            if warm:
+                break
+            if time.perf_counter() - t_h > 300:
+                raise RuntimeError("the boot warm never ended")
+            time.sleep(0.1)
+        warm_s = time.perf_counter() - t_h
+        if "failed" in warm[0]["msg"]:
+            fail(f"boot warm: {warm[0]}")
+        # keep-alive sessions after the warm: none idles long enough
+        # for the server to close it
+        ws = {}
+        while len(ws) < SHM_WORKERS:
+            i, pid, sess = worker_session(
+                300 - (time.perf_counter() - t_start),
+                set(range(SHM_WORKERS)) - set(ws))
+            ws[i] = (pid, sess)
+        line["boot"] = {"leader_healthy_s": leader_s,
+                        "healthy_to_warm_end_s": warm_s,
+                        "workers_healthy_s": time.perf_counter() - t_start,
+                        "records": state["n_records"]}
+        lsess = Pinned(leader_url)
+        sessions.append(lsess)
+
+        def scrape():
+            return ok(lsess.req("GET", "/metrics"), "leader /metrics")
+
+        # -- 1. a burst through the ring: every worker against the leader
+        #    and the oracle, then again from the worker caches
+        isa_paths = ["/v1/dss/identification_service_areas?area="
+                     + isa_area((37 * k) % POLL_AREAS)
+                     for k in range(SHM_BURST)]
+        ops = aois[:SHM_BURST]
+        op_path = "/dss/v1/operation_references/query"
+        want_isa = [ok(lsess.req("GET", p), "leader ISA search")
+                    for p in isa_paths]
+        want_op = [ok(lsess.req("POST", op_path, q), "leader op query")
+                   for q, _ in ops]
+        mism = {"leader": 0, "oracle": 0}
+        for q, body in zip(ops, want_op):
+            good = sorted(o["id"] for o in body["operation_references"]) \
+                == orc.ids(*q[1])
+            mism["oracle"] += not good
+            STORE_TALLY.check(good, "shm_front: leader op query != oracle")
+        t = time.perf_counter()
+        n_burst = 0
+        for rnd in range(2):
+            for i, (pid, sess) in sorted(ws.items()):
+                for p, want in zip(isa_paths, want_isa):
+                    good = ok(sess.req("GET", p), "worker ISA search") == want
+                    mism["leader"] += not good
+                    STORE_TALLY.check(good, f"shm_front: worker {i} ISA "
+                                      "search != leader")
+                for (q, args), want in zip(ops, want_op):
+                    got = ok(sess.req("POST", op_path, q), "worker op query")
+                    good = got == want
+                    mism["leader"] += not good
+                    STORE_TALLY.check(good, f"shm_front: worker {i} op "
+                                      "query != leader")
+                    good = sorted(o["id"] for o in got[
+                        "operation_references"]) == orc.ids(*args)
+                    mism["oracle"] += not good
+                    STORE_TALLY.check(good, f"shm_front: worker {i} op "
+                                      "query != oracle")
+                n_burst += 2 * SHM_BURST
+        burst_s = time.perf_counter() - t
+        m = scrape()
+        hits = metric_sum(m, "dss_shm_worker_cache_hits")
+        line["burst"] = {
+            "requests": n_burst, "seconds": burst_s,
+            "mismatches": mism,
+            "served_total": metric_sum(m, "dss_shm_served_total"),
+            "worker_cache_hits": hits,
+            "proxy_fallbacks": metric_sum(
+                m, "dss_shm_worker_proxy_fallbacks"),
+        }
+        if line["burst"]["served_total"] <= 0:
+            fail("the ring served nothing")
+        if hits <= 0:
+            fail("no worker cache hit")
+
+        # -- 2. a write fences exactly the cells it touches ------------
+        w0i = min(ws)
+        s0 = ws[w0i][1]
+        a_k, b_k = 11, 300  # two poll areas, disjoint cells
+        pa = "/v1/dss/identification_service_areas?area=" + isa_area(a_k)
+        pb = "/v1/dss/identification_service_areas?area=" + isa_area(b_k)
+        for p in (pa, pb, pa, pb):
+            ok(s0.req("GET", p), "worker poll")
+
+        def enqueued():
+            return metric_series(scrape(), "dss_shm_worker_enqueued").get(
+                f'process="worker-{w0i}"', -1)
+
+        tw0, tw1 = (from_nanos(now + 10 * 60 * 10**9),
+                    from_nanos(now + HOUR))
+
+        def isa_body(k):
+            return {"extents": {"spatial_volume": {"footprint": {
+                "vertices": [{"lat": a, "lng": b} for a, b in svc_square(
+                    k * POLL_CELLS + POLL_CELLS // 2, half=0.002)]},
+                "altitude_lo": 0.0, "altitude_hi": 120.0},
+                "time_start": ser.format_time(tw0),
+                "time_end": ser.format_time(tw1)},
+                "flights_url": "https://shm.uss.example/f"}
+
+        e0 = enqueued()
+        ok(s0.req("GET", pb), "worker poll")
+        e_hit = enqueued() - e0
+        new_id = str(uuid.uuid4())
+        ok(s0.req("PUT", f"/v1/dss/identification_service_areas/{new_id}",
+                  isa_body(a_k)), "proxied ISA PUT")
+        e1 = enqueued()
+        got_a = ok(s0.req("GET", pa), "worker poll after the write")
+        e_a = enqueued() - e1
+        e2 = enqueued()
+        ok(s0.req("GET", pb), "worker poll after the write")
+        e_b = enqueued() - e2
+        sees = new_id in [a["id"] for a in got_a["service_areas"]]
+        same = got_a == ok(lsess.req("GET", pa), "leader poll")
+        line["invalidation"] = {"enqueued_cached_poll": e_hit,
+                                "enqueued_written_area": e_a,
+                                "enqueued_other_area": e_b,
+                                "sees_write": sees, "equals_leader": same}
+        STORE_TALLY.check(sees and same, "shm_front: the poll after a "
+                          "write missed it or differs from the leader")
+        if (e_hit, e_a, e_b) != (0, 1, 0):
+            fail(f"invalidation not exact: {line['invalidation']}")
+
+        # -- 3. read-your-writes on one worker session ------------------
+        w1i = sorted(ws)[1]
+        s1 = ws[w1i][1]
+        ryw = 0
+        for j in range(8):
+            k = 40 + 7 * j
+            rid = str(uuid.uuid4())
+            ok(s1.req("PUT", f"/v1/dss/identification_service_areas/{rid}",
+                      isa_body(k)), "proxied ISA PUT")
+            got = ok(s1.req("GET", "/v1/dss/identification_service_areas"
+                            "?area=" + isa_area(k)), "worker search")
+            ryw += rid in [a["id"] for a in got["service_areas"]]
+        line["read_your_writes"] = {"writes": 8, "seen": ryw}
+        STORE_TALLY.check(ryw == 8, "shm_front: read-your-writes missed")
+
+        # -- 4. the closed loops against the front ---------------------
+        m0 = scrape()
+        bodies = [q for q, _ in aois]
+        line["loops"] = [proc_loop(base, bodies, c, work)
+                         for c in LOOP_CLIENTS]
+        m1 = scrape()
+        for lp in line["loops"]:
+            if lp["errors"] or set(lp["codes"]) != {"200"}:
+                fail(f"loop {lp}")
+        line["workers0_loops"] = workers0
+
+        def delta(name):
+            a, b = metric_series(m0, name), metric_series(m1, name)
+            return {k.split('"')[1] if '"' in k else k: b[k] - a.get(k, 0)
+                    for k in b}
+
+        line["loops_by_worker"] = {
+            "served": delta("dss_shm_worker_served"),
+            "cache_hits": delta("dss_shm_worker_cache_hits"),
+            "plan_proxy": delta("dss_shm_worker_plan_proxy"),
+        }
+
+        # -- 5. SIGKILL one worker in a burst ---------------------------
+        kill_i = max(ws)
+        kill_pid = ws[kill_i][0]
+        survivors = [s for i, (_, s) in ws.items() if i != kill_i] + [lsess]
+        stop = threading.Event()
+        counts = {"done": 0, "5xx": 0, "errors": []}
+        count_lock = threading.Lock()
+
+        def survivor(sess, off):
+            k = off
+            while not stop.is_set():
+                try:
+                    st, _ = sess.req("GET", isa_paths[k % len(isa_paths)])
+                except OSError as e:
+                    with count_lock:
+                        counts["errors"].append(repr(e))
+                    return
+                with count_lock:
+                    counts["done"] += 1
+                    counts["5xx"] += st >= 500
+                k += 1
+
+        ths = [threading.Thread(target=survivor, args=(s, 13 * n))
+               for n, s in enumerate(survivors)]
+        for th in ths:
+            th.start()
+        time.sleep(0.5)
+        os.kill(kill_pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        time.sleep(SHM_KILL_BURST_S)
+        stop.set()
+        for th in ths:
+            th.join(30)
+        m = scrape()
+        status_doc = ok(lsess.req("GET", "/status"), "/status")
+        kill = {"survivor_requests": counts["done"],
+                "survivor_5xx": counts["5xx"],
+                "survivor_errors": counts["errors"][:3],
+                "dead_workers": metric_sum(m, "dss_shm_dead_workers"),
+                "degraded_mode": status_doc.get("degraded_mode")}
+        if counts["5xx"] or counts["errors"] or counts["done"] < 20:
+            fail(f"survivors during the kill: {kill}")
+        if kill["dead_workers"] != 1:
+            fail(f"dead workers {kill['dead_workers']} after the kill")
+        if kill["degraded_mode"] != "healthy":
+            fail(f"ladder left HEALTHY: {kill['degraded_mode']}")
+        new_pid = None
+        while time.perf_counter() - t_kill < SHM_RESPAWN_S:
+            p = fleet_pids(proc.pid).get(kill_i)
+            if p is not None and p != kill_pid:
+                new_pid = p
+                break
+            time.sleep(0.2)
+        if new_pid is None:
+            raise RuntimeError("the killed worker was not respawned")
+        kill["respawn_s"] = time.perf_counter() - t_kill
+        _, pid, sess = worker_session(
+            SHM_RESPAWN_S - (time.perf_counter() - t_kill), {kill_i})
+        if pid != new_pid:
+            fail(f"worker {kill_i} answers as pid {pid}, not {new_pid}")
+        got = ok(sess.req("GET", isa_paths[0]), "respawned worker search")
+        STORE_TALLY.check(got == want_isa[0], "shm_front: the respawned "
+                          "worker's answer != leader")
+        while metric_sum(scrape(), "dss_shm_dead_workers") != 0:
+            if time.perf_counter() - t_kill > SHM_RESPAWN_S:
+                fail("the respawned worker was never revived")
+                break
+            time.sleep(0.2)
+        kill["respawned_serving_s"] = time.perf_counter() - t_kill
+        line["kill"] = kill
+
+        # -- 6. the leader's account of the whole front -----------------
+        m = scrape()
+        line["front"] = {k: metric_sum(m, f"dss_shm_{k}") for k in (
+            "served_total", "errors_total", "deadline_drops_total",
+            "overloaded_total", "reclaimed_total", "ring_full_total",
+            "serve_ms_total", "workers", "dead_workers")}
+        line["front"].update({k: metric_sum(m, f"dss_shm_worker_{k}") for k in (
+            "plan_shm", "plan_proxy", "proxy_fallbacks", "cache_hits",
+            "cache_misses", "timeouts", "oversize", "assembly_misses")})
+        line["owner_route_mix"] = {r: sum(metric_values(
+            m, f"_co_route_{r}_batches").values())
+            for r in ("host", "hostchunk", "device", "resident")}
+        line["owner_plan_mix"] = {r: sum(metric_values(
+            m, f"_co_plan_{r}").values())
+            for r in ("cache", "inline", "hostchunk", "device", "resident")}
+        # one graph cache serves every class: each class's series
+        # repeats its counts
+        line["owner_graph"] = {r: max(
+            metric_values(m, f"_co_res_{r}").values(), default=0.0)
+            for r in ("aot_hits", "aot_misses", "graph_captures",
+                      "graph_capture_failures")}
+        if line["owner_graph"]["graph_capture_failures"]:
+            fail(f"graph capture failures: {line['owner_graph']}")
+        stages = {}
+        for lab, v in metric_series(
+                m, "dss_stage_duration_seconds_count").items():
+            d = dict(x.split("=") for x in lab.split(","))
+            stages[f"{d['route'].strip(chr(34))}/"
+                   f"{d['stage'].strip(chr(34))}"] = v
+        line["stage_counts"] = stages
+        # (a timeout is legal: a respawned worker's first requests may
+        # find the owner still counting it dead, and take the proxy)
+        if line["front"]["errors_total"]:
+            fail(f"ring errors: {line['front']}")
+        if not any(k.endswith("shm_ring_ms") for k in stages):
+            fail("no shm_ring_ms stage in the merged histograms")
+        line["b1"] = ("in the leader's process, so not counted here: "
+                      "its route mix and graph hits above")
+
+        # -- 7. only the leader on the card -----------------------------
+        # nvidia-smi names processes by the host's pids, which this
+        # machine's pid namespace may not share: the apps it lists are
+        # counted against the processes here that hold the card (the
+        # leader, and this smoke once it made a context), and each
+        # process's /dev/nvidia* descriptors are read from /proc
+        apps = [x.strip() for x in subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.splitlines()
+            if x.strip()]
+        listed = {int(x.split(",")[0]) for x in apps}
+        pids = fleet_pids(proc.pid)
+        fds = {"leader": nvidia_fds(proc.pid), **{
+            f"worker-{i}": nvidia_fds(p) for i, p in sorted(pids.items())}}
+        smoke_ctx = torch.cuda.is_initialized()
+        ca = line["compute_apps"] = {
+            "nvidia_smi": apps, "leader_pid": proc.pid,
+            "smoke_pid": os.getpid(), "smoke_holds_a_context": smoke_ctx,
+            "worker_pids": pids, "expected_apps": 1 + smoke_ctx,
+            "pids_in_this_namespace": bool(listed & {proc.pid, os.getpid()}),
+            "workers_listed": sorted(set(pids.values()) & listed),
+            "nvidia_fds": fds,
+        }
+        if (ca["workers_listed"] or len(apps) != ca["expected_apps"]
+                or any(v != 0 for k, v in fds.items() if k != "leader")
+                or fds["leader"] <= 0):
+            fail(f"not the leader alone on the card: {ca}")
+    finally:
+        # -- 8. SIGTERM with searches in flight -------------------------
+        def fire(p):
+            try:
+                urllib.request.urlopen(base + p, timeout=5).read()
+            except OSError:
+                pass  # the SIGTERM, not a failure
+
+        flight = [threading.Thread(target=fire, args=(
+            "/v1/dss/identification_service_areas?area=" + isa_area(k),))
+            for k in range(16)]
+        for th in flight:
+            th.start()
+        kids = fleet_pids(proc.pid) if proc.poll() is None else {}
+        t = time.perf_counter()
+        rc = None
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=HTTP_GRACE_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(30)
+                fail("the leader outlived its grace")
+        else:
+            rc = proc.returncode
+            fail(f"the leader died (rc {rc})")
+        for th in flight:
+            th.join(10)
+        for sess in sessions:
+            sess.close()
+        errf.close()
+        left = [p for p in kids.values() if os.path.exists(f"/proc/{p}")]
+        line.update(sigterm_exit_s=time.perf_counter() - t, exit_code=rc,
+                    workers_left=left)
+        if rc != 0:
+            with open(err_path, "rb") as f:
+                tail = f.read()[-2000:].decode(errors="replace")
+            fail(f"exit code {rc}: {tail}")
+        if left:
+            fail(f"workers outlived the leader: {left}")
+            for p in left:
+                os.kill(p, signal.SIGKILL)
+        # the leader's account of its workers: one exit, the SIGKILLed
+        # worker's, and its respawn
+        with open(err_path, "rb") as f:
+            text = f.read()
+        events = [json.loads(x)["msg"] for x in text.splitlines()
+                  if x.startswith(b"{") and b'"dss.server"' in x
+                  and b'"msg": "worker ' in x]
+        line["worker_events"] = events
+        exits = [e for e in events if " exited " in e]
+        if len(exits) != 1 or "rc=-9" not in exits[0]:
+            fail(f"workers exited other than the SIGKILLed one: {events}")
+        if b"Traceback" in text or b"Fatal Python error" in text:
+            fail("a traceback in the fleet's log")
+        if failures:
+            # the fleet's own lines (not its access log) for the record
+            os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+            with open(os.path.join(root, "chiprun_out",
+                                   "shm_front_fleet.log"), "wb") as f:
+                f.write(b"\n".join(
+                    x for x in text.splitlines()
+                    if b'"msg": "request"' not in x)[-2_000_000:])
+    return {"shm_front": line}, failures
+
 
 
 def replay_profile(wal, n_records, dev, smi) -> dict:
@@ -3130,9 +3850,25 @@ def run(dev, smi) -> tuple:
     store, bad = store_phase(dev, smi)
     failures += bad
     log(f"seconds before http: {time.perf_counter() - t_all:.2f}")
-    http, bad = http_phase(smi)
+    http, bad, http_state = http_phase(smi)
     log(json.dumps(http))
     failures += bad
+    log(f"seconds before the shm front: {time.perf_counter() - t_all:.2f}")
+    if http_state is None:
+        log(json.dumps({"shm_front": {"ran": False,
+                                      "why": "the http phase did not run"}}))
+    else:
+        t = time.perf_counter()
+        try:
+            shm, bad = shm_front_phase(smi, http_state,
+                                       http["http"]["loop_procs"])
+        finally:
+            import shutil
+
+            shutil.rmtree(http_state["work"], ignore_errors=True)
+        shm["shm_front"]["seconds"] = time.perf_counter() - t
+        log(json.dumps(shm))
+        failures += bad
     log(f"seconds before push: {time.perf_counter() - t_all:.2f}")
     push, push_counts, bad = push_phase(dev, smi)
     log(json.dumps(push))
@@ -3171,8 +3907,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     if failures:
-        print(f"chip_smoke: a serving, store, services, http or push "
-              f"phase failed: {failures}", file=sys.stderr)
+        print(f"chip_smoke: a serving, store, services, http, shm front "
+              f"or push phase failed: {failures}", file=sys.stderr)
         return 1
     tallies = list(TALLY.values()) + [STORE_TALLY, NATIVE_TALLY, PUSH_TALLY]
     bad = sum(t.mismatches for t in tallies)

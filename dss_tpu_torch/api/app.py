@@ -17,13 +17,14 @@ AirspaceConflictResponse itself; AREA_TOO_LARGE -> HTTP 413.
 Scope tables mirror pkg/rid/server/server.go:34-49,
 pkg/scd/server.go:58-76, pkg/aux_/server.go:17-21.
 
-A copy of the reference's `dss_tpu/api/app.py`.  What the port does not
-have yet raises `NotImplementedError` naming its slice when it is asked
-for: a federation router (region slice) and the worker proxy of the shm
-front.  Without them the reference's federation branches are no-ops,
-so they are left out here.  Inline reads stay off until the native host
-halves land (`_native_ready`), and `/debug/profile` records a
-`torch.profiler` Chrome trace where the reference records a JAX trace.
+A copy of the reference's `dss_tpu/api/app.py`, the shm front's read-
+worker proxy included.  What the port does not have yet raises
+`NotImplementedError` naming its slice when it is asked for: a
+federation router (region slice).  Without it the reference's
+federation branches are no-ops, so they are left out here.  Inline
+reads follow `native.available()` (`_native_ready`), and
+`/debug/profile` records a `torch.profiler` Chrome trace where the
+reference records a JAX trace.
 """
 
 from __future__ import annotations
@@ -392,11 +393,155 @@ _GAUGE_VEC_LABELS = {
 }
 
 
+# Routes a read-worker serves from its local WAL-tail replica; every
+# other route is proxied to the write leader.  Searches are the hot
+# path and inherently scan-like (bounded staleness = the follower poll
+# interval, same contract as a region-mode non-writing instance);
+# point reads and all mutations go to the leader for freshness.
+WORKER_LOCAL_ROUTES = {
+    ("GET", "/healthy"),
+    ("GET", "/metrics"),
+    ("GET", "/status"),
+    # the trace flight recorder is PER PROCESS by design: the worker
+    # serving this connection answers with its own recorder (the
+    # stitched ring trace lives worker-side), never proxied
+    ("GET", "/aux/v1/debug/traces"),
+    ("GET", "/aux/v1/validate_oauth"),
+    ("GET", "/v1/dss/identification_service_areas"),
+    ("GET", "/v1/dss/subscriptions"),
+    ("POST", "/dss/v1/operation_references/query"),
+    ("POST", "/dss/v1/subscriptions/query"),
+    ("POST", "/dss/v1/constraint_references/query"),
+    # NOTE: the federation peer surface is deliberately NOT here —
+    # worker-reader mode refuses --federation_map outright
+    # (cmds/server.py): a worker's plain WAL-tail replica would serve
+    # cross-region coverings partially.
+}
+
+_PROXY_SKIP_HEADERS = {
+    "host", "content-length", "transfer-encoding", "connection",
+}
+
+
 def make_worker_proxy_middleware(leader_url: str, follower=None,
                                  costs=None):
-    """Read-worker request routing (local searches, the rest proxied to
-    the write leader): the shm front's, a later slice of the port."""
-    errors.later_slice("the read-worker proxy (--workers)", "shm front")
+    """Read-worker request routing: local serving for searches, proxy
+    to the leader for everything else.  After a successful proxied
+    mutation the worker waits (bounded) for its replica to reach the
+    leader's WAL seq — read-your-writes for clients that keep their
+    connection (and thus this worker) across a write->search flow.
+
+    With the shared-memory front attached, a locally-served search
+    that cannot ride the ring (ring full, owner dead, oversized
+    payload, injected `shm.ring.enqueue` fault) raises ShmFallback —
+    caught HERE and re-served over the loopback proxy, so ring
+    saturation degrades to the old proxy cost instead of blocking or
+    erroring.  `costs` (the front's WorkerCostModel) observes the
+    measured proxy round trip of each such fallback search, so the
+    shm-vs-proxy price comparison learns the REAL loopback cost
+    instead of trusting the DSS_SHM_PROXY_MS seed forever."""
+    import aiohttp as _aiohttp
+
+    from dss_tpu_torch.dar.shmfront import ShmFallback
+
+    session: dict = {}
+
+    async def _get_session():
+        if "s" not in session:
+            session["s"] = _aiohttp.ClientSession(
+                timeout=_aiohttp.ClientTimeout(total=60)
+            )
+        return session["s"]
+
+    @web.middleware
+    async def worker_proxy(request, handler):
+        resource = (
+            request.match_info.route.resource
+            if request.match_info is not None
+            else None
+        )
+        canonical = resource.canonical if resource is not None else None
+        fell_back = False
+        if (request.method, canonical) in WORKER_LOCAL_ROUTES:
+            try:
+                return await handler(request)
+            except ShmFallback:
+                fell_back = True  # loopback proxy below
+        sess = await _get_session()
+        body = await request.read()
+        t0 = time.perf_counter()
+        t0_w = time.time_ns()
+        headers = {
+            k: v
+            for k, v in request.headers.items()
+            if k.lower() not in _PROXY_SKIP_HEADERS
+        }
+        # propagate THIS hop's trace identity instead of minting a
+        # fresh id leader-side: the worker's trace middleware already
+        # resolved/minted the id, and the loopback hop must carry it
+        # (one grep-able id across worker AND leader access logs)
+        from dss_tpu_torch.obs import trace as _trace
+
+        tr = request.get("dss_trace")
+        if tr is not None:
+            headers["X-Request-Id"] = tr["request_id"]
+            ctx = tr.get("ctx")
+            if ctx is not None:
+                headers["traceparent"] = _trace.format_traceparent(
+                    ctx.trace_id, ctx.root_span_id, ctx.sampled
+                )
+        try:
+            async with sess.request(
+                request.method,
+                leader_url + request.path_qs,
+                data=body,
+                headers=headers,
+            ) as upstream:
+                payload = await upstream.read()
+                seq = upstream.headers.get("X-Dss-Wal-Seq")
+        except (_aiohttp.ClientError, asyncio.TimeoutError) as e:
+            return _error_response(
+                errors.unavailable(f"write leader unreachable: {e}")
+            )
+        proxy_ms = (time.perf_counter() - t0) * 1000.0
+        sink = request.get("dss_stages")
+        if sink is not None:
+            sink["proxy_ms"] = round(
+                sink.get("proxy_ms", 0.0) + proxy_ms, 3
+            )
+        th = _trace_handle(request)
+        if th is not None:
+            _trace.add_span(
+                th, "proxy", t0_w, proxy_ms,
+                attrs={"fallback": fell_back},
+            )
+        if fell_back and costs is not None:
+            # a fallback-proxied SEARCH is the exact request shape the
+            # ring would have served — feed its measured round trip to
+            # the worker cost model (writes/other routes would skew it)
+            costs.observe_proxy(proxy_ms)
+        if (
+            follower is not None
+            and seq
+            and request.method in ("PUT", "DELETE", "POST")
+            and upstream.status < 400
+        ):
+            loop = asyncio.get_running_loop()
+            await loop.run_in_executor(
+                None, functools.partial(follower.wait_for, int(seq), 1.0)
+            )
+        return web.Response(
+            body=payload,
+            status=upstream.status,
+            content_type=upstream.content_type,
+        )
+
+    async def close_session(app):
+        if "s" in session:
+            await session["s"].close()
+
+    worker_proxy.on_cleanup = close_session
+    return worker_proxy
 
 
 def make_wal_seq_middleware(wal_seq_fn):

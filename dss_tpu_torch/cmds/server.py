@@ -8,13 +8,17 @@ Run: python -m dss_tpu_torch.cmds.server --addr :8082 --enable_scd \
          --public_key_files build/test-certs/oauth.pem \
          --accepted_jwt_audiences localhost --storage cuda
 
-A copy of the reference's `dss_tpu/cmds/server.py` in standalone mode.
+A copy of the reference's `dss_tpu/cmds/server.py` in standalone mode,
+with its read-worker fleet (`--workers N`).
 `--storage cuda` (the default) puts every entity class's tables on
 `--device` (default `cuda`, which raises on a machine without a card;
 `--device cpu` runs the plain versions).  `--device` takes the place of
-the reference's JAX-only `--virtual_cpu_devices`.  The flags of later
-slices of the port stay in the parser, and each exits naming its slice
-when set (LATER_SLICE_FLAGS).
+the reference's JAX-only `--virtual_cpu_devices`.  With `--workers N`
+the leader is the one process that owns the card; its N read workers
+run `--device cpu` (the reference pins them to JAX's CPU the same way),
+so they create no CUDA context.  The flags of later slices of the port
+stay in the parser, and each exits naming its slice when set
+(LATER_SLICE_FLAGS).
 """
 
 from __future__ import annotations
@@ -183,18 +187,41 @@ def make_parser() -> argparse.ArgumentParser:
         "--workers",
         type=int,
         default=0,
-        help="read-worker processes sharing the listen port (shm front "
-        "slice).  0 = single process",
+        help="spawn N read-worker processes sharing the listen port "
+        "via SO_REUSEPORT: the leader owns the card + all mutations "
+        "(journaled to the WAL), workers serve searches over the "
+        "shared-memory ring to the leader (DSS_SHM_ENABLE=0: from a "
+        "WAL-tail replica) and proxy everything else to the leader.  "
+        "Workers run --device cpu.  0 = single process.  Standalone "
+        "mode only.",
     )
-    p.add_argument("--worker_reader", action="store_true",
-                   help=argparse.SUPPRESS)  # shm front slice
-    p.add_argument("--leader_url", default="", help=argparse.SUPPRESS)
-    p.add_argument("--shm_region", default="",
-                   help=argparse.SUPPRESS)  # shm front slice
-    p.add_argument("--shm_worker_index", type=int, default=-1,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--follower_poll_interval", type=float, default=0.02,
-                   help="read-worker WAL tail seconds (shm front slice)")
+    p.add_argument(
+        "--worker_reader",
+        action="store_true",
+        help=argparse.SUPPRESS,  # internal: this process is a read worker
+    )
+    p.add_argument(
+        "--leader_url",
+        default="",
+        help=argparse.SUPPRESS,  # internal: leader base URL for proxying
+    )
+    p.add_argument(
+        "--shm_region",
+        default="",
+        help=argparse.SUPPRESS,  # internal: shared-memory ring region path
+    )
+    p.add_argument(
+        "--shm_worker_index",
+        type=int,
+        default=-1,
+        help=argparse.SUPPRESS,  # internal: this worker's ring index
+    )
+    p.add_argument(
+        "--follower_poll_interval",
+        type=float,
+        default=0.02,
+        help="read-worker WAL tail interval in seconds (staleness bound)",
+    )
     p.add_argument(
         "--no_warmup",
         action="store_true",
@@ -252,6 +279,153 @@ def make_parser() -> argparse.ArgumentParser:
     return p
 
 
+def build_worker(args) -> web.Application:
+    """A read worker: searches ride the shm ring to the leader (or, with
+    DSS_SHM_ENABLE=0, scan the local WAL-tail replica); every other
+    route proxies to the leader.  Runs on the CPU (`--device cpu` from
+    _forward_args): the leader owns the card, and the worker's replica
+    only assembles records and serves the proxy fallback."""
+    from dss_tpu_torch.api.app import make_worker_proxy_middleware
+    from dss_tpu_torch.dar.follower import WalFollower
+    from dss_tpu_torch.obs.logging import configure_logging, get_logger
+    from dss_tpu_torch.obs.metrics import MetricsRegistry
+
+    configure_logging()
+    log = get_logger("dss.worker")
+    if not args.wal_path or not args.leader_url:
+        raise SystemExit("--worker_reader needs --wal_path and --leader_url")
+    device = None
+    if args.storage == "cuda":
+        from dss_tpu_torch.ops.fastpath import resolve_device
+
+        device = resolve_device(args.device)
+    clock = Clock()
+    store = DSSStore(storage=args.storage, clock=clock, device=device)
+    follower = WalFollower(
+        store, args.wal_path, interval_s=args.follower_poll_interval
+    )
+    follower.start()
+    log.info(
+        "read worker up: replica from %s every %.0f ms on %s, leader %s",
+        args.wal_path, args.follower_poll_interval * 1000,
+        device if device is not None else "-", args.leader_url,
+    )
+    rid_store, scd_store = store.rid, store.scd
+    front = None
+    if args.shm_region:
+        # shared-memory serving front (parallel/shmring.py): searches
+        # ride the query ring to the device owner — with a worker-
+        # local version-fenced read cache answering repeat polls in
+        # microseconds — instead of re-scanning the WAL-tail replica.
+        # The replica stays: record assembly + proxy-fallback serving.
+        from dss_tpu_torch.dar.shmfront import (
+            ShmRIDStore, ShmSCDStore, ShmSearchFront,
+        )
+        from dss_tpu_torch.parallel import shmring
+
+        region = shmring.ShmRegion.open_existing(args.shm_region)
+        client = shmring.ShmWorkerClient(
+            region, args.shm_worker_index
+        )
+        front = ShmSearchFront(
+            region, client, follower, clock,
+            catchup_s=float(os.environ.get("DSS_SHM_CATCHUP_S", 1.0)),
+            owner_ttl_s=float(
+                os.environ.get("DSS_SHM_OWNER_TTL_S", 5.0)
+            ),
+            owner_threads=int(
+                os.environ.get("DSS_SHM_OWNER_THREADS", 0)
+            ) or min(4, max(2, os.cpu_count() or 2)),
+        )
+        rid_store = ShmRIDStore(store.rid, front)
+        scd_store = ShmSCDStore(store.scd, front)
+        log.info(
+            "shm front: worker %d of %d on %s (depth %d, slot %d B)",
+            args.shm_worker_index, region.nworkers, args.shm_region,
+            region.depth, region.slot_bytes,
+        )
+    rid = RIDService(rid_store, clock)
+    scd = SCDService(scd_store, clock) if args.enable_scd else None
+    authorizer = _make_authorizer(args)
+    metrics = MetricsRegistry(
+        proc=f"worker-{args.shm_worker_index}:{os.getpid()}"
+        if args.shm_region else f"worker:{os.getpid()}"
+    )
+    if front is not None:
+        # per-stage histograms across the whole front: this worker's
+        # stage observations land in its shared block, and its
+        # /metrics renders the MERGED dss_stage_duration_seconds
+        # family (any process's scrape shows the front's tails)
+        from dss_tpu_torch.parallel.shmring import (
+            StageHistWriter, shm_stage_hist,
+        )
+
+        metrics.attach_stage_writer(
+            StageHistWriter(front.region, args.shm_worker_index)
+        )
+        metrics.set_stage_agg(
+            lambda _r=front.region: shm_stage_hist(_r)
+        )
+    from dss_tpu_torch.build_info import build_info
+
+    metrics.set_info("dss_build_info", build_info())
+
+    def stats_fn():
+        out = store.stats()
+        out.update(follower.stats())
+        if front is not None:
+            out.update(front.stats())
+        return out
+
+    app = build_app(
+        rid,
+        scd,
+        authorizer,
+        enable_scd=args.enable_scd,
+        metrics=metrics,
+        dump_requests=args.dump_requests,
+        stats_fn=stats_fn,
+        status_fn=store.freshness_status,
+        health_fn=store.health.mode_name,
+        default_timeout_s=args.default_timeout,
+        trace_requests=args.trace_requests,
+        # shm-front workers run optimistic inline reads regardless of
+        # core count: a worker-cache hit is microseconds on the event
+        # loop, and the front raises NeedsDevice before anything that
+        # blocks (ring round trip, replica catchup) so misses re-run
+        # on the executor — see ShmSearchFront.serve
+        inline_reads=(
+            args.inline_reads != "off" if args.shm_region
+            else _inline_reads(args)
+        ),
+        worker_proxy=make_worker_proxy_middleware(
+            args.leader_url, follower=follower,
+            costs=front.costs if front is not None else None,
+        ),
+    )
+    app["dss_store"] = store
+
+    async def _close_replica(app):
+        # stop the tail and the replica's coalescers before the
+        # interpreter exits, so no daemon thread is inside a torch call
+        # then (as the leader's _close_store does)
+        def close():
+            follower.close()
+            if front is not None:
+                front.client.close()
+            store.close()
+
+        await asyncio.get_running_loop().run_in_executor(None, close)
+
+    app.on_cleanup.append(_close_replica)
+    # the worker's boot heap is the initially-replayed WAL; tail
+    # records arriving later stay in normal generations
+    from dss_tpu_torch.runtime import freeze_boot_heap
+
+    freeze_boot_heap()
+    return app
+
+
 def _inline_reads(args) -> bool:
     if args.inline_reads == "on":
         return True
@@ -298,9 +472,6 @@ def _make_authorizer(args):
 # (DSS_FED_MAP, DSS_PUSH, DSS_TUNE, DSS_AUTOTUNE_PROFILE); the mesh is
 # also entered through DSS_JAX_COORDINATOR, as in the reference.
 LATER_SLICE_FLAGS = {
-    "workers": (0, "shm front"),
-    "worker_reader": (False, "shm front"),
-    "shm_region": ("", "shm front"),
     "federation_map": ("", "region"),
     "region_url": ("", "region"),
     "sharded_replica": ("", "mesh"),
@@ -315,7 +486,8 @@ LATER_SLICE_FLAGS = {
 
 def refuse_later_slices(args) -> None:
     """SystemExit naming the slice of the first flag that a later slice
-    of the port brings (the port serves standalone mode only)."""
+    of the port brings (the port serves standalone mode, with or
+    without its read-worker fleet)."""
     if os.environ.get("DSS_JAX_COORDINATOR"):
         args.jax_coordinator = os.environ["DSS_JAX_COORDINATOR"]
     for flag, (unset, slice_) in LATER_SLICE_FLAGS.items():
@@ -331,6 +503,9 @@ def build(args) -> web.Application:
     from dss_tpu_torch.obs.metrics import MetricsRegistry
 
     refuse_later_slices(args)
+    if args.worker_reader:
+        return build_worker(args)
+
     configure_logging()
     log = get_logger("dss.server")
     from dss_tpu_torch.build_info import build_info
@@ -428,7 +603,9 @@ def build(args) -> web.Application:
 
     authorizer = _make_authorizer(args)
 
-    metrics = MetricsRegistry()
+    metrics = MetricsRegistry(
+        proc=f"leader:{os.getpid()}" if args.workers > 0 else None
+    )
     metrics.set_info("dss_build_info", build_info())
 
     push = None
@@ -460,7 +637,12 @@ def build(args) -> web.Application:
         trace_requests=args.trace_requests,
         profile_dir=args.profile_dir,
         inline_reads=_inline_reads(args),
+        # workers wait on this seq for read-your-writes after a
+        # proxied mutation
+        wal_seq_fn=(lambda: store.wal.seq) if args.workers > 0 else None,
     )
+    # main() attaches the shared-memory front to the store (workers
+    # mode) after the listen sockets exist
     app["dss_store"] = store
     app["dss_metrics"] = metrics
 
@@ -521,13 +703,251 @@ def build(args) -> web.Application:
     return app
 
 
+def _public_socket(addr: str, reuse_port: bool):
+    import socket
+
+    host, _, port = addr.rpartition(":")
+    s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    if reuse_port:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+    s.bind((host or "0.0.0.0", int(port)))
+    s.listen(1024)
+    return s
+
+
+def _watch_parent():
+    """Read workers exit when the leader dies (no orphaned listeners
+    competing on the port)."""
+    parent = os.getppid()
+
+    def loop():
+        while True:
+            if os.getppid() != parent:
+                os._exit(0)
+            time.sleep(1.0)
+
+    threading.Thread(target=loop, name="parent-watch", daemon=True).start()
+
+
+def _forward_args(args, leader_url: str, worker_index: int = -1):
+    """argv for a read-worker child.  Every child runs `--device cpu`:
+    the leader is the one process that owns the card."""
+    out = [
+        "--worker_reader",
+        "--leader_url", leader_url,
+        "--addr", args.addr,
+        "--storage", args.storage,
+        "--device", "cpu",
+        "--wal_path", args.wal_path,
+        "--default_timeout", str(args.default_timeout),
+        "--shutdown_grace", str(args.shutdown_grace),
+        "--follower_poll_interval", str(args.follower_poll_interval),
+        "--inline_reads", args.inline_reads,
+    ]
+    if getattr(args, "_shm_path", ""):
+        out += [
+            "--shm_region", args._shm_path,
+            "--shm_worker_index", str(worker_index),
+        ]
+    if args.enable_scd:
+        out.append("--enable_scd")
+    if args.insecure_no_auth:
+        out.append("--insecure_no_auth")
+    if args.public_key_files:
+        out += ["--public_key_files", args.public_key_files]
+    if args.jwks_endpoint:
+        out += ["--jwks_endpoint", args.jwks_endpoint]
+    if args.jwks_key_ids:
+        out += ["--jwks_key_ids", args.jwks_key_ids]
+    if args.key_refresh_timer:
+        out += ["--key_refresh_timer", str(args.key_refresh_timer)]
+    if args.accepted_jwt_audiences:
+        out += ["--accepted_jwt_audiences", args.accepted_jwt_audiences]
+    if args.dump_requests:
+        out.append("--dump_requests")
+    if args.trace_requests:
+        out.append("--trace_requests")
+    return out
+
+
 def main():
+    import atexit
+    import shutil
+    import socket
+    import subprocess
+    import sys
+    import tempfile
+
     args = make_parser().parse_args()
     refuse_later_slices(args)  # before anything boots
 
     from dss_tpu_torch.cmds import make_ssl_context
 
     ssl_ctx = make_ssl_context(args.tls_cert, args.tls_key)
+
+    if args.worker_reader:
+        _watch_parent()
+        app = build(args)
+        sock = _public_socket(args.addr, reuse_port=True)
+        web.run_app(
+            app,
+            sock=sock,
+            shutdown_timeout=args.shutdown_grace,
+            ssl_context=ssl_ctx,
+        )
+        return
+
+    if args.workers > 0:
+        if ssl_ctx is not None:
+            raise SystemExit(
+                "--tls_cert is single-process only: the worker fleet "
+                "shares one leader loopback that must stay plaintext — "
+                "terminate TLS at the ingress for --workers deployments"
+            )
+        if not args.wal_path:
+            args.wal_path = os.path.join(
+                tempfile.mkdtemp(prefix="dss-wal-"), "wal.jsonl"
+            )
+        # shared-memory serving front (parallel/shmring.py), on by
+        # default: the region file must exist BEFORE workers boot.
+        # DSS_SHM_ENABLE=0 falls back to plain WAL-tail workers.
+        from dss_tpu_torch.dar.coalesce import _env_bool
+        from dss_tpu_torch.parallel import shmring
+
+        shm_raw = os.environ.get("DSS_SHM_ENABLE")
+        shm_enable = True if shm_raw is None else _env_bool(shm_raw)
+        shm_dir = shm_path = ""
+        region = None
+        if shm_enable:
+            shm_dir = tempfile.mkdtemp(prefix="dss-shm-")
+            shm_path = os.path.join(shm_dir, "ring.shm")
+            region = shmring.ShmRegion.create(
+                shm_path, nworkers=args.workers, **shmring.env_knobs()
+            )
+        args._shm_path = shm_path
+        app = build(args)
+        owner = None
+        if region is not None:
+            owner = app["dss_store"].attach_shm_front(
+                region,
+                threads=int(
+                    os.environ.get("DSS_SHM_OWNER_THREADS", 0)
+                ) or None,
+                worker_ttl_s=float(
+                    os.environ.get("DSS_SHM_WORKER_TTL_S", 5.0)
+                ),
+            )
+            # the leader's stage observations (loopback-proxied
+            # writes) land in block N; its /metrics also renders the
+            # merged whole-front stage histograms
+            app["dss_metrics"].attach_stage_writer(
+                shmring.StageHistWriter(region, args.workers)
+            )
+            app["dss_metrics"].set_stage_agg(
+                lambda _r=region: shmring.shm_stage_hist(_r)
+            )
+        # With the shm front attached the leader is a PURE device
+        # owner: it serves the ring plus the loopback port the workers
+        # proxy writes to, and leaves the public port entirely to the
+        # workers.  A public connection landing on the leader would be
+        # served at single-process latency AND steal owner CPU from
+        # the ring drain.  Plain SO_REUSEPORT mode (DSS_SHM_ENABLE=0)
+        # keeps the shared public bind.
+        internal = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        internal.bind(("127.0.0.1", 0))
+        internal.listen(1024)
+        leader_url = f"http://127.0.0.1:{internal.getsockname()[1]}"
+        if region is not None:
+            leader_socks = [internal]
+        else:
+            leader_socks = [
+                _public_socket(args.addr, reuse_port=True), internal,
+            ]
+
+        def spawn_worker(i):
+            return subprocess.Popen(
+                [sys.executable, "-m", "dss_tpu_torch.cmds.server"]
+                + _forward_args(args, leader_url, worker_index=i)
+            )
+
+        children = [spawn_worker(i) for i in range(args.workers)]
+        stopping = threading.Event()
+
+        # a dead worker's in-flight ring slots are reclaimed the
+        # moment the leader reaps it (the heartbeat TTL is the
+        # backstop for a wedged-but-alive worker), and the worker is
+        # RESPAWNED: with the shm front on, the leader leaves the
+        # public port entirely to the workers, so an unreplaced crash
+        # would permanently shrink — and at zero workers eliminate —
+        # the service's public listeners.  A crash-looping worker
+        # (died within 10s of spawn) backs off exponentially to 30s;
+        # one that served a while restarts on the next tick.
+        def watch_children():
+            from dss_tpu_torch.obs.logging import get_logger
+
+            log = get_logger("dss.server")
+            backoff = [0.5] * len(children)
+            respawn_at = [0.0] * len(children)
+            spawned_at = [time.monotonic()] * len(children)
+            dead: set = set()
+            while not stopping.is_set():
+                now = time.monotonic()
+                for i, c in enumerate(children):
+                    if c.poll() is None:
+                        continue
+                    if i not in dead:
+                        dead.add(i)
+                        freed = (
+                            owner.reclaim_worker(i)
+                            if owner is not None else 0
+                        )
+                        if now - spawned_at[i] < 10.0:
+                            backoff[i] = min(backoff[i] * 2, 30.0)
+                        else:
+                            backoff[i] = 0.5
+                        respawn_at[i] = now + backoff[i]
+                        log.warning(
+                            "worker %d exited (rc=%s); reclaimed %d "
+                            "in-flight shm slots; respawn in %.1fs",
+                            i, c.returncode, freed, backoff[i],
+                        )
+                    elif now >= respawn_at[i] and not stopping.is_set():
+                        children[i] = spawn_worker(i)
+                        spawned_at[i] = time.monotonic()
+                        dead.discard(i)
+                        log.warning(
+                            "worker %d respawned (pid %d)",
+                            i, children[i].pid,
+                        )
+                time.sleep(0.5)
+
+        threading.Thread(
+            target=watch_children, name="worker-watch", daemon=True
+        ).start()
+
+        def reap():
+            stopping.set()
+            for c in children:
+                if c.poll() is None:
+                    c.terminate()
+            for c in children:
+                try:
+                    c.wait(timeout=args.shutdown_grace + 5)
+                except subprocess.TimeoutExpired:
+                    c.kill()
+                    c.wait()
+            if shm_dir:
+                shutil.rmtree(shm_dir, ignore_errors=True)
+
+        atexit.register(reap)
+        web.run_app(
+            app,
+            sock=leader_socks,
+            shutdown_timeout=args.shutdown_grace,
+        )
+        return
+
     app = build(args)
     host, _, port = args.addr.rpartition(":")
     # run_app installs SIGINT/SIGTERM handlers: the listener stops

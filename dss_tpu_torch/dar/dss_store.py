@@ -57,16 +57,11 @@ MAX_RID_SUBSCRIPTIONS_PER_AREA = 10  # DSS0030
 MAX_SCD_SUBSCRIPTIONS_PER_AREA = 10
 
 # The stable gauge key sets of the attachments the port leaves out so
-# far (the reference's federation.empty_stats and shmring.empty_stats,
-# then tune.empty_stats): a standalone store exports them empty so
-# dashboards never miss a series.  The push family between them comes
-# from push.empty_stats() (or the attached pipeline's stats()).
-_SHM_WORKER_STATS = (
-    "enqueued", "served", "cache_hits", "cache_misses", "ring_full",
-    "timeouts", "oversize", "proxy_fallbacks", "assembly_misses",
-    "errors", "plan_shm", "plan_proxy",
-)
-_EMPTY_ATTACHMENT_STATS = {
+# far (the reference's federation.empty_stats, then tune.empty_stats):
+# a standalone store exports them empty so dashboards never miss a
+# series.  The push and shm families come from push.empty_stats() and
+# shmring.empty_stats() (or the attached pipeline's and owner's stats).
+_EMPTY_FED_STATS = {
     "dss_fed_partitioned": 0.0,
     "dss_fed_peer_state": {},
     "dss_fed_mirror_lag_s": {},
@@ -77,19 +72,6 @@ _EMPTY_ATTACHMENT_STATS = {
     "dss_fed_writes_rejected": 0.0,
     "dss_fed_syncs": 0.0,
     "dss_fed_sync_failures": 0.0,
-    "dss_shm_ring_depth": 0,
-    "dss_shm_workers": 0,
-    "dss_shm_dead_workers": 0,
-    "dss_shm_slots_in_flight": 0,
-    "dss_shm_served_total": 0,
-    "dss_shm_errors_total": 0,
-    "dss_shm_deadline_drops_total": 0,
-    "dss_shm_overloaded_total": 0,
-    "dss_shm_reclaimed_total": 0,
-    "dss_shm_serve_ms_total": 0.0,
-    "dss_shm_saturation": 0.0,
-    "dss_shm_ring_full_total": 0,
-    **{f"dss_shm_worker_{n}": {} for n in _SHM_WORKER_STATS},
 }
 _EMPTY_TUNE_STATS = {
     "dss_tune_enabled": 0,
@@ -1356,6 +1338,9 @@ class DSSStore:
         # attach_push wires the durable delivery queue onto the write
         # path; stats() exports the stable dss_push_* key set either way
         self.push = None
+        # shared-memory serving front (parallel/shmring.py): None
+        # until attach_shm_front makes this process the device owner
+        self._shm_owner = None
         self._replaying = False
         self._replay()
 
@@ -1439,11 +1424,149 @@ class DSSStore:
             n += table.warm_resident(loop.kernel)
         return n
 
-    def shm_serve(self, req):
-        errors.later_slice("the shared-memory front (shm_serve)", "shm front")
+    # -- shared-memory serving front (parallel/shmring.py) -------------------
 
-    def attach_shm_front(self, region, **kwargs):
-        errors.later_slice("the shared-memory front (attach_shm_front)", "shm front")
+    def _class_index(self, cls: str):
+        return {
+            "isa": self.rid._isa_index,
+            "rid_sub": self.rid._sub_index,
+            "op": self.scd._op_index,
+            "scd_sub": self.scd._sub_index,
+            "constraint": self.scd._cst_index,
+        }[cls]
+
+    def shm_serve(self, req) -> Tuple[List[str], List[int], int, int]:
+        """Serve one shared-memory ring request (shmring.ShmRequest)
+        through the SAME search paths HTTP requests take — admission,
+        deadline routing, the planner, and the owner's read cache all
+        apply — returning (ids, t_end ns per id, class generation,
+        response flags).  The flags carry RESP_F_MESH_SERVED when the
+        answer came from the bounded-stale mesh replica: the leader
+        refuses to populate its own cache from such answers
+        (_cached_ids), and the requesting worker must refuse too.
+
+        Visibility is pinned to the WORKER's `now`: the request's
+        clock instant rides the txn-time thread-local, so the answer
+        is bit-identical to what the worker's own fresh path would
+        have computed at that instant (expiry included).  The
+        backwards-clock guards in the read cache already handle
+        out-of-order nows across workers — this is the same contract
+        as a txn-pinned precheck behind live pollers."""
+        from dss_tpu_torch.clock import from_nanos
+
+        cls = req.cls
+        cells = canonical_cells(req.cells)
+        sub = self.rid if cls in ("isa", "rid_sub") else self.scd
+        tl = sub._txn_time
+        pinned = getattr(tl, "now", None) is None
+        if pinned:
+            tl.now = int(req.now_ns)
+        try:
+            if cls == "isa":
+                recs = sub.search_isas(
+                    cells, from_nanos(req.t0_ns),
+                    None if req.t1_ns is None else from_nanos(req.t1_ns),
+                    allow_stale=req.allow_stale,
+                )
+            elif cls == "rid_sub":
+                recs = (
+                    sub.search_subscriptions_by_owner(cells, req.owner)
+                    if req.owner
+                    else sub.search_subscriptions(cells)
+                )
+            elif cls == "op":
+                recs = sub.search_operations(
+                    cells, req.alt_lo, req.alt_hi,
+                    None if req.t0_ns is None else from_nanos(req.t0_ns),
+                    None if req.t1_ns is None else from_nanos(req.t1_ns),
+                    allow_stale=req.allow_stale,
+                )
+            elif cls == "constraint":
+                recs = sub.search_constraints(
+                    cells, req.alt_lo, req.alt_hi,
+                    None if req.t0_ns is None else from_nanos(req.t0_ns),
+                    None if req.t1_ns is None else from_nanos(req.t1_ns),
+                    allow_stale=req.allow_stale,
+                )
+            elif cls == "scd_sub":
+                # id-level serve: the worker resolves each sub's
+                # dependent operations itself (through its own cached
+                # op path), so the slot never carries nested lists
+                now = int(req.now_ns)
+                oid = (
+                    sub._owners.intern(req.owner)
+                    if req.owner else None
+                )
+                ids = sub._cached_ids(
+                    "scd_sub", sub._sub_index, cells,
+                    qkey=(), now_ns=now, allow_stale=False,
+                    run=lambda: sub._sub_index.query_ids(
+                        cells, now=now, owner_id=oid
+                    ),
+                    t_end_of=sub._scd_sub_t_end,
+                    owner_id=oid,
+                )
+                out_ids, t1s = [], []
+                for i in sorted(ids):
+                    t1 = sub._scd_sub_t_end(i)
+                    if t1 is None:
+                        continue
+                    out_ids.append(i)
+                    t1s.append(t1)
+                gen = sub._sub_index.cell_clock.generation
+                return out_ids, t1s, gen, self._shm_resp_flags()
+            else:
+                raise errors.bad_request(f"unknown shm class {cls!r}")
+        finally:
+            if pinned:
+                tl.now = None
+        gen = self._class_index(cls).cell_clock.generation
+        _never = np.iinfo(np.int64).max
+        return (
+            [r.id for r in recs],
+            # a record with no end time never expires: int64 max keeps
+            # the worker cache's t_end-refilter a no-op for it
+            [
+                _never if r.end_time is None else to_nanos(r.end_time)
+                for r in recs
+            ],
+            gen,
+            self._shm_resp_flags(),
+        )
+
+    @staticmethod
+    def _shm_resp_flags() -> int:
+        from dss_tpu_torch.parallel import shmring
+
+        return (
+            shmring.RESP_F_MESH_SERVED
+            if rcache.take_last_search_meshed() else 0
+        )
+
+    def attach_shm_front(self, region, *, threads: int = None,
+                         worker_ttl_s: float = 5.0):
+        """Make this store the device owner of a shared-memory serving
+        front: every entity class's cell clock broadcasts its bumps
+        into the region's fence segment, and a ShmOwner drain serves
+        ring requests through shm_serve.  Returns the started owner
+        (the caller — cmds/server.py — reclaims dead workers' slots
+        via owner.reclaim_worker)."""
+        from dss_tpu_torch.parallel import shmring
+
+        if self._shm_owner is not None:
+            raise RuntimeError("shm front already attached")
+        for idx, cls in enumerate(shmring.SHM_CLASSES):
+            self._class_index(cls).cell_clock.attach_mirror(
+                shmring.FenceMirror(region, idx)
+            )
+        owner = shmring.ShmOwner(
+            region, self.shm_serve, threads=threads,
+            wal_seq_fn=lambda: self.wal.seq,
+            worker_ttl_s=worker_ttl_s,
+        )
+        owner.start()
+        self._shm_owner = owner
+        return owner
 
     def attach_federation(self, router) -> None:
         errors.later_slice("federation (attach_federation)", "region")
@@ -1475,6 +1598,8 @@ class DSSStore:
         # indexes (and their torch state) go away
         if self.push is not None:
             self.push.close()
+        if self._shm_owner is not None:
+            self._shm_owner.close()
         for index, _ in self._class_indexes():
             closer = getattr(index, "close", None)
             if closer is not None:
@@ -1508,12 +1633,19 @@ class DSSStore:
             chaos.registry().injected_by_site()
         )
         out["dss_breaker_state"] = {}
-        # federation and shm-front families: empty until their slices
-        # attach them
+        # federation family: empty until its slice attaches it
         out.update(
             {k: (dict(v) if isinstance(v, dict) else v)
-             for k, v in _EMPTY_ATTACHMENT_STATS.items()}
+             for k, v in _EMPTY_FED_STATS.items()}
         )
+        # shared-memory front gauges: same stable-key-set discipline
+        # (per-worker counters render as dss_shm_worker_*{process})
+        from dss_tpu_torch.parallel import shmring as _shmmod
+
+        if self._shm_owner is not None:
+            out.update(self._shm_owner.stats())
+        else:
+            out.update(_shmmod.empty_stats())
         # push-pipeline gauges: stable key set whether or not the
         # pipeline is attached (dss_push_breaker_state renders as a
         # labeled family keyed by uss)

@@ -29,7 +29,7 @@ class _WalTail:
     The first record is checked against the supported log format
     (the same boot gate as WriteAheadLog.replay).  A copy of the
     reference's `parallel/replica.py` `_WalTail`; the port's
-    `parallel/` comes with the mesh slice."""
+    `parallel/replica.py` comes with the mesh slice."""
 
     def __init__(self, path: str):
         self.path = path

@@ -61,7 +61,7 @@ class CellClock:
     Writers bump under their own write lock; `fence` is lock-free."""
 
     __slots__ = ("_clock", "_mask", "_gen", "_high", "_floor",
-                 "incarnation", "_lock")
+                 "incarnation", "_lock", "_mirror")
 
     SLOTS = 1 << 20  # per-class stamp array (8 MB); power of two
 
@@ -76,6 +76,10 @@ class CellClock:
         self._floor = 0  # generation of the last wholesale bump_all
         self._lock = threading.Lock()
         self.incarnation = next(_INCARNATIONS)
+        # optional broadcast hook (parallel/shmring.FenceMirror): the
+        # shared-memory serving front mirrors every bump into the shm
+        # fence segment so worker-local read caches fence on it.
+        self._mirror = None
 
     def _slots_of(self, keys) -> np.ndarray:
         return np.asarray(keys, np.int64).ravel() & self._mask
@@ -94,6 +98,8 @@ class CellClock:
                 if keys is None:
                     continue
                 self._clock[self._slots_of(keys)] = g
+            if self._mirror is not None:
+                self._mirror.on_bump(key_arrays, g)
 
     def bump_all(self) -> None:
         """Wholesale invalidation (bulk_load): raise the floor so every
@@ -101,6 +107,17 @@ class CellClock:
         with self._lock:
             self._gen += 1
             self._floor = self._gen
+            if self._mirror is not None:
+                self._mirror.on_bump_all(self._gen)
+
+    def attach_mirror(self, mirror) -> None:
+        """Install the shared-memory fence broadcast hook and publish
+        the clock's current fence metadata.  Under the bump lock so
+        the initial sync and the first mirrored bump cannot race."""
+        with self._lock:
+            self._mirror = mirror
+            if mirror is not None:
+                mirror.sync(self)
 
     @property
     def floor(self) -> int:

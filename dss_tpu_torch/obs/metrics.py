@@ -19,9 +19,8 @@ Istio; the Go services expose nothing — SURVEY.md §5).  Exposes:
 Route labels are templatized (UUID path segments -> ":id") to bound
 cardinality.  Scrape at GET /metrics.
 
-A copy of the reference's `dss_tpu/obs/metrics.py`.  The shm front's
-stage-histogram mirror and whole-front aggregate come with that slice;
-until then `stage_hist_front` is this process's own histograms.
+A copy of the reference's `dss_tpu/obs/metrics.py`, with the shm
+front's stage-histogram mirror and whole-front aggregate.
 """
 
 from __future__ import annotations
@@ -29,8 +28,6 @@ from __future__ import annotations
 import re
 import threading
 from typing import Dict, Tuple
-
-from dss_tpu_torch import errors
 
 _UUID = re.compile(
     r"[0-9a-fA-F]{8}-[0-9a-fA-F]{4}-[0-9a-fA-F]{4}"
@@ -139,6 +136,16 @@ class MetricsRegistry:
         # dss_stage_duration_seconds{stage,route}: (route, stage) ->
         # [bucket counts..., sum_s, count]
         self._shist: Dict[Tuple[str, str], list] = {}
+        # optional shm mirror (parallel/shmring.StageHistWriter): each
+        # observation also lands in this process's shared block so ANY
+        # process of the front can render the whole front's histograms
+        self._stage_writer = None
+        # optional whole-front aggregate provider: when set, render()
+        # emits dss_stage_duration_seconds from it (merged across the
+        # shm blocks, no process label — every process of the front
+        # then exports the SAME coherent family, the dss_shm_worker_*
+        # pattern) instead of the local-only histograms
+        self._stage_agg = None
 
     def observe_request(
         self, method: str, path: str, status: int, duration_s: float
@@ -178,16 +185,21 @@ class MetricsRegistry:
                     row[i] += 1
             row[-2] += duration_s
             row[-1] += 1
+        if self._stage_writer is not None:
+            # outside the lock: the shm block is single-writer per
+            # process and numpy increments are cheap
+            self._stage_writer.observe(rt, stage, duration_s)
 
     def attach_stage_writer(self, writer) -> None:
         """Mirror every stage observation into this process's shared
-        stage-histogram block: the shm front's, a later slice."""
-        errors.later_slice("the shm stage-histogram mirror", "shm front")
+        stage-histogram block (parallel/shmring.StageHistWriter)."""
+        self._stage_writer = writer
 
     def set_stage_agg(self, provider) -> None:
-        """The whole-front shm aggregate: the shm front's, a later
-        slice."""
-        errors.later_slice("the shm stage-histogram aggregate", "shm front")
+        """provider() -> {(route, stage): (bucket_counts, sum_s, cnt)}
+        merged across the whole front; replaces the local histograms in
+        the exposition (see __init__ note)."""
+        self._stage_agg = provider
 
     def stage_hist_snapshot(self) -> Dict[Tuple[str, str], tuple]:
         """{(route, stage): (cumulative bucket counts, sum_s, cnt)} —
@@ -202,10 +214,17 @@ class MetricsRegistry:
             }
 
     def stage_hist_front(self) -> Dict[Tuple[str, str], tuple]:
-        """The widest stage-histogram view this process can see.  The
-        port has no shm front yet, so that is this process's own
-        histograms (the reference merges the front's shm blocks here
-        when one is wired)."""
+        """The widest stage-histogram view this process can see: the
+        whole-front shm aggregate when one is wired (set_stage_agg),
+        else this process's own histograms.  The tune observer's
+        default provider — the tuner fits what the FRONT measured, not
+        just the owner process."""
+        agg = self._stage_agg
+        if agg is not None:
+            try:
+                return agg() or {}
+            except Exception:  # noqa: BLE001 — fall back to local
+                pass
         return self.stage_hist_snapshot()
 
     def set_gauge(self, name: str, value: float) -> None:
@@ -296,10 +315,19 @@ class MetricsRegistry:
                     f"dss_request_duration_seconds_count{{{l}}} "
                     f"{self._hist_cnt[hk]}"
                 )
-            shist = {
-                k: (tuple(row[:-2]), row[-2], row[-1])
-                for k, row in self._shist.items()
-            }
+            agg = None
+            if self._stage_agg is not None:
+                try:
+                    agg = self._stage_agg()
+                except Exception:  # noqa: BLE001 — scrape must survive
+                    agg = None
+            shist = (
+                agg if agg is not None
+                else {
+                    k: (tuple(row[:-2]), row[-2], row[-1])
+                    for k, row in self._shist.items()
+                }
+            )
             if shist:
                 lines.append(
                     "# TYPE dss_stage_duration_seconds histogram"
@@ -311,7 +339,9 @@ class MetricsRegistry:
                         f'route="{_esc_label(r)}",'
                         f'stage="{_esc_label(st)}"'
                     )
-                    l = lab(base)
+                    # whole-front aggregates carry NO process label:
+                    # every process exports the same merged family
+                    l = base if agg is not None else lab(base)
                     for i, b in enumerate(STAGE_BUCKETS):
                         lines.append(
                             f"dss_stage_duration_seconds_bucket{{{l},"

@@ -1,8 +1,8 @@
 """End-to-end distributed tracing: spans, W3C propagation, a bounded
 flight recorder.  A copy of the reference's `dss_tpu/obs/trace.py`;
 the port's coalescer records the same span names and nesting
-(tests/test_torch_trace.py).  The shm owner's collect mode and its
-fixed span slots come with the shm-front slice.  It is the per-RPC
+(tests/test_torch_trace.py), and the shm owner's fixed span slots
+(OWNER_SLOTS) are the reference's wire format.  It is the per-RPC
 latency breakdown the DSS gets for free from CockroachDB SQL tracing,
 rebuilt for a stack where one request crosses up to four process
 boundaries (shm worker -> device owner over the seqlock ring, loopback
@@ -50,7 +50,7 @@ import random
 import threading
 import time
 from collections import OrderedDict, deque
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 __all__ = [
     "TraceContext",
@@ -69,9 +69,31 @@ __all__ = [
     "add_span",
     "finish_root",
     "propagation_headers",
+    "begin_collect",
+    "end_collect",
     "recorder",
     "stats",
+    "OWNER_SLOTS",
+    "owner_slot_vector",
 ]
+
+# The fixed owner-side span vocabulary carried back across the shm
+# ring as 8 reserved response words (duration ns per slot, see
+# parallel/shmring.py): the owner cannot ship arbitrary span names
+# through fixed-layout slots, so the names ARE the indices.  Order is
+# wire format — append only.
+OWNER_SLOTS = (
+    "owner.queue_wait",   # slot claim -> serve thread pickup
+    "admission",          # coalescer admission gate
+    "cache.lookup",       # owner-side read-cache consult
+    "plan",               # planner decision
+    "device.dispatch",    # fused submit (+ wait) — the chaos seam
+    "collect",            # device wait + decode + overlay merge
+    "host.scan",          # forced/auto host route scan
+    "owner.serve",        # whole serve_fn envelope
+)
+_OWNER_SLOT_INDEX = {n: i for i, n in enumerate(OWNER_SLOTS)}
+
 
 # -- configuration -----------------------------------------------------------
 
@@ -596,10 +618,14 @@ def span(name: str, **attrs):
 
 
 def _emit(ctx, span_id, parent, name, start_ns, dur_ms, attrs) -> None:
+    collector = getattr(_tls, "collect", None)
     rec = (
         span_id, parent, name, int(start_ns), round(dur_ms, 3),
         attrs or None,
     )
+    if collector is not None:
+        collector.append(rec)
+        return
     _RECORDER.add(ctx.trace_id, rec)
 
 
@@ -650,3 +676,60 @@ def propagation_headers(
         ),
         "X-Request-Id": handle.ctx.trace_id,
     }
+
+
+# -- collector mode (the shm owner) ------------------------------------------
+
+
+class _Collect:
+    """Thread-state token for a collect-mode activation (the shm
+    owner serves a worker's request and ships span timings back in
+    fixed response words instead of recording locally)."""
+
+    __slots__ = ("spans", "_prev")
+
+
+def begin_collect(trace_id: str, sampled: bool = True) -> _Collect:
+    """Activate a collect-mode context on this thread: spans emitted
+    by the serve path land in a local list (no recorder allocation),
+    to be encoded into shm response words by the caller."""
+    tok = _Collect()
+    tok.spans = []
+    tok._prev = (
+        getattr(_tls, "ctx", None), getattr(_tls, "parent", None),
+        getattr(_tls, "collect", None),
+    )
+    ctx = TraceContext(
+        trace_id=trace_id, root_span_id=_next_span_id(),
+        sampled=sampled, recording=True, start_ns=time.time_ns(),
+    )
+    _tls.ctx = ctx
+    _tls.parent = ctx.root_span_id
+    _tls.collect = tok.spans
+    return tok
+
+
+def end_collect(tok: _Collect) -> List[tuple]:
+    """Deactivate collect mode -> the collected span tuples."""
+    _tls.ctx, _tls.parent, _tls.collect = tok._prev
+    return tok.spans
+
+
+def owner_slot_vector(spans: Sequence[tuple],
+                      extra: Optional[Dict[str, float]] = None
+                      ) -> List[int]:
+    """Fold collected spans into the fixed OWNER_SLOTS duration vector
+    (ns per slot; duplicate names sum).  `extra` adds slot durations
+    measured outside the collected region (owner.queue_wait,
+    owner.serve) in milliseconds."""
+    vec = [0] * len(OWNER_SLOTS)
+    for _sid, _parent, name, _start, dur_ms, _attrs in spans:
+        idx = _OWNER_SLOT_INDEX.get(name)
+        if idx is not None:
+            vec[idx] += int(dur_ms * 1e6)
+    if extra:
+        for name, ms in extra.items():
+            idx = _OWNER_SLOT_INDEX.get(name)
+            if idx is not None:
+                vec[idx] += int(ms * 1e6)
+    return vec

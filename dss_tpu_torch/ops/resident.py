@@ -70,6 +70,7 @@ route candidate with its own cost-model key (`est_res_floor_ms`).
 
 from __future__ import annotations
 
+import gc
 import itertools
 import os
 import queue as _queue
@@ -206,7 +207,12 @@ class _Instance:
 
     def capture(self, stream) -> None:
         """One eager call on the capture stream, then the capture of the
-        same call (thread-local mode: other threads keep serving)."""
+        same call (thread-local mode: other threads keep serving).  The
+        cyclic collector is off while it captures: a dead table's units
+        sit in a cycle with their entry, and freeing one (its graph, its
+        registered buffers) on this thread mid-capture invalidates the
+        capture.  Captures hold the cache's build lock, so no two
+        overlap here."""
         dev = self.out.device
         # the buffers were zeroed on this thread's current stream
         stream.wait_stream(torch.cuda.current_stream(dev))
@@ -214,11 +220,17 @@ class _Instance:
             self._call()
             stream.synchronize()
             graph = torch.cuda.CUDAGraph()
-            graph.capture_begin(capture_error_mode="thread_local")
+            collecting = gc.isenabled()
+            gc.disable()
             try:
-                self._call()
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self._call()
+                finally:
+                    graph.capture_end()
             finally:
-                graph.capture_end()
+                if collecting:
+                    gc.enable()
         self.graph = graph
 
     def replay(self, wins, q_alo, q_ahi, q_t0, q_t1):

@@ -24,6 +24,7 @@ import logging
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from dss_tpu.obs import logging as r_logging
@@ -108,12 +109,70 @@ def test_exposition_equals_the_reference():
     )
 
 
-def test_shm_stage_hooks_raise_until_the_shm_front():
-    m = MetricsRegistry()
-    with pytest.raises(NotImplementedError, match="shm front slice"):
-        m.attach_stage_writer(object())
-    with pytest.raises(NotImplementedError, match="shm front slice"):
-        m.set_stage_agg(dict)
+def _shm_pair(tmp_path, nworkers=2):
+    from dss_tpu.parallel import shmring as r_shm
+    from dss_tpu_torch.parallel import shmring as p_shm
+
+    return (
+        (r_shm, r_shm.ShmRegion.create(str(tmp_path / "r.shm"),
+                                       nworkers=nworkers, depth=2)),
+        (p_shm, p_shm.ShmRegion.create(str(tmp_path / "p.shm"),
+                                       nworkers=nworkers, depth=2)),
+    )
+
+
+def test_shm_stage_writer_equals_the_reference(tmp_path):
+    """attach_stage_writer: every stage observation also lands in the
+    process's shared block, and the blocks hold the same int64 words
+    as the reference's on the same observations."""
+    sides = _shm_pair(tmp_path)
+    regs = []
+    try:
+        for (mod, region), cls in zip(sides, (RMetrics, MetricsRegistry)):
+            m = cls(proc="worker-0:1")
+            m.attach_stage_writer(mod.StageHistWriter(region, 0))
+            _observe(m)
+            m.observe_stage("/dss/v1/operation_references/{entityuuid}",
+                            "service_ms", 0.3)
+            # the leader's block (index nworkers) through a writer alone
+            mod.StageHistWriter(region, 2).observe(
+                "/v1/dss/identification_service_areas", "store_ms", 0.02)
+            regs.append(region)
+        (_, r_reg), (_, p_reg) = sides
+        assert np.array_equal(np.asarray(p_reg._shist),
+                              np.asarray(r_reg._shist))
+        assert np.asarray(p_reg._shist).sum() > 0
+    finally:
+        for region in regs:
+            region.close()
+
+
+def test_shm_stage_aggregate_equals_the_reference(tmp_path):
+    """set_stage_agg + stage_hist_front: the whole-front family (merged
+    across the shm blocks, no process label) renders and reads back
+    as the reference's."""
+    sides = _shm_pair(tmp_path)
+    regs, out = [], []
+    try:
+        for (mod, region), cls in zip(sides, (RMetrics, MetricsRegistry)):
+            regs.append(region)
+            ms = [cls(proc=f"worker-{i}:1") for i in range(2)]
+            for i, m in enumerate(ms):
+                m.attach_stage_writer(mod.StageHistWriter(region, i))
+                m.set_stage_agg(lambda _r=region, _mod=mod:
+                                _mod.shm_stage_hist(_r))
+                _observe(m)
+            ms[1].observe_stage("/v1/dss/subscriptions", "auth_ms", 0.001)
+            out.append((ms[0].render(), ms[0].stage_hist_front(),
+                        ms[1].stage_hist_snapshot()))
+        assert out[1] == out[0]
+        front = out[1][1]
+        assert front[("search", "store_ms")][2] == 2
+        assert 'dss_stage_duration_seconds_count{route="search",' \
+            'stage="store_ms"} 2' in out[1][0]
+    finally:
+        for region in regs:
+            region.close()
 
 
 def test_json_log_lines_equal_the_reference(capsys):

@@ -9,9 +9,10 @@
   services.serialization, services.rid, services.scd, api, api.app,
   cmds, cmds.dummy_oauth, cmds.server; the native/push slice's by
   name: native, native._buildlib, push, push.queue, push.deliver,
-  push.match, push.pipeline), chip_smoke and b1_device_time
-  import in a process where `jax` and every `dss_tpu` module are
-  refused.
+  push.match, push.pipeline; the shm front's by name: parallel,
+  parallel.shmring, dar.shmfront, plan.shmroute), chip_smoke and
+  b1_device_time import in a process where `jax` and every `dss_tpu`
+  module are refused.
 - Tables and stores built without device= on a machine without CUDA
   raise instead of running on the CPU.
 - convert round trip: reference records and table arrays become port
@@ -79,7 +80,8 @@ _PROBE = textwrap.dedent(
                 "api", "api.app", "cmds", "cmds.dummy_oauth",
                 "cmds.server", "native", "native._buildlib", "push",
                 "push.queue", "push.deliver", "push.match",
-                "push.pipeline"):
+                "push.pipeline", "parallel", "parallel.shmring",
+                "dar.shmfront", "plan.shmroute"):
         assert "dss_tpu_torch." + mod in names, (mod, names)
     import chip_smoke  # its helpers; main() only runs as a script
     assert callable(chip_smoke.run) and callable(chip_smoke.make_batch)

@@ -7,8 +7,9 @@ B1's single-pass compaction is also held at the max_words boundaries,
 past 4,096 tiles, over back-to-back launches and on a dirty output, and
 B1 captured into a CUDA graph (ops/resident.py) against its eager
 launch and plain version: at two buckets, over 50 replays that never
-re-zero the scratch, with two units in flight, and captured while
-another thread serves cold batches.  The store: DSSStore(storage="cuda")
+re-zero the scratch, with two units in flight, captured while
+another thread serves cold batches, and captured with a collection due
+at every allocation and a dead table's units waiting.  The store: DSSStore(storage="cuda")
 with no device= puts its tables on the card, and a burst of 128 stale
 store searches reaches B1 with the answers of a memory store.
 
@@ -733,3 +734,59 @@ def test_store_burst_of_stale_callers_launches_b1(cuda):
     finally:
         store.close()
         mem.close()
+
+
+@pytest.mark.gpu
+def test_no_collection_inside_a_capture(cuda, monkeypatch):
+    """A dead table's replay units sit in a cycle with their entry, so
+    only the cyclic collector frees them, on whichever thread allocates
+    next; freed on a capturing thread they invalidate its capture.  With
+    a collection due at every allocation and dead units waiting, no
+    collection starts while a unit captures, no capture fails, and the
+    replay is exact."""
+    import gc
+
+    from dss_tpu_torch.ops import resident
+
+    rng = np.random.default_rng(29)
+    cache = resident.GraphCache()
+    old = _table(rng, 5000, 2000, cuda)
+    q, wb, bb, _ = _graph_batch(old, rng, 100, 8, 2000)
+    ft = _table(rng, 5000, 2000, cuda)
+    q, wb, bb, kargs = _graph_batch(ft, rng, 100, 8, 2000)
+    mid_capture, captured = [], []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            mid_capture.append(torch.cuda.is_current_stream_capturing())
+
+    call = resident._Instance._call
+
+    def watching_call(self):
+        captured.append(torch.cuda.is_current_stream_capturing())
+        call(self)
+
+    thresholds = gc.get_threshold()
+    gc.disable()
+    try:
+        assert cache.compile(old, wb, bb, resident.max_words_for(wb), 2)
+        cache._drop_token(cache._token(old))  # a fold replaced the table
+        del old
+        monkeypatch.setattr(resident._Instance, "_call", watching_call)
+        gc.callbacks.append(on_gc)
+        gc.set_threshold(1, 1, 1)
+        gc.enable()
+        assert cache.compile(ft, wb, bb, resident.max_words_for(wb), 2)
+    finally:
+        gc.set_threshold(*thresholds)
+        gc.enable()
+        gc.callbacks.remove(on_gc)
+        monkeypatch.undo()
+    assert captured.count(True) == 2  # two units captured
+    assert mid_capture and not any(mid_capture), mid_capture
+    assert cache.capture_failures == 0
+    kern = resident.ResidentKernel(cache, autocompile=False, instances=2)
+    out, _ = _replayed(ft, kern, q)
+    plain = ff.fused_window_filter_torch(
+        *kargs, max_words=resident.max_words_for(wb))
+    assert torch.equal(out, plain.cpu())

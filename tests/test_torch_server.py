@@ -12,6 +12,12 @@ memory store lists them in insertion order).  A few cases of tests/e2e/test_blac
 then run against the port server, which must stop within
 --shutdown_grace on SIGTERM.
 
+The read-worker fleet (`--workers 2 --storage memory`) boots as
+processes too: a search rides the shm ring, a write proxied to the
+leader reads back on a worker, a SIGKILLed worker is respawned, SIGTERM
+exits 0, `DSS_SHM_ENABLE=0` boots plain WAL-tail workers, and TLS is
+refused with workers, as the reference refuses it.
+
 The flags of later slices exit naming their slice, and `--device` left
 at its default (`cuda`) raises on a machine without a card.  Every wait
 has its own time limit.
@@ -20,11 +26,13 @@ has its own time limit.
 from __future__ import annotations
 
 import os
+import re
 import signal
 import subprocess
 import sys
 import time
 import uuid
+from pathlib import Path
 
 import pytest
 import requests
@@ -254,8 +262,7 @@ def test_later_slice_flags_name_their_slice(monkeypatch):
                  "DSS_AUTOTUNE_PROFILE", "DSS_JAX_COORDINATOR"):
         monkeypatch.delenv(flag, raising=False)
     cases = {
-        "--workers 2": "shm front", "--worker_reader": "shm front",
-        "--shm_region /x": "shm front", "--federation_map m.json": "region",
+        "--federation_map m.json": "region",
         "--region_url http://x": "region", "--sharded_replica 1,2": "mesh",
         "--jax_coordinator h:1": "mesh", "--process_id 0": "mesh",
         "--num_processes 2": "mesh", "--multihost_dryrun 2": "mesh",
@@ -267,6 +274,10 @@ def test_later_slice_flags_name_their_slice(monkeypatch):
     }
     parser = p_server.make_parser()
     p_server.refuse_later_slices(parser.parse_args([]))
+    # the shm front's flags are this package's own now
+    p_server.refuse_later_slices(parser.parse_args(
+        "--workers 2 --worker_reader --shm_region /x".split()
+    ))
     for argv, slice_ in cases.items():
         with pytest.raises(SystemExit, match=f"the {slice_} slice"):
             p_server.refuse_later_slices(parser.parse_args(argv.split()))
@@ -302,3 +313,203 @@ def test_the_binary_refuses_later_slices_and_a_missing_card():
     assert out["mesh"][0] == 1 and "the mesh slice" in out["mesh"][1]
     assert out["card"][0] != 0
     assert "torch.cuda.is_available() is False" in out["card"][1]
+
+
+# -- the read-worker fleet (--workers) -----------------------------------------
+
+FLEET_S = 60.0
+FLEET_STOP_S = 15.0  # the leader's stop, then each worker's, under load
+
+
+def _children(pid):
+    """Every thread's child processes: the leader respawns from a
+    watcher thread (a `children` file may list a child's threads too,
+    so only thread-group leaders count)."""
+    out = set()
+    for task in Path(f"/proc/{pid}/task").iterdir():
+        try:
+            kids = (task / "children").read_text().split()
+        except OSError:  # a thread that ended meanwhile
+            continue
+        for kid in map(int, kids):
+            try:
+                status = Path(f"/proc/{kid}/status").read_text()
+            except OSError:
+                continue
+            if re.search(rf"^Tgid:\s+{kid}$", status, re.M):
+                out.add(kid)
+    return sorted(out)
+
+
+def _fleet(tmp_path, *extra, env=None, workers=2):
+    """The fleet's processes log every request: their stderr goes to a
+    file (a pipe nobody drains would block them once full)."""
+    port = free_port()
+    env = dict(os.environ if env is None else env)
+    env["TMPDIR"] = str(tmp_path)  # the shm region's directory
+    p = subprocess.Popen(
+        [sys.executable, "-m", "dss_tpu_torch.cmds.server",
+         "--addr", f"127.0.0.1:{port}", "--enable_scd",
+         "--insecure_no_auth", "--storage", "memory",
+         "--workers", str(workers), "--wal_path", str(tmp_path / "dss.wal"),
+         "--shutdown_grace", str(GRACE_S - 2), *extra],
+        cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+        stderr=open(tmp_path / "fleet.log", "wb"),
+    )
+    base = f"http://127.0.0.1:{port}"
+    try:
+        # every worker up: each holds the public port
+        deadline = time.monotonic() + FLEET_S
+        while time.monotonic() < deadline:
+            if p.poll() is not None:
+                raise RuntimeError(
+                    (tmp_path / "fleet.log").read_text()[-4000:])
+            kids = _children(p.pid)
+            up = set()
+            for _ in range(8 * workers):
+                try:
+                    r = requests.get(base + "/metrics", timeout=2)
+                except requests.RequestException:
+                    break
+                m = re.search(r'process="worker-?(\d*):(\d+)"', r.text)
+                if m:
+                    up.add(int(m.group(2)))
+            if len(kids) == workers and up >= set(kids):
+                return p, base
+            time.sleep(0.2)
+        raise RuntimeError("the fleet never came up")
+    except BaseException:
+        _stop(p)
+        raise
+
+
+def _metric(text, name):
+    return sum(float(v) for v in re.findall(
+        rf"^{name}(?:{{[^}}]*}})? ([0-9.e+-]+)$", text, re.M))
+
+
+def _isa(base, lat):
+    r = requests.put(
+        f"{base}/v1/dss/identification_service_areas/{uuid.uuid4()}",
+        json=bb.isa_params(lat=lat), timeout=10)
+    assert r.status_code == 200, r.text
+    return r.json()["service_area"]["id"]
+
+
+def _search(base, lat):
+    r = requests.get(f"{base}/v1/dss/identification_service_areas",
+                     params={"area": bb.area_str(lat=lat)}, timeout=10)
+    return r.status_code, (
+        {a["id"] for a in r.json()["service_areas"]}
+        if r.status_code == 200 else None)
+
+
+def test_worker_fleet_serves_through_the_ring_and_respawns(tmp_path):
+    p, base = _fleet(tmp_path)
+    try:
+        leader_cmd = Path(f"/proc/{p.pid}/cmdline").read_bytes()
+        assert b"--device" not in leader_cmd
+        for kid in _children(p.pid):
+            argv = Path(f"/proc/{kid}/cmdline").read_bytes().split(b"\0")
+            assert argv[argv.index(b"--device") + 1] == b"cpu"
+            assert b"--shm_region" in argv
+        # a write proxied to the leader, read back on a worker at once
+        ids = set()
+        for k in range(6):
+            ids.add(_isa(base, 44.3))
+            st, got = _search(base, 44.3)
+            assert st == 200 and got == ids, k
+        for _ in range(20):  # repeat polls: worker cache hits
+            assert _search(base, 44.3) == (200, ids)
+        m = requests.get(base + "/metrics", timeout=10).text
+        assert _metric(m, "dss_shm_served_total") > 0
+        assert _metric(m, "dss_shm_worker_plan_shm") > 0
+        assert _metric(m, "dss_shm_worker_cache_hits") > 0
+        assert _metric(m, "dss_shm_workers") == 2
+        # SIGKILL one worker: the survivor serves, the leader respawns
+        kids = _children(p.pid)
+        os.kill(kids[0], signal.SIGKILL)
+        deadline = time.monotonic() + FLEET_S
+        while time.monotonic() < deadline:
+            try:
+                assert _search(base, 44.3) == (200, ids)
+            except requests.ConnectionError:
+                pass  # a connection the dead worker had accepted
+            now = _children(p.pid)
+            if len(now) == 2 and kids[0] not in now:
+                break
+            time.sleep(0.2)
+        now = _children(p.pid)
+        assert len(now) == 2 and kids[0] not in now, (kids, now)
+        assert kids[1] in now
+        deadline = time.monotonic() + FLEET_S
+        seen = set()
+        while time.monotonic() < deadline and seen != set(now):
+            r = requests.get(base + "/metrics", timeout=10)
+            mm = re.search(r'process="worker-\d+:(\d+)"', r.text)
+            if mm:
+                seen.add(int(mm.group(1)))
+            time.sleep(0.05)
+        assert seen == set(now), (seen, now)
+        assert _search(base, 44.3) == (200, ids)
+    finally:
+        rc, dt = _stop(p, FLEET_STOP_S)
+    err = (tmp_path / "fleet.log").read_text()
+    assert rc == 0 and dt < FLEET_STOP_S, (rc, dt, err[-3000:])
+    assert "respawned" in err and "reclaimed" in err
+    assert "Traceback" not in err
+    assert not list(tmp_path.glob("dss-shm-*")), "region left behind"
+
+
+def test_worker_fleet_without_the_ring_tails_the_wal(tmp_path):
+    env = dict(os.environ, DSS_SHM_ENABLE="0")
+    p, base = _fleet(tmp_path, env=env)
+    try:
+        for kid in _children(p.pid):
+            argv = Path(f"/proc/{kid}/cmdline").read_bytes().split(b"\0")
+            assert b"--shm_region" not in argv
+        i = _isa(base, 44.5)
+        deadline = time.monotonic() + 10
+        while _search(base, 44.5) != (200, {i}):
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        m = requests.get(base + "/metrics", timeout=10).text
+        assert _metric(m, "dss_shm_served_total") == 0
+        assert _metric(m, "dss_shm_workers") == 0
+    finally:
+        rc, _ = _stop(p, FLEET_STOP_S)
+    assert rc == 0
+
+
+def test_workers_refuse_tls(tmp_path):
+    import datetime as dt
+
+    from cryptography import x509
+    from cryptography.hazmat.primitives import hashes, serialization
+    from cryptography.hazmat.primitives.asymmetric import ec
+    from cryptography.x509.oid import NameOID
+
+    key = ec.generate_private_key(ec.SECP256R1())
+    name = x509.Name([x509.NameAttribute(NameOID.COMMON_NAME, "localhost")])
+    now = dt.datetime.now(dt.timezone.utc)
+    cert = (x509.CertificateBuilder().subject_name(name).issuer_name(name)
+            .public_key(key.public_key()).serial_number(1)
+            .not_valid_before(now).not_valid_after(now + dt.timedelta(days=1))
+            .sign(key, hashes.SHA256()))
+    (tmp_path / "c.pem").write_bytes(
+        cert.public_bytes(serialization.Encoding.PEM))
+    (tmp_path / "k.pem").write_bytes(key.private_bytes(
+        serialization.Encoding.PEM, serialization.PrivateFormat.PKCS8,
+        serialization.NoEncryption()))
+    p = _popen("dss_tpu_torch.cmds.server", "--insecure_no_auth",
+               "--storage", "memory", "--workers", "2",
+               "--addr", f"127.0.0.1:{free_port()}",
+               "--tls_cert", str(tmp_path / "c.pem"),
+               "--tls_key", str(tmp_path / "k.pem"))
+    try:
+        p.wait(timeout=BOOT_S)
+    finally:
+        if p.poll() is None:
+            p.kill()
+    err = p.stderr.read().decode(errors="replace")
+    assert p.returncode == 1 and "--tls_cert is single-process only" in err

@@ -461,10 +461,8 @@ def test_later_slices_raise():
     try:
         for name, args in (
             ("attach_federation", (None,)),
-            ("attach_shm_front", (None,)),
             ("attach_tuner", (None,)),
             ("attach_mesh_replica", (None,)),
-            ("shm_serve", (None,)),
         ):
             with pytest.raises(NotImplementedError, match="slice"):
                 getattr(s, name)(*args)

@@ -1,17 +1,25 @@
 """The port's tracing (dss_tpu_torch/obs/trace.py + stages.py) against
-the reference's, through one traced coalesced query.
+the reference's, through one traced coalesced query, and the shm
+owner's collect mode.
 
 The same query goes through each package's QueryCoalescer under a
 sampled trace, once over a stub table shaped like DarTable's
 submit/collect split (the reference test's) and once over a real
 DarTable; the recorded span trees must have the same span names in the
 same nesting.  The W3C codec and the zero-cost disabled path are held
-to the reference too.
+to the reference too.  The shm cases of tests/test_trace.py (the slot
+trace words, the merged stage-histogram blocks, and one trace stitched
+across two real processes over the ring) run on the port's modules,
+compiled anew with their imports pointed at the port, and the owner's
+collect mode folds the same spans into the same slot vector as the
+reference's.
 """
 
 from __future__ import annotations
 
+import re
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,6 +34,7 @@ from dss_tpu_torch.dar import coalesce
 from dss_tpu_torch.dar.snapshot import DarTable
 from dss_tpu_torch.obs import stages, trace
 
+TESTS = Path(__file__).resolve().parent
 NOW = 1_700_000_000_000_000_000
 HOUR = 3_600_000_000_000
 SIDES = {
@@ -151,3 +160,56 @@ def test_untraced_query_allocates_nothing():
     finally:
         co.close()
     assert trace.stats()["dss_trace_allocs_total"] == 0
+
+
+# -- the shm owner's collect mode ----------------------------------------------
+
+SHM_CASES = (
+    "test_shm_slot_trace_word_roundtrip",
+    "test_shm_stage_hist_blocks_merge",
+    "test_stitched_trace_across_two_processes",
+)
+
+
+def _port_copy_of_shm_cases() -> dict:
+    path = TESTS / "test_trace.py"
+    src = re.sub(r"\bdss_tpu\.", "dss_tpu_torch.", path.read_text())
+    assert "dss_tpu." not in src.replace("dss_tpu_torch.", "")
+    ns = {"__name__": "tests.test_trace_on_the_port", "__file__": str(path)}
+    exec(compile(src, str(path), "exec"), ns)
+    return ns
+
+
+_NS = _port_copy_of_shm_cases()
+for _name in SHM_CASES:
+    globals()[_name] = _NS[_name]
+
+
+def test_collect_mode_equals_the_reference():
+    """begin_collect/end_collect and owner_slot_vector: the same spans
+    emitted under collect mode fold into the same OWNER_SLOTS words."""
+    assert trace.OWNER_SLOTS == ref_trace.OWNER_SLOTS
+    vecs = []
+    for tr in (ref_trace, trace):
+        tr.configure(sample=1.0)  # the owner process traces
+        tok = tr.begin_collect("0af7651916cd43dd8448eb211c80319c")
+        assert tr.current() is not None
+        for name in ("admission", "plan", "device.dispatch", "collect",
+                     "collect", "not-a-slot"):
+            with tr.span(name):
+                time.sleep(0.0002)
+        spans = tr.end_collect(tok)
+        assert tr.current() is None
+        assert tr.stats()["dss_trace_allocs_total"] == 0
+        names = [sp[2] for sp in spans]
+        assert names == ["admission", "plan", "device.dispatch",
+                         "collect", "collect", "not-a-slot"]
+        # the same durations on both sides: fold fixed ones
+        fixed = [(sid, par, n, st, 0.5 + i, a)
+                 for i, (sid, par, n, st, _d, a) in enumerate(spans)]
+        vecs.append(tr.owner_slot_vector(
+            fixed, extra={"owner.queue_wait": 0.25, "owner.serve": 4.0,
+                          "nope": 1.0}))
+    assert vecs[1] == vecs[0]
+    assert vecs[1] == [250000, 500000, 0, 1500000, 2500000, 8000000, 0,
+                       4000000]
