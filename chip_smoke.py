@@ -99,7 +99,27 @@ Phases (any failure exits non-zero; nothing is caught):
      clients, the leader's account of the front from /metrics, and
      nvidia-smi's compute apps with each process's /dev/nvidia
      descriptors (the leader alone on the card); the `shm_front` line;
- 12. the device time of each kernel by device kernel name, the kernels
+ 12. the mesh route (parallel/{mesh, sharded, replica}; ops/conflict.py's
+     torch ops, no B1): after the legacy path, ShardedDar over the main
+     path's 1M live records on a 1x1 mesh and on a virtual 2x4 mesh of
+     the card (eight positions on one H100), four headline batches each,
+     held to each other slot for slot, to B1's answers as id sets and to
+     oracle.search on 256 queries; build s, MiB, batch p50, device time
+     by op beside the bound, overflow fallbacks, shard_hits; the
+     module's conflict_query_batch and max_count_per_cell on the same
+     tensors; then the reference's skew leg (bench.py:2424-2600: 3,000
+     cold and 120 hot records, 64 areas, 250 serial queries per Zipf
+     alpha 0, 0.8, 1.2, a virtual 1x8 mesh, shard_results 48) with
+     rebalancing off and on, answers equal; in the store phase, a
+     replica on a virtual 1x2 mesh tailing the store's WAL attached to
+     its coalescers, and 16 bulk stale drains of 128 that must ride it
+     (mesh_offloads) with the local path's answers; after the shm
+     front, the server binary with `--sharded_replica 1,2
+     --virtual_devices 2` on the http phase's WAL: every
+     /aux/v1/replica/<surface> against its store route once synced, 8
+     ops and three subscriptions written and read back, SIGTERM exit 0;
+     the `mesh` line;
+ 13. the device time of each kernel by device kernel name, the kernels
      line (four kernels; B1's entry with its graph replays and its
      store-phase counts), with each kernel's count of comparisons made
      and of those that disagreed; then the ok line, or exit 1 if any
@@ -109,8 +129,10 @@ Phases (any failure exits non-zero; nothing is caught):
      resident batch at 32 threads, no graph replay in the bulk bursts,
      a refused write that should have passed, no B1 launch or replay
      in the store phase or through the services, a graph capture that
-     failed, or any error, non-2xx answer or unclean exit of the
-     server or of the shm front).
+     failed, any error, non-2xx answer or unclean exit of the server or
+     of the shm front, a mesh torch op that never ran on the card, a
+     B1 launch on the mesh route, no mesh offload in the drains, or no
+     boundary move at the hottest Zipf alpha).
 Times: `ms` is a kernel's device time per wrapper call with the L2
 flushed (a real batch finds its blocks cold): the kernels, memsets and
 copies that 30 calls launched, summed from torch.profiler, over 30;
@@ -639,12 +661,15 @@ class Oracle:
         self.recs, self.keys = recs, keys
         self.changed = {}  # id -> Record, or None when removed
 
-    def ids(self, keys_row, alo, ahi, ts, te):
+    def cands(self, keys_row) -> list:
+        """The live records that may share a cell with keys_row."""
         rows = np.flatnonzero(np.isin(self.keys, keys_row).any(axis=1))
-        cands = [self.recs[r] for r in rows
-                 if self.recs[r].entity_id not in self.changed]
-        cands += [r for r in self.changed.values() if r is not None]
-        recs = dict(enumerate(cands))
+        out = [self.recs[r] for r in rows
+               if self.recs[r].entity_id not in self.changed]
+        return out + [r for r in self.changed.values() if r is not None]
+
+    def ids(self, keys_row, alo, ahi, ts, te):
+        recs = dict(enumerate(self.cands(keys_row)))
         slots = oracle.search(recs, keys_row, float(alo), float(ahi),
                               int(ts), int(te), NOW)
         return sorted(recs[s].entity_id for s in slots)
@@ -3687,6 +3712,10 @@ def store_phase(dev, smi) -> tuple:
     if warm["capture_failures"]:
         failures.append(f"services warm: {warm['capture_failures']} "
                         "capture failures")
+    MESH_LINE["store_drains"], bad = mesh_store_drains(
+        store, path, dev, orc, seed=90_000)
+    log(json.dumps({"mesh_store_drains": MESH_LINE["store_drains"]}))
+    failures += bad
     twin.close()
     store.close()
     shutil.rmtree(wal_dir, ignore_errors=True)
@@ -3695,6 +3724,690 @@ def store_phase(dev, smi) -> tuple:
             "services_launches": svc["services"]["b1_launches"],
             "services_graph_replays": svc["services"]["b1_graph_replays"],
             "store_boot_s": boot_s, "store_reboot_s": reboot_s}, failures
+
+
+# -- the mesh route (parallel/{mesh, sharded, replica}) ----------------------
+
+MESH_TALLY = Tally("mesh")  # the mesh route's answers, every comparison
+MESH_LINE = {}  # the `mesh` line, filled part by part
+MESH_SHAPES = ((1, 1), (2, 4))  # the 2x4 on eight positions of one card
+MESH_BATCHES = 4  # headline batches per mesh
+MESH_ORACLE = 256  # queries of the first batch held against oracle.search
+MESH_MAX_RESULTS = 512  # ShardedDar's default, shard_results the same
+SKEW_COLD, SKEW_HOT, SKEW_AREAS, SKEW_QUERIES = 3000, 120, 64, 250
+SKEW_ALPHAS = (0.0, 0.8, 1.2)
+MESH_REPLICA, MESH_POSITIONS = "1,2", 2  # bench.py:4784's default mesh
+MESH_REFRESH_S = 0.5  # --replica_refresh_interval
+MESH_WRITES = 8  # ops written over HTTP, then read back from the replica
+MESH_BURSTS = 16  # store-level stale drains of BURST_CALLERS
+MESH_SURFACE_SAMPLE = 64  # op queries and ISA areas per surface check
+
+
+def op_family(name: str) -> str:
+    """The torch op behind a device kernel's name (the profiler's), for
+    the mesh route's device time by op."""
+    n = name.lower()
+    for key, fam in (("memcpy htod", "copy_h2d"), ("memcpy dtoh", "copy_d2h"),
+                     ("memcpy dtod", "copy_d2d"), ("memset", "memset"),
+                     ("searchsorted", "searchsorted"), ("sort", "sort"),
+                     ("radix", "sort"), ("scan", "cumsum"),
+                     ("cumsum", "cumsum"),
+                     ("scatter_gather", "gather_scatter"),
+                     ("scatter", "gather_scatter"),
+                     ("index", "index_select"), ("gather", "gather_scatter"),
+                     ("reduce", "reduce"), ("cat", "cat"),
+                     ("elementwise", "elementwise")):
+        if key in n:
+            return fam
+    return "other"
+
+
+def by_op(by_name) -> dict:
+    """{op: [ms per call, launches per call]} from device_ms()'s
+    per-kernel dict."""
+    out = {}
+    for name, (ms, k) in by_name.items():
+        v = out.setdefault(op_family(name), [0.0, 0])
+        v[0] += ms
+        v[1] += k
+    return out
+
+
+def mesh_bound_ms(q, k, cap, n_postings, sp, sr) -> tuple:
+    """The least time the card could take for one batch of the mesh
+    route: the bytes it must read at the card's memory rate.  The
+    searched postings (int32 keys), the [Q, K, cap] candidate gather
+    (int32 slots), the attribute reads per candidate (alt_lo, alt_hi
+    f32, t_start, t_end i64, active bool: 25 B), the sort's pass over
+    [Q, K*cap] and over the merged [Q, sp*shard_results] (int32).  K is
+    the query's real cells (WIDTH), not the padded key bucket.  ->
+    (ms, bytes)."""
+    cand = q * k * cap
+    nbytes = 4 * n_postings + cand * (4 + 25 + 4) + 4 * q * sp * sr
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def live_records(recs, orc) -> list:
+    """The main path's records as its index holds them after the writes
+    (the oracle's changed map applied)."""
+    out = [r for r in recs if r.entity_id not in orc.changed]
+    return out + [r for r in orc.changed.values() if r is not None]
+
+
+def mesh_scale(dev, idx, recs, orc, flush, smi, b1_ms) -> dict:
+    """Part 1: ShardedDar over the main path's 1M live records on a 1x1
+    mesh and on a virtual 2x4 mesh of the card; MESH_BATCHES headline
+    batches each, held to each other slot for slot, to B1's
+    CudaSpatialIndex answers as id sets and, on a sample, to
+    oracle.search; the build, the card's MiB, the batch p50, device
+    time by op beside the bound, overflow fallbacks and shard_hits;
+    then ops/conflict.py's conflict_query_batch and max_count_per_cell
+    on the 1x1 mesh's tensors.  The torch-op functions' launch counts
+    are set to 0 just before and read after the headline batches."""
+    from dss_tpu_torch.ops import conflict as oc
+    from dss_tpu_torch.parallel import sharded as ps
+    from dss_tpu_torch.parallel.mesh import make_mesh, virtual_devices
+
+    t_all = time.perf_counter()
+    live = live_records(recs, orc)
+    batches = [make_batch(500 + i, BATCH, N_CELLS, WIDTH)
+               for i in range(MESH_BATCHES)]
+    out, dars, answers = {}, {}, {}
+    b1_before = ff.fused_window_filter.launches
+    oc.conflict_query_batch.launches = 0
+    oc.max_count_per_cell.launches = 0
+    ps.sharded_conflict_query_batch.launches = 0
+    for dp, sp in MESH_SHAPES:
+        name = f"{dp}x{sp}"
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        dar = ps.ShardedDar(live, make_mesh(
+            dp * sp, dp=dp, sp=sp, devices=virtual_devices(dev, dp * sp)),
+            max_results=MESH_MAX_RESULTS)
+        build_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        mib = (torch.cuda.memory_allocated() - mem0) / 2**20
+        lat, got = [], []
+        for q in batches:
+            t = time.perf_counter()
+            got.append(dar.query_batch(*q, now=NOW))
+            lat.append(time.perf_counter() - t)
+        answers[name], dars[name] = got, dar
+        out[name] = {"build_s": build_s, "mib_on_card": mib,
+                     "postings": int(sum(
+                         (t != int(oc.INT32_MAX)).sum().item()
+                         for _, t in dar.post_key.parts.values())),
+                     "cap": dar.cap, "batch_ms": [x * 1e3 for x in lat],
+                     "p50_batch_ms": statistics.median(lat) * 1e3,
+                     "overflow_fallbacks": dar.overflow_fallbacks,
+                     "shard_hits": dar.shard_hits.tolist()}
+    launches = {
+        "sharded_conflict_query_batch":
+            ps.sharded_conflict_query_batch.launches,
+        "b1": ff.fused_window_filter.launches - b1_before,
+    }
+    a, b = answers["1x1"], answers["2x4"]
+    for k, q in enumerate(batches):
+        want = idx.table.query_many(list(q[0]), *q[1:], now=NOW)
+        for i in range(BATCH):
+            MESH_TALLY.check(a[k][i] == b[k][i],
+                             f"mesh 1x1 != 2x4 at batch {k} query {i}")
+            ids = sorted(live[s].entity_id for s in a[k][i])
+            MESH_TALLY.check(ids == sorted(want[i]),
+                             f"mesh != B1 at batch {k} query {i}")
+            if k == 0 and i < MESH_ORACLE:
+                MESH_TALLY.check(
+                    ids == orc.ids(*(col[i] for col in q)),
+                    f"mesh != oracle at query {i}")
+    for name, dar in dars.items():
+        ms, by_name, src = device_ms(
+            lambda: dar.query_batch(*batches[0], now=NOW), flush, n=10)
+        DEVICE_BY_NAME[f"mesh_{name}"] = {"cold": by_name}
+        b_ms, nbytes = mesh_bound_ms(BATCH, WIDTH, dar.cap,
+                                     out[name]["postings"], dar.n_sp,
+                                     dar.shard_results)
+        out[name].update(
+            device_ms=ms, ms_source=src, device_ms_by_op=by_op(by_name),
+            device_kernels_per_batch=sum(k for _, k in by_name.values()),
+            bound_ms=b_ms, bound_bytes=nbytes, share_of_bound=b_ms / ms,
+            vs_b1=ms / b1_ms)
+    # ops/conflict.py's two other functions on the 1x1 mesh's tensors
+    d11 = dars["1x1"]
+    rows, pk = d11.post_key.parts[dev]
+    base = oc.Postings(pk[0], d11.post_ent.parts[dev][1][0])
+    ents = d11.ents[dev]
+    sent = ents.alt_lo.shape[0] - 1
+    delta = oc.Postings(
+        torch.full((8,), int(oc.INT32_MAX), dtype=torch.int32, device=dev),
+        torch.full((8,), sent, dtype=torch.int32, device=dev))
+    keys16 = np.full((BATCH, 16), -1, np.int32)
+    keys16[:, :WIDTH] = batches[0][0]
+    spec = oc.query_spec(keys16, *batches[0][1:], dev)
+
+    def cqb():
+        return oc.conflict_query_batch(
+            base, delta, ents, spec, NOW, base_cap=d11.cap, delta_cap=8,
+            max_results=MESH_MAX_RESULTS)
+
+    slots, ovf = (t.cpu().numpy() for t in cqb())
+    for i in range(BATCH):
+        row = slots[i]
+        MESH_TALLY.check(
+            not ovf[i] and [int(s) for s in row[row != oc.INT32_MAX]]
+            == a[0][i], f"conflict_query_batch != the 1x1 mesh at {i}")
+    launches["conflict_query_batch"] = oc.conflict_query_batch.launches
+    keys_row = batches[0][0][0]
+    cands = [r for r in orc.cands(keys_row)
+             if np.isin(r.keys, keys_row).any()]
+    owner = cands[0].owner_id if cands else 0
+    want_max = oracle.max_count_per_cell(dict(enumerate(cands)), keys_row,
+                                         owner, NOW)
+    keys_t = torch.from_numpy(keys_row).to(dev)
+
+    def mcc():
+        return oc.max_count_per_cell(base, delta, ents, keys_t, NOW, owner,
+                                     base_cap=d11.cap, delta_cap=8)
+
+    MESH_TALLY.check(int(mcc()) == want_max,
+                     "max_count_per_cell != oracle")
+    launches["max_count_per_cell"] = oc.max_count_per_cell.launches
+    fns = {}
+    for name, fn, q, k in (("conflict_query_batch", cqb, BATCH, WIDTH),
+                           ("max_count_per_cell", mcc, 1, WIDTH)):
+        ms, by_name, src = device_ms(fn, flush, n=10)
+        DEVICE_BY_NAME[name] = {"cold": by_name}
+        b_ms, nbytes = mesh_bound_ms(q, k, d11.cap, out["1x1"]["postings"],
+                                     1, MESH_MAX_RESULTS if q > 1 else 0)
+        fns[name] = {"device_ms": ms, "ms_source": src,
+                     "device_ms_by_op": by_op(by_name), "bound_ms": b_ms,
+                     "bound_bytes": nbytes, "share_of_bound": b_ms / ms}
+    del dars, d11, base, ents, delta, spec
+    gc.collect()
+    return {"records": len(live), "batch": BATCH, "batches": MESH_BATCHES,
+            "oracle_sample": MESH_ORACLE, "meshes": out,
+            "functions": fns, "launches": launches,
+            "b1_ms_same_data": b1_ms, "seconds": time.perf_counter() - t_all,
+            "note": "a virtual position is not a second card: the 2x4 "
+                    "mesh runs its 8 positions on one H100", "card": smi}
+
+
+def skew_fixture(seed=7) -> tuple:
+    """The reference's skew fixture (bench.py:2464-2494): SKEW_COLD
+    records uniform over 50,000 keys plus SKEW_HOT in one narrow hot
+    metro; area 0 covers the hot range, the rest are cold windows of
+    24 keys.  -> (records, areas)."""
+    rng = np.random.default_rng(seed)
+    key_space, hot_lo, hot_w = 50_000, 21_000, 64
+    recs = []
+    for i in range(SKEW_COLD):
+        k0 = int(rng.integers(0, key_space - 16))
+        keys = np.unique(rng.integers(k0, k0 + 16, 4).astype(np.int32))
+        recs.append(Record(f"c{i}", keys, 0.0, 3000.0, -(2**62), 2**62, 0))
+    for i in range(SKEW_HOT):
+        k0 = hot_lo + int(rng.integers(0, hot_w - 4))
+        keys = np.unique(rng.integers(k0, k0 + 4, 3).astype(np.int32))
+        recs.append(Record(f"h{i}", keys, 0.0, 3000.0, -(2**62), 2**62, 0))
+    areas = [np.arange(hot_lo, hot_lo + hot_w, dtype=np.int32)]
+    for _ in range(SKEW_AREAS - 1):
+        k0 = int(rng.integers(0, key_space - 24))
+        areas.append(np.arange(k0, k0 + 24, dtype=np.int32))
+    return recs, areas
+
+
+def zipf_ranks(rng, n_areas, alpha, n):
+    """n area indices, P(rank r) ~ (r+1)^-alpha (bench.py:2497)."""
+    p = np.arange(1, n_areas + 1, dtype=np.float64) ** (-alpha)
+    return rng.choice(n_areas, size=n, p=p / p.sum())
+
+
+def skew_pass(rep, areas, picks) -> tuple:
+    """Serial single-query mesh dispatches (bench.py:2505-2530) ->
+    (latencies ms, overflow fallbacks, measured per-shard work,
+    answers)."""
+    one = (np.full(1, -np.inf, np.float32), np.full(1, np.inf, np.float32),
+           np.full(1, -(2**62), np.int64), np.full(1, 2**62, np.int64))
+    snap = rep._snapshots["isas"]
+    dars = [d for d in (snap.base, snap.delta) if d is not None]
+    ovf0 = sum(d.overflow_fallbacks for d in dars)
+    hits0 = rep.measured_shard_loads().copy()
+    lat, got = [], []
+    for a in picks:
+        t = time.perf_counter()
+        got.append(rep.query_batch([areas[a]], *one, now=0, cls="isas")[0])
+        lat.append((time.perf_counter() - t) * 1e3)
+    ovf = sum(d.overflow_fallbacks for d in dars) - ovf0
+    return (np.asarray(lat), int(ovf), rep.measured_shard_loads() - hits0,
+            got)
+
+
+def mesh_skew(dev, smi) -> dict:
+    """Part 2: the reference's skew leg (bench.py:2424-2459, 2530-2600)
+    at its own size on a virtual 1x8 mesh of the card, max_results 256,
+    shard_results 48: per Zipf alpha, SKEW_QUERIES serial queries with
+    rebalancing off (the equal-count split) and on (measure, move at
+    the fold, re-measure).  The answers with it on must equal those
+    with it off, and the exact host answer."""
+    import os
+    import shutil
+
+    from dss_tpu_torch.dar.tiers import RangeLoad
+    from dss_tpu_torch.parallel import sharded as ps
+    from dss_tpu_torch.parallel.mesh import make_mesh, virtual_devices
+    from dss_tpu_torch.parallel.replica import ShardedReplica
+    from dss_tpu_torch.parallel.sharded import imbalance_factor
+
+    t_all = time.perf_counter()
+    ps.sharded_conflict_query_batch.launches = 0
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "mesh_skew")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    wal = os.path.join(work, "empty.wal")
+    open(wal, "w").close()
+    recs, areas = skew_fixture()
+    rep = ShardedReplica(
+        make_mesh(8, dp=1, sp=8, devices=virtual_devices(dev, 8)),
+        wal_path=wal, max_results=256, shard_results=48,
+        rebalance_ratio=1.5, move_interval_s=0.0)
+    with rep._mu:
+        rep._records["isas"] = {r.entity_id: r for r in recs}
+        rep._dirty["isas"] = True
+    rep.refresh(plan=False)
+    one = (np.full(1, -np.inf, np.float32), np.full(1, np.inf, np.float32),
+           np.full(1, -(2**62), np.int64), np.full(1, 2**62, np.int64))
+    host = [rep.query_batch_host([a], *one, now=0, cls="isas")[0]
+            for a in areas]
+    per_alpha = {}
+    try:
+        for alpha in SKEW_ALPHAS:
+            rng = np.random.default_rng(int(alpha * 10) + 1)
+            picks = zipf_ranks(rng, SKEW_AREAS, alpha, SKEW_QUERIES)
+            warm = zipf_ranks(rng, SKEW_AREAS, alpha, 16)
+            # off: the static equal-count split
+            rep.load = RangeLoad(shift=2, decay_factor=0.5)
+            rep.rebalance_ratio = 0.0
+            if rep.boundaries is not None:
+                rep.boundaries = None
+                with rep._mu:
+                    rep._force_major["isas"] = True
+                    rep._dirty["isas"] = True
+                rep.refresh(plan=False)
+            skew_pass(rep, areas, warm)
+            lat_off, ovf_off, work_off, got_off = skew_pass(rep, areas,
+                                                            picks)
+            # on: measure the load, move at the fold, re-measure
+            rep.load = RangeLoad(shift=2, decay_factor=0.5)
+            rep.rebalance_ratio = 1.5
+            skew_pass(rep, areas, picks)
+            moves0 = rep.boundary_moves
+            rep.plan_rebalance()
+            imb_before = rep._imbalance
+            rep.refresh(plan=False)
+            skew_pass(rep, areas, warm)
+            lat_on, ovf_on, work_on, got_on = skew_pass(rep, areas, picks)
+            rep.plan_rebalance()
+            for i, a in enumerate(picks):
+                MESH_TALLY.check(got_on[i] == got_off[i],
+                                 f"skew {alpha}: on != off at {i}")
+                MESH_TALLY.check(got_on[i] == host[a],
+                                 f"skew {alpha}: mesh != host at {i}")
+
+            def pct(x, p):
+                return float(np.percentile(x, p))
+
+            per_alpha[str(alpha)] = {
+                "off": {"p50_ms": pct(lat_off, 50), "p99_ms": pct(lat_off, 99),
+                        "overflow_fallbacks": ovf_off,
+                        "measured_imbalance": imbalance_factor(work_off)},
+                "on": {"p50_ms": pct(lat_on, 50), "p99_ms": pct(lat_on, 99),
+                       "overflow_fallbacks": ovf_on,
+                       "measured_imbalance": imbalance_factor(work_on),
+                       "boundary_moves": rep.boundary_moves - moves0,
+                       "imbalance_before_move": imb_before,
+                       "imbalance_after_move": rep._imbalance,
+                       "shard_results_effective":
+                           rep.shard_results_effective},
+            }
+    finally:
+        rep.close()
+        shutil.rmtree(work, ignore_errors=True)
+    return {"cold": SKEW_COLD, "hot": SKEW_HOT, "areas": SKEW_AREAS,
+            "queries_per_pass": SKEW_QUERIES, "mesh": "1x8 virtual",
+            "sharded_launches": ps.sharded_conflict_query_batch.launches,
+            "max_results": 256, "shard_results": 48,
+            "per_alpha": per_alpha, "seconds": time.perf_counter() - t_all,
+            "card": smi}
+
+
+def mesh_failures(line) -> list:
+    """The mesh parts' own checks: the route launched its torch ops on
+    the card, never B1, and the skew leg's rebalancing moved."""
+    out = []
+    launches = line["scale"]["launches"]
+    if launches["b1"]:
+        out.append(f"mesh: B1 launched {launches['b1']} times")
+    for name in ("sharded_conflict_query_batch", "conflict_query_batch",
+                 "max_count_per_cell"):
+        if launches[name] <= 0:
+            out.append(f"mesh: {name} never ran on the card")
+    hot = line["skew"]["per_alpha"][str(SKEW_ALPHAS[-1])]["on"]
+    if hot["boundary_moves"] <= 0:
+        out.append("mesh skew: no boundary move at the hottest alpha")
+    return out
+
+
+def mesh_store_drains(store, wal_path, dev, orc, seed) -> tuple:
+    """Part 3, in the store: a ShardedReplica on a virtual 1x2 mesh of
+    the card tails the store's own WAL and is attached to its
+    coalescers (attach_mesh_replica); MESH_BURSTS bulk stale drains of
+    BURST_CALLERS SCDService searches (the services phase's recipe)
+    then ride the mesh.  Every answer must equal the local path's
+    (the same searches one at a time before the replica is attached,
+    held against the oracle), and the op class's mesh_offloads must
+    rise.  -> (its part of the mesh line, failures)."""
+    from dss_tpu_torch.parallel import sharded as ps
+    from dss_tpu_torch.parallel.mesh import make_mesh, virtual_devices
+    from dss_tpu_torch.parallel.replica import ShardedReplica
+    from dss_tpu_torch.services.scd import SCDService
+
+    t_all = time.perf_counter()
+    failures = []
+    svc = SCDService(store.scd, store.clock)
+
+    def ids(params):
+        return sorted(o["id"] for o in svc.search_operations(
+            params, "uss0")["operation_references"])
+
+    bursts = []
+    for k in range(MESH_BURSTS):
+        items = []
+        for params, args in svc_aois(seed + k, BURST_CALLERS, orc.now):
+            local = ids(params)
+            MESH_TALLY.check(local == orc.ids(*args),
+                             "mesh drains: a local search != oracle")
+            items.append((params, local))
+        bursts.append(items)
+    dp, sp = (int(x) for x in MESH_REPLICA.split(","))
+    t = time.perf_counter()
+    rep = ShardedReplica(
+        make_mesh(dp * sp, dp=dp, sp=sp,
+                  devices=virtual_devices(dev, MESH_POSITIONS)),
+        wal_path=wal_path, warm_batches=(1, 32, 64))
+    rep.sync()
+    sync_s = time.perf_counter() - t
+    rep.start(MESH_REFRESH_S)
+    try:
+        store.attach_mesh_replica(rep)
+        if not rep.fresh():
+            failures.append("mesh drains: the replica is not fresh")
+        off0 = store.stats()["dss_dar_op_mesh_offloads"]
+        ps.sharded_conflict_query_batch.launches = 0
+        burst = drain_bursts(store, bursts, lambda it: ids(it[0]),
+                             lambda it: it[1], "mesh drains")
+        offloads = store.stats()["dss_dar_op_mesh_offloads"] - off0
+        launches = ps.sharded_conflict_query_batch.launches
+    finally:
+        rep.close()
+    for index, _ in store._class_indexes():
+        index.coalescer.set_mesh_delegate(None, None)
+    if burst["client_errors"]:
+        failures.append(f"mesh drains: {burst['client_errors']}")
+    if offloads <= 0:
+        failures.append("mesh drains: no batch offloaded to the mesh")
+    st = rep.stats()
+    return {"replica_sync_s": sync_s,
+            "replica_records": st["replica_applied_records"],
+            "replica_major_rebuilds": st["replica_major_rebuilds"],
+            "mesh_offloads": offloads, "sharded_launches": launches,
+            "burst": burst,
+            "seconds": time.perf_counter() - t_all}, failures
+
+
+def mesh_server(smi, state) -> tuple:
+    """Part 3, as a process: the server binary with `--sharded_replica
+    1,2 --virtual_devices 2` on the card, booted from the http phase's
+    WAL.  Once the replica has tailed it (staleness under the refresh
+    interval, no class dirty), every /aux/v1/replica/<surface> is held
+    to its store route; MESH_WRITES ops, two RID subscriptions and an
+    SCD subscription are written and read back from the replica
+    surfaces; SIGTERM must exit 0.  -> (its part of the mesh line,
+    failures)."""
+    import os
+    import signal
+    import urllib.parse
+    import urllib.request
+    import uuid
+
+    from dss_tpu_torch.clock import from_nanos
+    from dss_tpu_torch.services import serialization as ser
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work, wal, now = state["work"], state["wal"], state["now"]
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    err_path = os.path.join(work, "mesh_server.log")
+    errf = open(err_path, "wb")
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dss_tpu_torch.cmds.server",
+         "--addr", f"127.0.0.1:{port}", "--enable_scd", "--storage", "cuda",
+         "--device", HTTP_DEVICE, "--insecure_no_auth", "--wal_path", wal,
+         "--shutdown_grace", str(HTTP_GRACE_S), "--no_warmup",
+         "--sharded_replica", MESH_REPLICA,
+         "--virtual_devices", str(MESH_POSITIONS),
+         "--replica_refresh_interval", str(MESH_REFRESH_S)],
+        cwd=root, stdout=subprocess.DEVNULL, stderr=errf)
+    line, failures = {}, []
+
+    def ok(status_body, what, want=200):
+        status, body = status_body
+        if status != want:
+            raise RuntimeError(f"{what}: HTTP {status} {body}")
+        return body
+
+    def area_of(vol):
+        return ",".join(f"{v['lat']},{v['lng']}" for v in
+                        vol["volume"]["outline_polygon"]["vertices"])
+
+    def replica(surface, key, area, vol=None):
+        qs = {"area": area}
+        if vol is not None:
+            qs.update(
+                altitude_lo=vol["volume"]["altitude_lower"]["value"],
+                altitude_hi=vol["volume"]["altitude_upper"]["value"],
+                earliest_time=vol["time_start"]["value"],
+                latest_time=vol["time_end"]["value"])
+        body = ok(http_json(base, "GET", f"/aux/v1/replica/{surface}?"
+                            + urllib.parse.urlencode(qs)), surface)
+        return sorted(body[key]), body["replica"]
+
+    def synced(st):
+        return (0 <= st["replica_staleness_s"] < MESH_REFRESH_S
+                and not any(v for k, v in st.items()
+                            if k.startswith("replica_")
+                            and k.endswith("_dirty")))
+
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise RuntimeError(f"server exited at boot: rc "
+                                   f"{proc.returncode}")
+            if time.perf_counter() - t_start > 300:
+                raise RuntimeError("server never became healthy")
+            try:
+                with urllib.request.urlopen(base + "/healthy",
+                                            timeout=1) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                pass
+            time.sleep(0.1)
+        boot_s = time.perf_counter() - t_start
+        probe = isa_area(0)
+        while True:
+            _, st = replica("operations", "operation_ids", probe)
+            if st["replica_applied_records"] > 0 and synced(st):
+                break
+            if time.perf_counter() - t_start > 300:
+                raise RuntimeError(f"the replica never synced: {st}")
+            time.sleep(0.1)
+        first_sync_s = time.perf_counter() - t_start
+        # every surface against its store route, after the sync
+        aois = state["aois"][:MESH_SURFACE_SAMPLE]
+        mism = {}
+
+        def hold(surface, got, want):
+            good = got == want
+            mism[surface] = mism.get(surface, 0) + (not good)
+            MESH_TALLY.check(good, f"mesh server: {surface} != store route")
+
+        for params, _ in aois:
+            vol = params["area_of_interest"]
+            want = sorted(o["id"] for o in ok(http_json(
+                base, "POST", "/dss/v1/operation_references/query",
+                params), "op query")["operation_references"])
+            hold("operations", replica("operations", "operation_ids",
+                                       area_of(vol), vol)[0], want)
+            want = sorted(c["id"] for c in ok(http_json(
+                base, "POST", "/dss/v1/constraint_references/query",
+                params), "constraint query")["constraint_references"])
+            hold("constraints", replica("constraints", "constraint_ids",
+                                        area_of(vol), vol)[0], want)
+        for k in range(MESH_SURFACE_SAMPLE):
+            area = isa_area(k)
+            want = sorted(a["id"] for a in ok(http_json(
+                base, "GET", "/v1/dss/identification_service_areas?area="
+                + area), "ISA search")["service_areas"])
+            hold("identification_service_areas", replica(
+                "identification_service_areas", "service_area_ids",
+                area)[0], want)
+        # writes: ops (keyed with what they conflict with), RID and SCD
+        # subscriptions of this caller; then read back from the replica
+        w0, w1 = from_nanos(now + 10 * 60 * 10**9), from_nanos(now + HOUR)
+        written = {"operations": [], "subscriptions": [],
+                   "scd_subscriptions": []}
+        vols = []
+        for j in range(MESH_WRITES):
+            vol = scd_volume(svc_square(2001 + 64 * j), 0.0, 3000.0,
+                             now + HOUR // 3, now + HOUR)
+            op_id = str(uuid.uuid4())
+            body = {"extents": [vol], "uss_base_url": "https://uss.example",
+                    "new_subscription": {
+                        "uss_base_url": "https://uss.example"},
+                    "state": "Accepted", "old_version": 0, "key": []}
+            path = f"/dss/v1/operation_references/{op_id}"
+            status, resp = http_json(base, "PUT", path, body)
+            if status == 409:
+                body["key"] = [c["operation_reference"]["ovn"]
+                               for c in resp["entity_conflicts"]
+                               if "operation_reference" in c]
+                resp = ok(http_json(base, "PUT", path, body), "op PUT")
+            elif status != 200:
+                raise RuntimeError(f"op PUT: HTTP {status} {resp}")
+            written["operations"].append(op_id)
+            vols.append(vol)
+        for k in (3, 4):
+            sub_id = str(uuid.uuid4())
+            poly = svc_square(k * POLL_CELLS + POLL_CELLS // 2)
+            ok(http_json(base, "PUT", f"/v1/dss/subscriptions/{sub_id}", {
+                "extents": {"spatial_volume": {"footprint": {"vertices": [
+                    {"lat": a, "lng": b} for a, b in poly]},
+                    "altitude_lo": 0.0, "altitude_hi": 3000.0},
+                    "time_start": ser.format_time(w0),
+                    "time_end": ser.format_time(w1)},
+                "callbacks": {"identification_service_area_url":
+                              "https://dp.example/n"}}), "RID sub PUT")
+            written["subscriptions"].append(sub_id)
+        sub_id = str(uuid.uuid4())
+        ok(http_json(base, "PUT", f"/dss/v1/subscriptions/{sub_id}", {
+            "extents": vols[0], "uss_base_url": "https://uss.example",
+            "notify_for_operations": True, "old_version": 0}),
+            "SCD sub PUT")
+        written["scd_subscriptions"].append(sub_id)
+        t_w = time.perf_counter()
+        while True:
+            seen, st = set(), None
+            for vol in vols:
+                got, st = replica("operations", "operation_ids",
+                                  area_of(vol), vol)
+                seen.update(got)
+            if set(written["operations"]) <= seen and synced(st):
+                break
+            if time.perf_counter() - t_w > 60:
+                raise RuntimeError("the replica never showed the writes")
+            time.sleep(0.05)
+        visible_s = time.perf_counter() - t_w
+        # the owner-scoped surfaces, with this caller's entities in them,
+        # and every write read back from the surface that serves it
+        back = {key: set() for key in written}
+        for k in (3, 4):
+            area = isa_area(k)
+            want = sorted(s["id"] for s in ok(http_json(
+                base, "GET", "/v1/dss/subscriptions?area=" + area),
+                "RID sub search")["subscriptions"])
+            got = replica("subscriptions", "subscription_ids", area)[0]
+            hold("subscriptions", got, want)
+            back["subscriptions"].update(got)
+        want = sorted(s["id"] for s in ok(http_json(
+            base, "POST", "/dss/v1/subscriptions/query",
+            {"area_of_interest": vols[0]}), "SCD sub query")["subscriptions"])
+        got = replica("scd_subscriptions", "subscription_ids",
+                      area_of(vols[0]), vols[0])[0]
+        hold("scd_subscriptions", got, want)
+        back["scd_subscriptions"].update(got)
+        for vol in vols:
+            want = sorted(o["id"] for o in ok(http_json(
+                base, "POST", "/dss/v1/operation_references/query",
+                {"area_of_interest": vol}), "op query")[
+                "operation_references"])
+            got = replica("operations", "operation_ids", area_of(vol),
+                          vol)[0]
+            hold("operations", got, want)
+            back["operations"].update(got)
+        for key, ids in written.items():
+            MESH_TALLY.check(set(ids) <= back[key],
+                             f"mesh server: written {key} not read back")
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+            metrics = r.read().decode()
+        line = {
+            "wal": os.path.basename(wal), "boot_s": boot_s,
+            "first_sync_s": first_sync_s,
+            "surfaces_compared": {
+                "operations": len(aois) + MESH_WRITES,
+                "constraints": len(aois),
+                "identification_service_areas": MESH_SURFACE_SAMPLE,
+                "subscriptions": 2, "scd_subscriptions": 1},
+            "mismatches": mism, "writes": {k: len(v) for k, v in
+                                           written.items()},
+            "write_to_visible_s": visible_s,
+            "replica": {k: v for k, v in st.items()
+                        if not k.startswith("replica_")
+                        or not k.endswith(("_dirty", "_generation"))},
+            "http_mesh_offloads": int(sum(metric_values(
+                metrics, "_mesh_offloads").values())),
+        }
+    finally:
+        t = time.perf_counter()
+        rc = None
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=HTTP_GRACE_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(30)
+                failures.append("mesh server: outlived its grace")
+        else:
+            rc = proc.returncode
+            failures.append(f"mesh server: died (rc {rc})")
+        errf.close()
+        line.update(sigterm_exit_s=time.perf_counter() - t, exit_code=rc)
+        if rc != 0:
+            with open(err_path, "rb") as f:
+                tail = f.read()[-2000:].decode(errors="replace")
+            failures.append(f"mesh server: exit code {rc}: {tail}")
+    return line, failures
 
 
 def run(dev, smi) -> tuple:
@@ -3842,8 +4555,16 @@ def run(dev, smi) -> tuple:
     legacy = legacy_phase(
         idx, twin, [(name, f, q) for name, f, q, mw in cases if mw is None],
         orc, smi, flush)
+    log(f"seconds before the mesh: {time.perf_counter() - t_all:.2f}")
+    MESH_LINE["scale"] = mesh_scale(dev, idx, recs, orc, flush, smi,
+                                    b1_t["ms"])
+    log(json.dumps({"mesh_scale": MESH_LINE["scale"]}))
+    MESH_LINE["skew"] = mesh_skew(dev, smi)
+    log(json.dumps({"mesh_skew": MESH_LINE["skew"]}))
+    failures = mesh_failures(MESH_LINE)
     log(f"seconds before serving: {time.perf_counter() - t_all:.2f}")
-    serving, failures = serving_phase(idx, twin, smi)
+    serving, bad = serving_phase(idx, twin, smi)
+    failures += bad
     idx.close()
     twin.close()
     log(f"seconds before the store: {time.perf_counter() - t_all:.2f}")
@@ -3862,13 +4583,23 @@ def run(dev, smi) -> tuple:
         try:
             shm, bad = shm_front_phase(smi, http_state,
                                        http["http"]["loop_procs"])
+            shm["shm_front"]["seconds"] = time.perf_counter() - t
+            log(json.dumps(shm))
+            failures += bad
+            log(f"seconds before the mesh server: "
+                f"{time.perf_counter() - t_all:.2f}")
+            t = time.perf_counter()
+            MESH_LINE["server"], bad = mesh_server(smi, http_state)
+            MESH_LINE["server"]["seconds"] = time.perf_counter() - t
+            failures += bad
         finally:
             import shutil
 
             shutil.rmtree(http_state["work"], ignore_errors=True)
-        shm["shm_front"]["seconds"] = time.perf_counter() - t
-        log(json.dumps(shm))
-        failures += bad
+    MESH_LINE["mismatches"] = MESH_TALLY.mismatches
+    MESH_LINE["compared"] = MESH_TALLY.compared
+    MESH_LINE["card"] = smi
+    log(json.dumps({"mesh": MESH_LINE}))
     log(f"seconds before push: {time.perf_counter() - t_all:.2f}")
     push, push_counts, bad = push_phase(dev, smi)
     log(json.dumps(push))
@@ -3907,10 +4638,11 @@ def main() -> int:
               file=sys.stderr)
         return 1
     if failures:
-        print(f"chip_smoke: a serving, store, services, http, shm front "
-              f"or push phase failed: {failures}", file=sys.stderr)
+        print(f"chip_smoke: a serving, store, services, http, shm front, "
+              f"push or mesh phase failed: {failures}", file=sys.stderr)
         return 1
-    tallies = list(TALLY.values()) + [STORE_TALLY, NATIVE_TALLY, PUSH_TALLY]
+    tallies = list(TALLY.values()) + [STORE_TALLY, NATIVE_TALLY, PUSH_TALLY,
+                                      MESH_TALLY]
     bad = sum(t.mismatches for t in tallies)
     if bad:
         print(f"chip_smoke: {bad} of "

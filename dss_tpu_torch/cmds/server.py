@@ -12,8 +12,12 @@ A copy of the reference's `dss_tpu/cmds/server.py` in standalone mode,
 with its read-worker fleet (`--workers N`).
 `--storage cuda` (the default) puts every entity class's tables on
 `--device` (default `cuda`, which raises on a machine without a card;
-`--device cpu` runs the plain versions).  `--device` takes the place of
-the reference's JAX-only `--virtual_cpu_devices`.  With `--workers N`
+`--device cpu` runs the plain versions).  `--device` and
+`--virtual_devices N` (a mesh of N positions on `--device`) take the
+place of the reference's JAX-only `--virtual_cpu_devices`.
+`--sharded_replica dp,sp` keeps a sharded read replica of every entity
+class on a (dp, sp) mesh, tailing the WAL (parallel/replica.py).  With
+`--workers N`
 the leader is the one process that owns the card; its N read workers
 run `--device cpu` (the reference pins them to JAX's CPU the same way),
 so they create no CUDA context.  The flags of later slices of the port
@@ -160,29 +164,53 @@ def make_parser() -> argparse.ArgumentParser:
         "DSS_PUSH_* knobs).  Env fallback DSS_PUSH=1",
     )
     p.add_argument(
+        "--virtual_devices",
+        type=int,
+        default=0,
+        help="let the sharded replica's mesh hold N positions, all on "
+        "--device (one card runs a 2x4 mesh shard after shard; the "
+        "port's form of the reference's --virtual_cpu_devices).  0 = "
+        "one position per device",
+    )
+    p.add_argument(
         "--jax_coordinator",
         default="",
         help="process 0's coordination address: join a process-"
-        "spanning mesh (mesh slice).  Env fallback DSS_JAX_COORDINATOR",
+        "spanning mesh (multihost slice).  Env fallback "
+        "DSS_JAX_COORDINATOR",
     )
     p.add_argument("--process_id", type=int, default=None,
-                   help="index in the multi-host mesh (mesh slice; env "
-                   "DSS_PROCESS_ID)")
+                   help="index in the multi-host mesh (multihost slice; "
+                   "env DSS_PROCESS_ID)")
     p.add_argument("--num_processes", type=int, default=None,
-                   help="processes in the multi-host mesh (mesh slice; "
-                   "env DSS_NUM_PROCESSES)")
+                   help="processes in the multi-host mesh (multihost "
+                   "slice; env DSS_NUM_PROCESSES)")
     p.add_argument("--multihost_dryrun", type=int, default=0,
-                   help="the multi-host path on the CPU (mesh slice; "
-                   "env DSS_MULTIHOST_DRYRUN)")
+                   help="the multi-host path on the CPU (multihost "
+                   "slice; env DSS_MULTIHOST_DRYRUN)")
     p.add_argument(
         "--sharded_replica",
         default="",
-        help="'dp,sp' mesh shape of sharded read replicas (mesh slice)",
+        help="'dp,sp' mesh shape: serve sharded ShardedDar read "
+        "replicas of ALL entity classes (SCD operations, constraints "
+        "and subscriptions, RID ISAs and subscriptions), refreshed "
+        "from the WAL; oversized bounded-staleness search batches "
+        "offload to the mesh, and /aux/v1/replica/<surface> serves "
+        "each class directly.  Needs --wal_path",
     )
-    p.add_argument("--replica_refresh_interval", type=float, default=0.5,
-                   help="replica refresh seconds (mesh slice)")
-    p.add_argument("--no_shard_rebalance", action="store_true",
-                   help="pin the sharded replica's split (mesh slice)")
+    p.add_argument(
+        "--replica_refresh_interval",
+        type=float,
+        default=0.5,
+        help="seconds between replica log polls / snapshot rebuilds",
+    )
+    p.add_argument(
+        "--no_shard_rebalance",
+        action="store_true",
+        help="pin the sharded replica to the static equal-count "
+        "postings split: disable the load-weighted boundary search "
+        "(equivalent to DSS_SHARD_REBALANCE_RATIO=0)",
+    )
     p.add_argument(
         "--workers",
         type=int,
@@ -469,16 +497,16 @@ def _make_authorizer(args):
 
 # flag -> (its value when unset, the slice of the port that brings it).
 # The parser's defaults already read the reference's env fallbacks
-# (DSS_FED_MAP, DSS_PUSH, DSS_TUNE, DSS_AUTOTUNE_PROFILE); the mesh is
-# also entered through DSS_JAX_COORDINATOR, as in the reference.
+# (DSS_FED_MAP, DSS_PUSH, DSS_TUNE, DSS_AUTOTUNE_PROFILE); the
+# process-spanning mesh is also entered through DSS_JAX_COORDINATOR, as
+# in the reference.
 LATER_SLICE_FLAGS = {
     "federation_map": ("", "region"),
     "region_url": ("", "region"),
-    "sharded_replica": ("", "mesh"),
-    "jax_coordinator": ("", "mesh"),
-    "process_id": (None, "mesh"),
-    "num_processes": (None, "mesh"),
-    "multihost_dryrun": (0, "mesh"),
+    "jax_coordinator": ("", "multihost"),
+    "process_id": (None, "multihost"),
+    "num_processes": (None, "multihost"),
+    "multihost_dryrun": (0, "multihost"),
     "self_tune": (False, "tuner"),
     "autotune_profile": ("", "tuner"),
 }
@@ -487,15 +515,77 @@ LATER_SLICE_FLAGS = {
 def refuse_later_slices(args) -> None:
     """SystemExit naming the slice of the first flag that a later slice
     of the port brings (the port serves standalone mode, with or
-    without its read-worker fleet)."""
+    without its read-worker fleet and its single-process mesh)."""
     if os.environ.get("DSS_JAX_COORDINATOR"):
         args.jax_coordinator = os.environ["DSS_JAX_COORDINATOR"]
     for flag, (unset, slice_) in LATER_SLICE_FLAGS.items():
         if getattr(args, flag) != unset:
             raise SystemExit(
                 f"--{flag} is not ported yet; it comes with the {slice_} "
-                "slice of the PyTorch/CUDA port (standalone mode only)"
+                "slice of the PyTorch/CUDA port (standalone mode and the "
+                "single-process mesh only)"
             )
+
+
+def mesh_devices(args) -> list:
+    """The positions a `--sharded_replica` mesh may take: N on
+    `--device` with `--virtual_devices N`, else one per device (every
+    card for `cuda`; the one CPU for `cpu`)."""
+    from dss_tpu_torch.ops.fastpath import resolve_device
+    from dss_tpu_torch.parallel.mesh import local_devices, virtual_devices
+
+    dev = resolve_device(args.device)
+    if args.virtual_devices:
+        return virtual_devices(dev, args.virtual_devices)
+    if dev.type == "cuda" and dev.index is None:
+        return local_devices()
+    return [dev]
+
+
+def make_replica(args, store, log):
+    """`--sharded_replica dp,sp`: a ShardedReplica of every entity class
+    tailing `--wal_path` on a (dp, sp) mesh, refreshing in the
+    background and attached to the store's coalescers; None without
+    the flag."""
+    if not args.sharded_replica:
+        return None
+    from dss_tpu_torch.parallel.mesh import make_mesh
+    from dss_tpu_torch.parallel.replica import ShardedReplica
+
+    try:
+        dp, sp = (int(x) for x in args.sharded_replica.split(","))
+    except ValueError:
+        raise SystemExit(
+            f"--sharded_replica must be 'dp,sp' (got "
+            f"{args.sharded_replica!r})"
+        )
+    if not args.wal_path:
+        raise SystemExit(
+            "--sharded_replica needs --wal_path (a log to tail)"
+        )
+    devs = mesh_devices(args)
+    if len(devs) < dp * sp:
+        raise SystemExit(
+            f"--sharded_replica {dp},{sp} needs {dp * sp} devices, have "
+            f"{len(devs)} (--virtual_devices N gives N positions on "
+            "--device)"
+        )
+    mesh = make_mesh(dp * sp, dp=dp, sp=sp, devices=devs)
+    # every bucket a mesh-offloaded chunk can land in (chunks are
+    # <= 64; remainders bucket to 16/32): the first offload after a
+    # swap finds its kernels loaded
+    replica = ShardedReplica(mesh, wal_path=args.wal_path,
+                             warm_batches=(1, 32, 64))
+    if args.no_shard_rebalance:
+        replica.rebalance_ratio = 0.0
+    replica.start(args.replica_refresh_interval)
+    # oversized bounded-staleness search batches ride the mesh
+    store.attach_mesh_replica(replica)
+    log.info(
+        "sharded replica serving all entity classes on a %dx%d mesh "
+        "over %s (wal)", dp, sp, mesh.distinct_devices(),
+    )
+    return replica
 
 
 def build(args) -> web.Application:
@@ -608,6 +698,8 @@ def build(args) -> web.Application:
     )
     metrics.set_info("dss_build_info", build_info())
 
+    replica = make_replica(args, store, log)
+
     push = None
     if args.push:
         from dss_tpu_torch.push import PushPipeline
@@ -622,6 +714,12 @@ def build(args) -> web.Application:
             os.environ.get("DSS_PUSH_LOG") or "(in-memory)",
         )
 
+    def stats_fn():
+        out = store.stats()
+        if replica is not None:
+            out.update(replica.stats())
+        return out
+
     app = build_app(
         rid,
         scd,
@@ -629,10 +727,11 @@ def build(args) -> web.Application:
         enable_scd=args.enable_scd,
         metrics=metrics,
         dump_requests=args.dump_requests,
-        stats_fn=store.stats,
+        stats_fn=stats_fn,
         status_fn=store.freshness_status,
         health_fn=store.health.mode_name,
         default_timeout_s=args.default_timeout,
+        replica=replica,
         push=push,
         trace_requests=args.trace_requests,
         profile_dir=args.profile_dir,
@@ -652,8 +751,10 @@ def build(args) -> web.Application:
         # loops (store.close, push first), so that no daemon thread is
         # inside a torch call when the interpreter exits (it would
         # abort the process: "terminate called without an active
-        # exception")
+        # exception"); the replica's tail stops first
         def close():
+            if replica is not None:
+                replica.close()
             if warm_thread is not None:
                 warm_thread.join(args.shutdown_grace)
             store.close()
@@ -684,17 +785,27 @@ def build(args) -> web.Application:
 
     # park the boot heap outside GC scans once boot actually finishes:
     # after the background warm (its buffers are part of the boot
-    # heap; freezing mid-warm would pin transients instead).  When no
-    # warm is pending the freeze runs synchronously, before serving.
+    # heap; freezing mid-warm would pin transients instead) and after
+    # the sharded replica's first full log sync (its record maps are
+    # the largest heap in replica mode).  When neither is pending the
+    # freeze runs synchronously, before serving.
     from dss_tpu_torch.runtime import freeze_boot_heap
 
     def _freeze_after_boot():
-        warm_thread.join()
+        if warm_thread is not None:
+            warm_thread.join()
+        if replica is not None:
+            deadline = time.monotonic() + 300.0
+            while (
+                replica.staleness_s() == float("inf")
+                and time.monotonic() < deadline
+            ):
+                time.sleep(0.5)
         # a handful of requests may be in flight by now; collect()
         # first so only their live frames (bounded, one-time) can pin
         freeze_boot_heap()
 
-    if warm_thread is None:
+    if warm_thread is None and replica is None:
         freeze_boot_heap()
     else:
         threading.Thread(

@@ -67,9 +67,8 @@ batch.  Continuous batching — no timing window:
   host route.  A real CUDA error from a kernel wrapper is delivered to
   the batch's callers, never absorbed.
 
-The mesh delegate (set_mesh_delegate) and the read-cache view
-(set_cache_view) are hooks with nothing attached until the mesh and
-read-cache slices land.
+The mesh delegate (set_mesh_delegate) is attached by
+DSSStore.attach_mesh_replica (parallel/replica.py).
 """
 
 from __future__ import annotations
@@ -786,9 +785,12 @@ class QueryCoalescer:
             self._record_item_spans(item, th)
         if item.error is not None:
             raise item.error
-        # item.via_mesh marks bounded-stale mesh output; the reference
-        # notes it to its read cache here, which the port does not have
-        # yet (no mesh delegate is attached either)
+        if item.via_mesh:
+            # tell the store's cache layer (same thread) this answer
+            # is bounded-stale mesh output, not fresh-path output
+            from dss_tpu_torch.dar import readcache as _readcache
+
+            _readcache.note_mesh_served()
         return item.result
 
     def close(self, join: bool = True, timeout: float = 30.0):

@@ -5,8 +5,8 @@ mode.  One implementation serves both backends — the spatial index
 strategy is injected (`storage="memory"` -> MemorySpatialIndex linear
 scans, `storage="cuda"` -> CudaSpatialIndex, the DarTable on the card),
 mirroring how the upstream DSS selects its store behind the repository
-seam.  Region mode and the federation, push, shm-front, tuner and mesh
-attachments come with later slices; asking for them raises.
+seam.  Region mode, the federation and the tuner come with later
+slices; asking for them raises.
 
 Semantics mirrored from the reference:
   - RID fenced writes on the commit-timestamp version
@@ -1591,7 +1591,45 @@ class DSSStore:
                      "measurement surfaces")
 
     def attach_mesh_replica(self, replica, min_batch: int = 64) -> None:
-        errors.later_slice("the mesh replica (attach_mesh_replica)", "mesh")
+        """Route oversized bounded-staleness search batches from each
+        entity class's coalescer to the multi-device replica
+        (parallel/replica.py) when it is fresh.  Only queries flagged
+        allow_stale (the service SEARCH paths) are eligible; conflict
+        prechecks and transactional reads always serve locally."""
+        for index, cls in (
+            (self.rid._isa_index, "isas"),
+            (self.rid._sub_index, "rid_subs"),
+            (self.scd._op_index, "ops"),
+            (self.scd._sub_index, "scd_subs"),
+            (self.scd._cst_index, "constraints"),
+        ):
+            co = getattr(index, "coalescer", None)
+            if co is None:
+                continue  # memory backend: no coalescer tier
+
+            def make(cls):
+                def fn(keys_list, alo, ahi, ts, te, now_arr):
+                    return replica.query_batch(
+                        keys_list, alo, ahi, ts, te, now=now_arr, cls=cls
+                    )
+
+                return fn
+
+            def bgen_fn(_r=replica):
+                # plans record the shard placement generation they
+                # were decided against
+                return getattr(_r, "boundary_gen", 0)
+
+            co.set_mesh_delegate(
+                make(cls), replica.fresh, min_batch=min_batch,
+                bgen_fn=bgen_fn,
+            )
+        # one load map: coalescer-served AND replica-served traffic
+        # accumulate into the store's RangeLoad, which the replica's
+        # rebalancer plans from at fold boundaries
+        use_load = getattr(replica, "use_load", None)
+        if use_load is not None:
+            use_load(self.range_load)
 
     def close(self):
         # push first: its delivery workers are joined before the

@@ -12,86 +12,14 @@ cmds/server.py worker mode).
 
 from __future__ import annotations
 
-import json
 import logging
-import os
 import threading
 import time
-from typing import List, Optional
+from typing import Optional
 
-from dss_tpu_torch.dar import wal as _walmod
+from dss_tpu_torch.parallel.replica import _WalTail
 
 log = logging.getLogger("dss.follower")
-
-
-class _WalTail:
-    """Incremental reader of a WriteAheadLog file (JSON lines).
-    The first record is checked against the supported log format
-    (the same boot gate as WriteAheadLog.replay).  A copy of the
-    reference's `parallel/replica.py` `_WalTail`; the port's
-    `parallel/replica.py` comes with the mesh slice."""
-
-    def __init__(self, path: str):
-        self.path = path
-        self._offset = 0
-        self._checked_head = False
-
-    @property
-    def position(self) -> int:
-        """Consumed byte offset (every process tailing the same log at
-        the same offset has applied the same record prefix)."""
-        return self._offset
-
-    def at_end(self) -> bool:
-        """True when everything durably appended has been consumed —
-        the read-your-writes gate (a committed write reaches the WAL
-        before its response)."""
-        try:
-            return os.path.getsize(self.path) <= self._offset
-        except OSError:
-            return not os.path.exists(self.path)
-
-    def poll(self, limit: Optional[int] = None) -> List[dict]:
-        """`limit` stops consumption at that byte offset (a follower
-        tailing to the leader's broadcast cut, never past it)."""
-        if not os.path.exists(self.path):
-            return []
-        out = []
-        with open(self.path, "r", encoding="utf-8") as fh:
-            fh.seek(self._offset)
-            while True:
-                pos = fh.tell()
-                if limit is not None and pos >= limit:
-                    break
-                line = fh.readline()
-                if not line:
-                    break
-                if not line.endswith("\n"):
-                    # torn tail write: re-read from here next poll
-                    fh.seek(pos)
-                    break
-                line = line.strip()
-                if not line:
-                    self._offset = fh.tell()
-                    continue
-                try:
-                    rec = json.loads(line)
-                except json.JSONDecodeError:
-                    # torn write that still got a newline: stop here
-                    # and retry next poll
-                    fh.seek(pos)
-                    break
-                if not self._checked_head and pos == 0:
-                    _walmod.check_format_record(rec, self.path)
-                    self._checked_head = True
-                    # the head is log metadata, not a data record:
-                    # validated here, never surfaced to the applier
-                    if rec.get("t") == _walmod.FORMAT_RECORD_TYPE:
-                        self._offset = fh.tell()
-                        continue
-                out.append(rec)
-                self._offset = fh.tell()
-        return out
 
 
 class WalFollower:

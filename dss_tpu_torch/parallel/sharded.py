@@ -1,0 +1,529 @@
+"""Sharded DAR conflict queries over a ("dp", "sp") mesh.
+
+The port of the reference's `dss_tpu/parallel/sharded.py`, which
+replaces CRDB's range layer for the read path
+(implementation_details.md:11-42 — ranges shard the cell keyspace, any
+node proxies to the right range):
+
+  - the globally-sorted postings array is split into `sp` contiguous
+    cell-key ranges (equal postings counts, or a load-weighted
+    boundary map);
+  - each position runs the single-device candidate gather + 4D test
+    (`ops/conflict.py`) against its range and compacts its hits to a
+    fixed width;
+  - per-shard results are merged — the SQL DISTINCT across ranges;
+  - the query batch itself is split over "dp".
+
+The reference's `shard_map` is a loop over the mesh here: each dp row
+runs its sp shards grouped by device (the shards of one device stacked
+[n, Ps] and answered in one batched pass), the reference's `all_gather`
+over "sp" is a `torch.stack` on the row's first device, and its `psum`
+over "dp" a sum.  The EntityTable is replicated, one copy per distinct
+device.  Outputs are bit-identical to the reference's for every mesh
+shape and boundary split (tests/test_torch_sharded.py).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from dss_tpu_torch.dar import oracle
+from dss_tpu_torch.dar.oracle import Record
+from dss_tpu_torch.dar.pack import pack_records
+from dss_tpu_torch.ops.conflict import (
+    INT32_MAX,
+    NO_TIME_HI,
+    NO_TIME_LO,
+    EntityTable,
+    Postings,
+    QuerySpec,
+    _attr_test,
+    _bcast,
+    _candidates,
+    _compact_unique,
+    entity_table,
+    query_spec,
+)
+from dss_tpu_torch.parallel.mesh import Mesh
+
+
+def shard_postings(
+    post_key: np.ndarray,
+    post_ent: np.ndarray,
+    n_sp: int,
+    sentinel_slot: int,
+    boundaries: Optional[np.ndarray] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Split sorted postings into n_sp contiguous ranges.
+
+    Returns ([n_sp, Ps] keys, [n_sp, Ps] slots), each row sorted, padded
+    with INT32_MAX / sentinel.  Without `boundaries` the split is by
+    equal postings *count* — balanced by storage, the cold-start
+    fallback.  With `boundaries` (n_sp-1 sorted int32 DAR-key split
+    points, usually from `weighted_boundaries`) shard i takes the key
+    range [boundaries[i-1], boundaries[i]) — the load-weighted
+    placement the rebalancer publishes, applicable to ANY postings
+    array over the same key space (base and delta tiers share one
+    boundary map).  Contiguity keeps each row sorted so per-shard
+    searchsorted still works.
+    """
+    live = post_key != INT32_MAX
+    pk = np.asarray(post_key)[live]
+    pe = np.asarray(post_ent)[live]
+    n = len(pk)
+    if boundaries is None:
+        ps = max((n + n_sp - 1) // n_sp, 8)
+        lohi = [
+            (i * ps, min((i + 1) * ps, n)) if i * ps < n else (n, n)
+            for i in range(n_sp)
+        ]
+    else:
+        b = np.asarray(boundaries, np.int32)
+        if len(b) != n_sp - 1:
+            raise ValueError(
+                f"boundaries has {len(b)} split points for {n_sp} shards"
+            )
+        cuts = [0] + [int(c) for c in np.searchsorted(pk, b)] + [n]
+        lohi = [(cuts[i], cuts[i + 1]) for i in range(n_sp)]
+        ps = max(max((hi - lo) for lo, hi in lohi), 8)
+    keys = np.full((n_sp, ps), INT32_MAX, np.int32)
+    ents = np.full((n_sp, ps), sentinel_slot, np.int32)
+    for i, (lo, hi) in enumerate(lohi):
+        if hi > lo:
+            keys[i, : hi - lo] = pk[lo:hi]
+            ents[i, : hi - lo] = pe[lo:hi]
+    return keys, ents
+
+
+def weighted_boundaries(
+    post_key: np.ndarray,
+    weights: Optional[np.ndarray],
+    n_sp: int,
+    member_capacity: Optional[np.ndarray] = None,
+) -> Optional[np.ndarray]:
+    """Key-space split points equalizing predicted *query work* per
+    shard (placement driven by measured cost, not storage count).
+
+    `weights` is per-posting measured load (RangeLoad.weights_for);
+    every posting additionally carries one unit of count baseline, so
+    zero measured load (cold start) reproduces the equal-count split
+    and cold ranges still spread by storage.  Returns n_sp-1 sorted
+    int32 DAR keys, or None when there is nothing to split.  Split
+    points snap to key values (a single key's postings never straddle
+    shards), so a single cell hotter than a whole shard ends up alone
+    in its shard.  Per-shard posting counts are capped at 4x the
+    equal-count mean (the postings array is rectangular, padded to the
+    LARGEST shard; indivisible single-key runs excepted).
+
+    `member_capacity` (optional, length n_sp) weighs each shard's
+    TARGET work by its host's serving capacity: a slow host gets a
+    proportionally lighter key run.  None or a uniform vector
+    reproduces the equal-target split bit-identically.
+    """
+    pk = np.asarray(post_key, np.int32).ravel()
+    pk = pk[pk != INT32_MAX]
+    n = len(pk)
+    if n == 0 or n_sp <= 1:
+        return None
+    if member_capacity is None:
+        cap = np.ones(n_sp, np.float64)
+    else:
+        cap = np.asarray(member_capacity, np.float64).ravel()
+        if len(cap) != n_sp:
+            raise ValueError(
+                f"member_capacity has {len(cap)} entries for "
+                f"{n_sp} shards"
+            )
+        if not np.all(cap > 0):
+            raise ValueError("member_capacity entries must be > 0")
+    w = np.ones(n, np.float64)
+    if weights is not None:
+        lw = np.asarray(weights, np.float64).ravel()
+        tot = lw.sum()
+        if tot > 0:
+            # normalize measured load to the same mass as the count
+            # baseline, then let it dominate: a shard's predicted work
+            # is mostly its query load, tempered by storage so empty-
+            # load ranges still split by count
+            w += lw * (n / tot) * 8.0
+    # greedy fill at KEY-RUN granularity (a key's postings never
+    # straddle shards), re-targeting the remaining weight over the
+    # remaining shards after each cut
+    uk, starts = np.unique(pk, return_index=True)
+    run_w = np.add.reduceat(w, starts)
+    run_n = np.diff(np.append(starts, n))
+    # cap any one shard's posting COUNT at 4x the mean (a single key
+    # run larger than the cap is indivisible and allowed through)
+    count_cap = max(4 * ((n + n_sp - 1) // n_sp), 8)
+    bounds: list = []
+    rem_w = float(run_w.sum())
+    rem_sh = n_sp
+    acc = 0.0
+    acc_n = 0
+    consumed = 0  # postings in already-closed shards
+
+    def fits_after_cut(extra: int) -> bool:
+        # a cut is only legal when the postings left over still fit in
+        # the remaining shards under the cap
+        return (n - (consumed + extra)) <= (rem_sh - 1) * count_cap
+
+    def next_target() -> float:
+        # the shard being filled is bounds-index len(bounds); its
+        # target is its capacity's share of the remaining weight
+        s = len(bounds)
+        return rem_w * float(cap[s]) / float(cap[s:].sum())
+
+    for i in range(len(uk)):
+        if len(bounds) == n_sp - 1:
+            break
+        target = next_target()
+        if (
+            acc > 0
+            and (
+                (run_w[i] >= target and acc + run_w[i] > 1.5 * target)
+                or acc_n + int(run_n[i]) > count_cap
+            )
+            and fits_after_cut(acc_n)
+        ):
+            # the next run would overfill the shard (by weight, or by
+            # the count cap): cut BEFORE it so the accumulated cold
+            # mass isn't welded to the hot run
+            bounds.append(int(uk[i]))
+            consumed += acc_n
+            rem_w -= acc
+            rem_sh -= 1
+            acc = 0.0
+            acc_n = 0
+            if len(bounds) == n_sp - 1:
+                break
+            target = next_target()
+        acc += float(run_w[i])
+        acc_n += int(run_n[i])
+        if acc >= target and i + 1 < len(uk) and fits_after_cut(acc_n):
+            bounds.append(int(uk[i + 1]))
+            consumed += acc_n
+            rem_w -= acc
+            rem_sh -= 1
+            acc = 0.0
+            acc_n = 0
+    while len(bounds) < n_sp - 1:
+        # out of keys: remaining shards are empty (legal — duplicate
+        # boundaries yield zero-width ranges)
+        bounds.append(bounds[-1] if bounds else int(uk[-1]))
+    return np.asarray(bounds, np.int32)
+
+
+def shard_of_keys(
+    keys: np.ndarray, boundaries: Optional[np.ndarray], n_sp: int
+) -> np.ndarray:
+    """Shard index for each key under a boundary map (None = cannot be
+    answered without the postings array; used for move accounting and
+    predicted-load-per-shard summaries)."""
+    k = np.asarray(keys, np.int32).ravel()
+    if boundaries is None or not len(k):
+        return np.zeros(len(k), np.int32)
+    return np.searchsorted(
+        np.asarray(boundaries, np.int32), k, side="right"
+    ).astype(np.int32)
+
+
+def imbalance_factor(loads) -> float:
+    """max/mean over per-shard loads — 1.0 is perfectly balanced; the
+    rebalance trigger compares this against DSS_SHARD_REBALANCE_RATIO."""
+    arr = np.asarray(loads, np.float64).ravel()
+    if not len(arr) or arr.sum() <= 0:
+        return 1.0
+    return float(arr.max() / arr.mean())
+
+
+class ShardRows:
+    """A [n_sp, ...] host array placed on a mesh: each distinct device
+    holds, stacked, the rows (shards) its positions need — the
+    reference's P("sp", None) layout."""
+
+    def __init__(self, mesh: Mesh, arr: np.ndarray):
+        self.parts: Dict[torch.device, Tuple[List[int], torch.Tensor]] = {}
+        for dev in mesh.distinct_devices():
+            rows = sorted({
+                s for (d, s), pd in np.ndenumerate(mesh.devices) if pd == dev
+            })
+            host = np.ascontiguousarray(arr[rows])
+            self.parts[dev] = (rows, torch.from_numpy(host).to(dev))
+
+    def rows(self, dev: torch.device, shards: Sequence[int]) -> torch.Tensor:
+        held, t = self.parts[dev]
+        if list(shards) == held:
+            return t
+        idx = torch.tensor([held.index(s) for s in shards], device=dev)
+        return t.index_select(0, idx)
+
+
+def put_replicated(mesh: Mesh, packed) -> Dict[torch.device, EntityTable]:
+    """The EntityTable columns once on every distinct device (the
+    reference's P() layout)."""
+    return {dev: entity_table(packed, dev) for dev in mesh.distinct_devices()}
+
+
+def sync_devices(mesh: Mesh) -> None:
+    """Wait for this thread's queued work (the host->device copies of a
+    build) on every card of the mesh, so that a snapshot published after
+    it is complete for readers on any stream."""
+    for dev in mesh.distinct_devices():
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+
+
+def _local_query(
+    post: Postings,  # [S, Ps] rows of S shards
+    ents: EntityTable,
+    q: QuerySpec,
+    now,  # [Q] int64 per-query visibility time
+    owner,
+    *,
+    cap: int,
+    shard_results: int,
+    with_owner: bool,
+):
+    """One device's shards: candidates from each local postings range,
+    4D test, compact to shard_results.  Returns (slots [S, Q, sr],
+    n_unique [S, Q])."""
+    ent, valid = _candidates(post, ents, q.keys, cap)
+    s, nq = ent.shape[0], ent.shape[1]
+    ent = ent.reshape(s, nq, -1)
+    valid = valid.reshape(s, nq, -1)
+    hit = valid & _attr_test(
+        ents, ent, _bcast(q), now.unsqueeze(-1),
+        owner.unsqueeze(-1) if with_owner else None,
+    )
+    return _compact_unique(ent, hit, shard_results)
+
+
+def sharded_conflict_query_batch(
+    post_key: ShardRows,  # [n_sp, Ps] int32, rows sorted, pad INT32_MAX
+    post_ent: ShardRows,  # [n_sp, Ps] int32
+    ents: Dict[torch.device, EntityTable],  # replicated
+    q: QuerySpec,  # leading batch axis Q, Q % dp == 0
+    now,  # [Q] int64 per-query visibility time
+    owner=None,  # [Q] int32 when with_owner
+    *,
+    mesh: Mesh,
+    cap: int,
+    shard_results: int,
+    max_results: int,
+    with_owner: bool = False,
+):
+    """Batched sharded query.  Returns (slots [Q, max_results] padded
+    with INT32_MAX, overflowed [Q] bool, shard_hits [n_sp] int32 —
+    per-shard unique candidate hits summed over the batch, the
+    measured per-shard work the skew-aware rebalancer consumes), on the
+    mesh's first device."""
+    dp, n_sp = mesh.shape["dp"], mesh.shape["sp"]
+    nq = q.keys.shape[0]
+    if nq % dp:
+        raise ValueError(f"batch {nq} is not a multiple of dp={dp}")
+    qloc = nq // dp
+    if any(dev.type == "cuda" for dev in mesh.distinct_devices()):
+        sharded_conflict_query_batch.launches += 1
+    now = torch.as_tensor(now, dtype=torch.int64)
+    if with_owner:
+        owner = torch.as_tensor(owner, dtype=torch.int32)
+    out_dev = mesh.devices[0, 0]
+    outs, ovfs, hits = [], [], []
+    for d in range(dp):
+        rows = slice(d * qloc, (d + 1) * qloc)
+        first = mesh.devices[d, 0]
+        slots_by_shard: List[Optional[torch.Tensor]] = [None] * n_sp
+        nuni_by_shard: List[Optional[torch.Tensor]] = [None] * n_sp
+        for dev, shards in mesh.row_groups(d):
+            qq = QuerySpec(*(f[rows].to(dev) for f in q))
+            slots_s, n_uni = _local_query(
+                Postings(post_key.rows(dev, shards),
+                         post_ent.rows(dev, shards)),
+                ents[dev],
+                qq,
+                now[rows].to(dev),
+                owner[rows].to(dev) if with_owner else None,
+                cap=cap,
+                shard_results=shard_results,
+                with_owner=with_owner,
+            )
+            for j, s in enumerate(shards):
+                slots_by_shard[s] = slots_s[j].to(first)
+                nuni_by_shard[s] = n_uni[j].to(first)
+        # the reference's all_gather over "sp": [n_sp, Qloc, sr]
+        gathered = torch.stack(slots_by_shard)
+        n_uni = torch.stack(nuni_by_shard)  # [n_sp, Qloc]
+        hits.append(n_uni.sum(dim=1).to(torch.int32).to(out_dev))
+        merged = gathered.permute(1, 0, 2).reshape(qloc, -1)
+        out, n_unique = _compact_unique(
+            merged, merged != int(INT32_MAX), max_results
+        )
+        ovf = (n_uni > shard_results).any(dim=0) | (n_unique > max_results)
+        outs.append(out.to(out_dev))
+        ovfs.append(ovf.to(out_dev))
+    # the reference's psum over "dp"
+    shard_hits = torch.stack(hits).sum(dim=0, dtype=torch.int32)
+    return torch.cat(outs), torch.cat(ovfs), shard_hits
+
+
+sharded_conflict_query_batch.launches = 0  # calls on a card
+
+
+class ShardedDar:
+    """A read-only sharded snapshot of a DAR entity class.
+
+    Built from host Records (e.g. a DarTable's authoritative state or a
+    WAL replay); holds device tensors laid out for the mesh.  This is
+    the multi-device read replica — writes go through the single-device
+    DarTable / WAL and periodically refresh this snapshot, mirroring
+    the reference's CRDB-as-source-of-truth split (SURVEY.md §7).
+    """
+
+    def __init__(
+        self,
+        records: List[Record],
+        mesh: Mesh,
+        *,
+        max_results: int = 512,
+        shard_results: Optional[int] = None,
+        boundaries: Optional[np.ndarray] = None,
+    ):
+        self.mesh = mesh
+        self.n_sp = mesh.shape["sp"]
+        self.dp = mesh.shape["dp"]
+        self.max_results = max_results
+        self.shard_results = shard_results or max_results
+        self.records = {slot: r for slot, r in enumerate(records)}
+        self.overflow_fallbacks = 0  # host-scan fallbacks (observability)
+        # key-space split map this dar was built under (None = legacy
+        # equal-count); kept for move accounting across rebuilds
+        self.boundaries = (
+            None if boundaries is None
+            else np.asarray(boundaries, np.int32)
+        )
+        # measured per-shard unique-hit work, accumulated across
+        # query batches (the rebalancer's measured-imbalance input);
+        # locked — concurrent snapshot readers must not lose updates
+        self.shard_hits = np.zeros(self.n_sp, np.int64)
+        self._hits_mu = threading.Lock()
+
+        packed = pack_records(records, pad_postings=False)
+        self.cap = packed.base_cap
+        skey, sent = shard_postings(
+            packed.post_key,
+            packed.post_ent,
+            self.n_sp,
+            packed.capacity,
+            boundaries=self.boundaries,
+        )
+        # host->device bytes this snapshot materializes (refresh
+        # traffic accounting, per mesh as in the reference)
+        self.nbytes = int(
+            skey.nbytes
+            + sent.nbytes
+            + sum(
+                np.asarray(a).nbytes
+                for a in (
+                    packed.alt_lo, packed.alt_hi, packed.t_start,
+                    packed.t_end, packed.active, packed.owner,
+                )
+            )
+        )
+        self.post_key = ShardRows(mesh, skey)
+        self.post_ent = ShardRows(mesh, sent)
+        self.ents = put_replicated(mesh, packed)
+        # the copies are complete before anyone can see this dar
+        sync_devices(mesh)
+
+    def query_batch(
+        self,
+        keys_batch: np.ndarray,  # [Q, K] int32 DAR keys, pad -1
+        alt_lo: np.ndarray,  # [Q] f32
+        alt_hi: np.ndarray,
+        t_start: np.ndarray,  # [Q] i64
+        t_end: np.ndarray,
+        *,
+        now,  # int scalar or [Q] i64 per-query visibility time
+    ):
+        """Run a batch of queries; returns list-of-lists of entity slots."""
+        qn = keys_batch.shape[0]
+        now_arr = np.broadcast_to(
+            np.asarray(now, np.int64), (qn,)
+        ).copy()
+        # the reference's key-width bucket (pow2 from 16) and batch
+        # bucket (pow2 from 16, dp-aligned): equal shapes, equal pads
+        kw = 16
+        while kw < keys_batch.shape[1]:
+            kw *= 2
+        if kw != keys_batch.shape[1]:
+            keys_batch = np.concatenate(
+                [
+                    keys_batch,
+                    np.full(
+                        (qn, kw - keys_batch.shape[1]), -1, np.int32
+                    ),
+                ],
+                axis=1,
+            )
+        bucket = 16
+        while bucket < qn:
+            bucket *= 2
+        if bucket % self.dp:
+            bucket = ((bucket + self.dp - 1) // self.dp) * self.dp
+        pad = bucket - qn
+        if pad:
+            keys_batch = np.concatenate(
+                [keys_batch, np.full((pad, keys_batch.shape[1]), -1, np.int32)]
+            )
+            alt_lo = np.concatenate([alt_lo, np.full(pad, -np.inf, np.float32)])
+            alt_hi = np.concatenate([alt_hi, np.full(pad, np.inf, np.float32)])
+            t_start = np.concatenate([t_start, np.full(pad, NO_TIME_LO)])
+            t_end = np.concatenate([t_end, np.full(pad, NO_TIME_HI)])
+            now_arr = np.concatenate(
+                [now_arr, np.zeros(pad, np.int64)]
+            )
+        # pageable host tensors; each dp row's slice goes to its devices
+        spec = query_spec(keys_batch, alt_lo, alt_hi, t_start, t_end, "cpu")
+        slots, ovf, shard_hits = sharded_conflict_query_batch(
+            self.post_key,
+            self.post_ent,
+            self.ents,
+            spec,
+            torch.from_numpy(now_arr),
+            mesh=self.mesh,
+            cap=self.cap,
+            shard_results=self.shard_results,
+            max_results=self.max_results,
+        )
+        slots = slots.cpu().numpy()[:qn]
+        ovf = ovf.cpu().numpy()[:qn]
+        with self._hits_mu:
+            self.shard_hits += shard_hits.cpu().numpy().astype(np.int64)
+        out = []
+        for i in range(qn):
+            if ovf[i]:
+                # result wider than max_results: exact host fallback
+                # for this query (counted — a hot cell silently
+                # degrading to the slow path must be observable)
+                self.overflow_fallbacks += 1
+                out.append(
+                    oracle.search(
+                        self.records,
+                        keys_batch[i][keys_batch[i] >= 0],
+                        None
+                        if alt_lo[i] == -np.inf
+                        else float(alt_lo[i]),
+                        None if alt_hi[i] == np.inf else float(alt_hi[i]),
+                        None if t_start[i] == NO_TIME_LO else int(t_start[i]),
+                        None if t_end[i] == NO_TIME_HI else int(t_end[i]),
+                        int(now_arr[i]),
+                    )
+                )
+            else:
+                row = slots[i]
+                out.append([int(s) for s in row[row != INT32_MAX]])
+        return out

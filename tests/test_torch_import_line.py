@@ -10,7 +10,9 @@
   cmds, cmds.dummy_oauth, cmds.server; the native/push slice's by
   name: native, native._buildlib, push, push.queue, push.deliver,
   push.match, push.pipeline; the shm front's by name: parallel,
-  parallel.shmring, dar.shmfront, plan.shmroute), chip_smoke and
+  parallel.shmring, dar.shmfront, plan.shmroute; the mesh route's by
+  name: ops.conflict, parallel.mesh, parallel.sharded,
+  parallel.replica), chip_smoke and
   b1_device_time import in a process where `jax` and every `dss_tpu`
   module are refused.
 - Tables and stores built without device= on a machine without CUDA
@@ -42,6 +44,7 @@ from dss_tpu_torch.dar.dss_store import DSSStore
 from dss_tpu_torch.dar.index import CudaSpatialIndex
 from dss_tpu_torch.dar.snapshot import DarTable
 from dss_tpu_torch.ops.fastpath import FastTable, warmup
+from dss_tpu_torch.parallel.mesh import make_mesh
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -81,7 +84,9 @@ _PROBE = textwrap.dedent(
                 "cmds.server", "native", "native._buildlib", "push",
                 "push.queue", "push.deliver", "push.match",
                 "push.pipeline", "parallel", "parallel.shmring",
-                "dar.shmfront", "plan.shmroute"):
+                "dar.shmfront", "plan.shmroute", "ops.conflict",
+                "parallel.mesh", "parallel.sharded",
+                "parallel.replica"):
         assert "dss_tpu_torch." + mod in names, (mod, names)
     import chip_smoke  # its helpers; main() only runs as a script
     assert callable(chip_smoke.run) and callable(chip_smoke.make_batch)
@@ -119,7 +124,7 @@ def _tiny_table_args():
 
 
 @pytest.mark.parametrize("make", ["fasttable", "dartable", "index", "snapshot",
-                                  "warmup", "store"])
+                                  "warmup", "store", "mesh"])
 def test_default_device_without_a_card_raises(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args, se = _tiny_table_args()
@@ -132,6 +137,7 @@ def test_default_device_without_a_card_raises(monkeypatch, make):
         ),
         "warmup": lambda: warmup(),
         "store": lambda: DSSStore(storage="cuda"),
+        "mesh": lambda: make_mesh(2, dp=1, sp=2),
     }[make]
     with pytest.raises(RuntimeError, match="cuda"):
         build()

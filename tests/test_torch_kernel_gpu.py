@@ -11,7 +11,12 @@ re-zero the scratch, with two units in flight, captured while
 another thread serves cold batches, and captured with a collection due
 at every allocation and a dead table's units waiting.  The store: DSSStore(storage="cuda")
 with no device= puts its tables on the card, and a burst of 128 stale
-store searches reaches B1 with the answers of a memory store.
+store searches reaches B1 with the answers of a memory store.  The mesh
+route (ops/conflict.py's torch ops under parallel/sharded.py): a cuda
+ShardedDar on a virtual 2x4 mesh equals the CPU one; a replica
+refreshes in a loop while the GraphCache captures on another thread,
+with 0 capture failures; a reader on its own stream never sees a
+snapshot whose copies have not finished.
 
 Needs a CUDA card (marker `gpu`); skips elsewhere.  This file imports
 neither jax nor the reference package, so it runs on a machine that has
@@ -790,3 +795,226 @@ def test_no_collection_inside_a_capture(cuda, monkeypatch):
     plain = ff.fused_window_filter_torch(
         *kargs, max_words=resident.max_words_for(wb))
     assert torch.equal(out, plain.cpu())
+
+
+# -- the mesh route on the card -------------------------------------------------
+
+
+def _mesh_records(rng, n, n_cells, prefix="e"):
+    out = []
+    for i in range(n):
+        k0 = int(rng.integers(0, n_cells - 8))
+        alo = float(np.float32(rng.uniform(0, 3000)))
+        t0 = NOW + int(rng.integers(-4, 4)) * HOUR
+        out.append(Record(f"{prefix}{i}", np.arange(k0, k0 + 8, dtype=np.int32),
+                          alo, float(np.float32(alo + 400.0)), t0,
+                          t0 + 2 * HOUR, i % 7))
+    return out
+
+
+def _mesh_queries(rng, q, n_cells):
+    k0 = rng.integers(0, n_cells - 8, q)
+    keys = (k0[:, None] + np.arange(8)).astype(np.int32)
+    alo = rng.uniform(0, 3000, q).astype(np.float32)
+    t0 = (NOW + rng.integers(-2, 2, q) * HOUR).astype(np.int64)
+    return keys, alo, (alo + 300).astype(np.float32), t0, t0 + HOUR
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_dar_on_a_virtual_mesh_equals_cpu(cuda):
+    """A cuda ShardedDar on a virtual 2x4 mesh (eight positions on one
+    card) answers as the CPU one: slots, overflow flags, shard_hits and
+    overflow fallbacks; its tensors lie on the card; conflict_query_batch
+    and max_count_per_cell on card tensors equal their CPU answers."""
+    from dss_tpu_torch.ops import conflict as pc
+    from dss_tpu_torch.parallel import ShardedDar, make_mesh
+    from dss_tpu_torch.parallel import sharded as ps
+    from dss_tpu_torch.parallel.mesh import virtual_devices
+
+    rng = np.random.default_rng(40)
+    recs = _mesh_records(rng, 20000, 4000)
+    q = _mesh_queries(rng, 512, 4000)
+    cards = make_mesh(8, dp=2, sp=4, devices=virtual_devices(cuda, 8))
+    cpus = make_mesh(8, dp=2, sp=4, devices=virtual_devices("cpu", 8))
+    for mr, sr in ((512, None), (64, 8)):
+        a = ShardedDar(recs, cards, max_results=mr, shard_results=sr)
+        b = ShardedDar(recs, cpus, max_results=mr, shard_results=sr)
+        rows, t = a.post_key.parts[cards.devices[0, 0]]
+        assert rows == [0, 1, 2, 3] and t.is_cuda
+        spec = pc.query_spec(*q, "cpu")
+        now = torch.full((512,), NOW, dtype=torch.int64)
+        got = ps.sharded_conflict_query_batch(
+            a.post_key, a.post_ent, a.ents, spec, now, mesh=cards,
+            cap=a.cap, shard_results=a.shard_results, max_results=mr)
+        want = ps.sharded_conflict_query_batch(
+            b.post_key, b.post_ent, b.ents, spec, now, mesh=cpus,
+            cap=b.cap, shard_results=b.shard_results, max_results=mr)
+        assert got[0].is_cuda
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+        assert a.query_batch(*q, now=NOW) == b.query_batch(*q, now=NOW)
+        assert np.array_equal(a.shard_hits, b.shard_hits)
+        assert a.overflow_fallbacks == b.overflow_fallbacks
+        if sr is not None:
+            assert a.overflow_fallbacks > 0
+    packed = pack_records(recs, pad_postings=False)
+    post = [pc.Postings(torch.from_numpy(packed.post_key),
+                        torch.from_numpy(packed.post_ent))]
+    post.append(pc.Postings(post[0].post_key[:0], post[0].post_ent[:0]))
+    ents = pc.entity_table(packed, "cpu")
+    caps = dict(base_cap=packed.base_cap, delta_cap=8)
+    dev = lambda p: pc.Postings(*(t.to(cuda) for t in p))  # noqa: E731
+    cents = pc.EntityTable(*(c.to(cuda) for c in ents))
+    got = pc.conflict_query_batch(dev(post[0]), dev(post[1]), cents,
+                                  pc.query_spec(*q, cuda), NOW,
+                                  max_results=256, **caps)
+    want = pc.conflict_query_batch(post[0], post[1], ents,
+                                   pc.query_spec(*q, "cpu"), NOW,
+                                   max_results=256, **caps)
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
+    keys = torch.from_numpy(q[0][0])
+    assert int(pc.max_count_per_cell(
+        dev(post[0]), dev(post[1]), cents, keys.to(cuda), NOW, 3, **caps
+    )) == int(pc.max_count_per_cell(post[0], post[1], ents, keys, NOW, 3,
+                                    **caps))
+
+
+def _card_replica(cuda, tmp_path, recs, sp=4):
+    from dss_tpu_torch.parallel import make_mesh
+    from dss_tpu_torch.parallel.mesh import virtual_devices
+    from dss_tpu_torch.parallel.replica import ShardedReplica
+
+    wal = tmp_path / "dss.wal"
+    wal.touch()
+    rep = ShardedReplica(
+        make_mesh(sp, dp=1, sp=sp, devices=virtual_devices(cuda, sp)),
+        wal_path=str(wal), max_results=512, warm_batches=(1, 32),
+    )
+    with rep._mu:
+        rep._records["isas"] = {r.entity_id: r for r in recs}
+        rep._dirty["isas"] = True
+    rep.refresh(plan=False)
+    return rep
+
+
+@pytest.mark.gpu
+def test_replica_refreshes_while_the_graph_cache_captures(cuda, tmp_path):
+    """A replica on a virtual 1x4 card mesh folds writes in a loop
+    (delta refreshes and forced majors; old snapshots die on the
+    refresh thread) while a warm thread captures B1 graphs on its own
+    stream and a reader queries the replica: 0 capture failures, no
+    error, every answer equal to the exact host answer."""
+    import threading
+    import time
+
+    from dss_tpu_torch.ops.resident import GraphCache, ResidentKernel
+
+    rng = np.random.default_rng(41)
+    rep = _card_replica(cuda, tmp_path, _mesh_records(rng, 20000, 4000))
+    cache = GraphCache()
+    warm_ft = _table(rng, 20000, 4000, cuda)
+    errors, stop = [], threading.Event()
+    q = _mesh_queries(rng, 64, 4000)
+    keys = list(q[0])
+    published = threading.Lock()  # writes + their refresh, as one step
+
+    def refresh():
+        try:
+            for i in range(16):
+                with published:
+                    with rep._mu:
+                        for r in _mesh_records(rng, 400, 4000,
+                                               prefix=f"w{i}_"):
+                            rep._put("isas", r)
+                        for eid in list(rep._records["isas"])[:100]:
+                            rep._del("isas", eid)
+                        rep._force_major["isas"] = i % 4 == 3
+                    rep.refresh(plan=False)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    def read():
+        try:
+            while not stop.is_set():
+                with published:  # one published state per check
+                    got = rep.query_batch(keys, *q[1:], now=NOW, cls="isas")
+                    want = rep.query_batch_host(keys, *q[1:], now=NOW,
+                                                cls="isas")
+                assert got == want
+                time.sleep(0.002)  # let the writer take the lock
+        except BaseException as e:  # noqa: BLE001
+            errors.append(e)
+
+    warm = ResidentKernel(cache, autocompile=False, instances=6)
+    ths = [threading.Thread(target=refresh),
+           threading.Thread(target=lambda: warm.warm(
+               warm_ft, batch_buckets=(128, 1024, 4096),
+               window_buckets=(256, 1024, 4096, 16384)))]
+    rth = threading.Thread(target=read)
+    rth.start()
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(300)
+    stop.set()
+    rth.join(60)
+    rep.close()
+    assert not errors, errors
+    assert cache.capture_failures == 0
+    assert rep.stats()["replica_major_rebuilds"] >= 5
+    assert rep.stats()["replica_delta_refreshes"] >= 8, rep.stats()
+
+
+@pytest.mark.gpu
+def test_a_reader_never_sees_unfinished_copies(cuda, tmp_path):
+    """Each generation replaces every record (a major rebuild of about
+    1.6M postings, copied from pageable host memory); a reader on its
+    own stream queries throughout and must always see exactly one whole
+    generation's ids, never a mix or a part."""
+    import threading
+
+    rng = np.random.default_rng(42)
+    n, hot = 200_000, 64
+
+    def generation(g):
+        recs = _mesh_records(rng, n, 40_000, prefix=f"g{g}_")
+        for r in recs:
+            r.keys = r.keys + 16  # key 7 is the hot records' alone
+        for i in range(hot):  # `hot` records of generation g on key 7
+            recs[i] = Record(f"g{g}_hot{i}", np.asarray([7], np.int32),
+                             -np.inf, np.inf, NOW - HOUR, NOW + HOUR, 0)
+        return recs
+
+    rep = _card_replica(cuda, tmp_path, generation(0))
+    gens = [generation(g) for g in range(1, 7)]
+    seen, bad, stop = set(), [], threading.Event()
+    keys = [np.asarray([7], np.int32)]
+    args = (np.asarray([-np.inf], np.float32), np.asarray([np.inf], np.float32),
+            np.asarray([NOW], np.int64), np.asarray([NOW], np.int64))
+
+    def read():
+        stream = torch.cuda.Stream(cuda)
+        with torch.cuda.stream(stream):
+            while not stop.is_set():
+                ids = rep.query_batch(keys, *args, now=NOW, cls="isas")[0]
+                prefixes = {i.split("_")[0] for i in ids}
+                if len(ids) != hot or len(prefixes) != 1:
+                    bad.append((len(ids), sorted(prefixes)))
+                seen.update(prefixes)
+
+    th = threading.Thread(target=read)
+    th.start()
+    for recs in gens:
+        with rep._mu:
+            rep._records["isas"] = {r.entity_id: r for r in recs}
+            rep._base["isas"] = set()
+            rep._delta["isas"] = {}
+            rep._shadow["isas"] = set()
+            rep._dirty["isas"] = True
+        rep.refresh(plan=False)
+    stop.set()
+    th.join(60)
+    rep.close()
+    assert not bad, bad[:5]
+    assert len(seen) >= 2, seen

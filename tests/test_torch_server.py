@@ -18,6 +18,11 @@ leader reads back on a worker, a SIGKILLed worker is respawned, SIGTERM
 exits 0, `DSS_SHM_ENABLE=0` boots plain WAL-tail workers, and TLS is
 refused with workers, as the reference refuses it.
 
+`--sharded_replica 1,2 --virtual_devices 2` (the mesh route on two CPU
+positions) serves every `/aux/v1/replica/<surface>` equal to the
+store's own route once the replica has tailed the WAL; a mesh larger
+than its positions exits.
+
 The flags of later slices exit naming their slice, and `--device` left
 at its default (`cuda`) raises on a machine without a card.  Every wait
 has its own time limit.
@@ -263,9 +268,10 @@ def test_later_slice_flags_name_their_slice(monkeypatch):
         monkeypatch.delenv(flag, raising=False)
     cases = {
         "--federation_map m.json": "region",
-        "--region_url http://x": "region", "--sharded_replica 1,2": "mesh",
-        "--jax_coordinator h:1": "mesh", "--process_id 0": "mesh",
-        "--num_processes 2": "mesh", "--multihost_dryrun 2": "mesh",
+        "--region_url http://x": "region",
+        "--jax_coordinator h:1": "multihost", "--process_id 0": "multihost",
+        "--num_processes 2": "multihost",
+        "--multihost_dryrun 2": "multihost",
         "--self_tune": "tuner",
         "--autotune_profile p.json": "tuner",
     }
@@ -281,8 +287,13 @@ def test_later_slice_flags_name_their_slice(monkeypatch):
     for argv, slice_ in cases.items():
         with pytest.raises(SystemExit, match=f"the {slice_} slice"):
             p_server.refuse_later_slices(parser.parse_args(argv.split()))
+    # the single-process mesh's flags are this package's own now
+    p_server.refuse_later_slices(parser.parse_args(
+        "--sharded_replica 1,2 --virtual_devices 2 "
+        "--replica_refresh_interval 0.1 --no_shard_rebalance".split()
+    ))
     monkeypatch.setenv("DSS_JAX_COORDINATOR", "h:1")
-    with pytest.raises(SystemExit, match="the mesh slice"):
+    with pytest.raises(SystemExit, match="the multihost slice"):
         p_server.refuse_later_slices(parser.parse_args([]))
 
 
@@ -296,8 +307,8 @@ def test_the_binary_refuses_later_slices_and_a_missing_card():
     procs = {
         "tuner": _popen("dss_tpu_torch.cmds.server", "--self_tune",
                         env=env),
-        "mesh": _popen("dss_tpu_torch.cmds.server", "--sharded_replica",
-                       "1,2", env=env),
+        "multihost": _popen("dss_tpu_torch.cmds.server",
+                            "--jax_coordinator", "h:1", env=env),
         "card": _popen("dss_tpu_torch.cmds.server", "--insecure_no_auth",
                        "--addr", f"127.0.0.1:{free_port()}", env=env),
     }
@@ -310,7 +321,8 @@ def test_the_binary_refuses_later_slices_and_a_missing_card():
                 p.kill()
         out[k] = (p.returncode, p.stderr.read().decode(errors="replace"))
     assert out["tuner"][0] == 1 and "the tuner slice" in out["tuner"][1]
-    assert out["mesh"][0] == 1 and "the mesh slice" in out["mesh"][1]
+    assert out["multihost"][0] == 1
+    assert "the multihost slice" in out["multihost"][1]
     assert out["card"][0] != 0
     assert "torch.cuda.is_available() is False" in out["card"][1]
 
@@ -513,3 +525,114 @@ def test_workers_refuse_tls(tmp_path):
             p.kill()
     err = p.stderr.read().decode(errors="replace")
     assert p.returncode == 1 and "--tls_cert is single-process only" in err
+
+
+# -- the mesh route (--sharded_replica) ------------------------------------------
+
+
+def _replica_ids(base, surface, key, h, area):
+    r = requests.get(f"{base}/aux/v1/replica/{surface}",
+                     params={"area": area}, headers=h, timeout=10)
+    assert r.status_code == 200, r.text
+    return sorted(r.json()[key]), r.json()["replica"]
+
+
+def test_sharded_replica_surfaces_equal_the_store_routes(
+        certs, oauth, tmp_path):
+    """`--sharded_replica 1,2 --virtual_devices 2 --device cpu`: once
+    the replica has tailed the WAL, every replica surface answers the
+    ids its store route answers; SIGTERM exits 0."""
+    wal = tmp_path / "dss.wal"
+    port, base = _server(
+        "dss_tpu_torch.cmds.server", certs, wal, "--storage", "cuda",
+        "--device", "cpu", "--sharded_replica", "1,2",
+        "--virtual_devices", "2", "--replica_refresh_interval", "0.1",
+        env=_port_env(),
+    )
+    try:
+        _write_state(base, oauth)
+        lat = 44.1
+        area = bb.area_str(lat=lat)
+        aoi = {"area_of_interest": bb.scd_extent(lat=lat)}
+        scd1 = oauth.hdr(bb.SCD_SCOPE, sub="uss1")
+        rid2 = oauth.hdr(bb.RID_SCOPE, sub="uss2")
+
+        def post(path, h):
+            r = requests.post(base + path, json=aoi, headers=h, timeout=10)
+            assert r.status_code == 200, r.text
+            return r.json()
+
+        want = {
+            "identification_service_areas": sorted(
+                x["id"] for x in requests.get(
+                    f"{base}/v1/dss/identification_service_areas",
+                    params={"area": area}, headers=rid2, timeout=10,
+                ).json()["service_areas"]),
+            "subscriptions": sorted(
+                x["id"] for x in requests.get(
+                    f"{base}/v1/dss/subscriptions", params={"area": area},
+                    headers=rid2, timeout=10,
+                ).json()["subscriptions"]),
+            "operations": sorted(
+                x["id"] for x in post("/dss/v1/operation_references/query",
+                                      scd1)["operation_references"]),
+            "scd_subscriptions": sorted(
+                x["id"] for x in post("/dss/v1/subscriptions/query",
+                                      scd1)["subscriptions"]),
+            "constraints": sorted(
+                x["id"] for x in post("/dss/v1/constraint_references/query",
+                                      scd1)["constraint_references"]),
+        }
+        assert [len(v) for v in want.values()] == [2, 1, 2, 1, 1]
+        surfaces = {
+            "identification_service_areas": ("service_area_ids", rid2),
+            "subscriptions": ("subscription_ids", rid2),
+            "operations": ("operation_ids", scd1),
+            "scd_subscriptions": ("subscription_ids", scd1),
+            "constraints": ("constraint_ids", scd1),
+        }
+        deadline = time.monotonic() + BOOT_S
+        got = {}
+        while time.monotonic() < deadline:
+            got = {s: _replica_ids(base, s, k, h, area)[0]
+                   for s, (k, h) in surfaces.items()}
+            if got == want:
+                break
+            time.sleep(0.2)
+        assert got == want
+        # another owner sees none of the owner-scoped ids
+        assert _replica_ids(base, "subscriptions", "subscription_ids",
+                            oauth.hdr(bb.RID_SCOPE, sub="ussx"),
+                            area)[0] == []
+        _, stats = _replica_ids(base, "operations", "operation_ids", scd1,
+                                area)
+        assert stats["replica_ops_snapshot_records"] == 2
+        assert stats["dss_shard_members"] == 1
+        m = requests.get(base + "/metrics", timeout=10).text
+        assert "replica_rebuilds" in m and "dss_shard_boundary_moves" in m
+    finally:
+        rc, dt = _stop(port)
+    err = port.stderr.read().decode(errors="replace")
+    assert rc == 0 and dt < GRACE_S, (rc, dt, err[-3000:])
+    assert "sharded replica serving all entity classes on a 1x2" in err
+    assert "Traceback" not in err
+
+
+def test_sharded_replica_needs_its_positions_and_a_wal():
+    parser = p_server.make_parser()
+    for argv, msg in (
+        ("--sharded_replica 1,4 --virtual_devices 2", "needs 4 devices, "
+         "have 2"),
+        ("--sharded_replica 1,2", "needs 2 devices, have 1"),
+        ("--sharded_replica 2", "must be 'dp,sp'"),
+    ):
+        args = parser.parse_args(
+            f"{argv} --device cpu --wal_path /nonexistent/dss.wal".split())
+        with pytest.raises(SystemExit, match=msg):
+            p_server.make_replica(args, None, None)
+    args = parser.parse_args("--sharded_replica 1,2 --device cpu".split())
+    with pytest.raises(SystemExit, match="needs --wal_path"):
+        p_server.make_replica(args, None, None)
+    assert p_server.make_replica(parser.parse_args([]), None, None) is None
+    assert len(p_server.mesh_devices(parser.parse_args(
+        "--device cpu --virtual_devices 3".split()))) == 3

@@ -462,10 +462,20 @@ def test_later_slices_raise():
         for name, args in (
             ("attach_federation", (None,)),
             ("attach_tuner", (None,)),
-            ("attach_mesh_replica", (None,)),
         ):
             with pytest.raises(NotImplementedError, match="slice"):
                 getattr(s, name)(*args)
+        # the mesh slice is ported: a memory store has no coalescer to
+        # take a delegate, and the replica adopts the store's load map
+        # (tests/test_torch_replica.py drives a cuda store's offload)
+        adopted = []
+
+        class Replica:
+            def use_load(self, load):
+                adopted.append(load)
+
+        s.attach_mesh_replica(Replica())
+        assert adopted == [s.range_load]
     finally:
         s.close()
 
