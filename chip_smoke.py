@@ -45,7 +45,7 @@ Phases (any failure exits non-zero; nothing is caught):
      then the reference's bulk stale drain (bench.py:1157-1186), 16
      bursts of 128 bounded-staleness callers, every answer held against
      the twin, one `bulk_burst` line;
-  8. the store: a WAL of 300k SCD operational intents (8 contiguous
+  8. the store: a WAL of 200k SCD operational intents (8 contiguous
      level-13 cells each, 10-600 m bands, 1-5 h windows), the RID poll
      recipe's 4,000 ISAs over 512 areas, and a few hundred RID
      subscriptions, SCD subscriptions and constraints, written with
@@ -119,7 +119,28 @@ Phases (any failure exits non-zero; nothing is caught):
      /aux/v1/replica/<surface> against its store route once synced, 8
      ops and three subscriptions written and read back, SIGTERM exit 0;
      the `mesh` line;
- 13. the device time of each kernel by device kernel name, the kernels
+ 13. the DSS Region (region/, cmds/region_server, the store's region
+     mode), after the mesh server, on the http phase's 54,800 records:
+     a region log seeded offline through the port's RegionLog (one
+     entry a record, the snapshot 800 entries before the head); the
+     port's region_server as a primary with two --mirror_of mirrors at
+     --quorum 2 and a shared token (tests/e2e/test_failover.py:69);
+     two server processes with --region_url <primary>,<mirror>,<mirror>
+     (deploy/k8s/dss.yaml's two replicas) and an in-process
+     DSSStore(storage="cuda", region_url=...) booting at once from
+     snapshot + tail; a write on A read on B, a conflicting op refused
+     across instances, concurrent writers converging; 200 writes on A
+     each polled on B (write-to-visible p50/p99); 256 op queries per
+     instance against the oracle and the in-process store's 8 x 128
+     bulk stale drains (B1 from zero); a fenced append and a forced
+     resync while a graph warm captures (0 capture failures); the
+     snapshot's serialisation and upload; a SIGKILL of the primary
+     with writers running, `region_server --promote` of the most
+     caught-up mirror, every acknowledged write read back on A and B;
+     a late joiner from snapshot + tail; nvidia-smi's compute apps (A,
+     B, the joiner and the smoke; no region server); SIGTERM of every
+     process, exit 0; the `region` line;
+ 14. the device time of each kernel by device kernel name, the kernels
      line (four kernels; B1's entry with its graph replays and its
      store-phase counts), with each kernel's count of comparisons made
      and of those that disagreed; then the ok line, or exit 1 if any
@@ -131,8 +152,10 @@ Phases (any failure exits non-zero; nothing is caught):
      in the store phase or through the services, a graph capture that
      failed, any error, non-2xx answer or unclean exit of the server or
      of the shm front, a mesh torch op that never ran on the card, a
-     B1 launch on the mesh route, no mesh offload in the drains, or no
-     boundary move at the hottest Zipf alpha).
+     B1 launch on the mesh route, no mesh offload in the drains, no
+     boundary move at the hottest Zipf alpha, or in the region phase a
+     lost acknowledged write, no B1 launch on the region store, a
+     capture failure, an instance off the card or an unclean exit).
 Times: `ms` is a kernel's device time per wrapper call with the L2
 flushed (a real batch finds its blocks cold): the kernels, memsets and
 copies that 30 calls launched, summed from torch.profiler, over 30;
@@ -211,8 +234,9 @@ SERVING_SAMPLE = 4096  # answers per leg held against the CPU twin
 # (BASELINE.json): the boot and the reboot replay one record at a time
 # on the host, at 1,800-2,800 records/s on the H100's hosts, and at 1M
 # the whole smoke took 1,471 s, past its 1,200 s limit; at 500k it took
-# 923 s once the native and push phases came (PERF.md §4).
-STORE_OPS = 300_000
+# 923 s once the native and push phases came, at 300k up to 890 s once
+# the mesh came, so the region phase's room comes from here (PERF.md §4).
+STORE_OPS = 200_000
 STORE_SUBS = 300  # SCD subscriptions; as many RID subscriptions
 STORE_CSTS = 200
 POLL_ISAS, POLL_AREAS, POLL_CELLS = 4000, 512, 64
@@ -223,7 +247,7 @@ STORE_WRITES = 1200
 REBOOT_SAMPLE = 256  # searches compared between the live and rebooted store
 # the services over the store phase's store, and the server binary as
 # a process booted from a WAL of HTTP_OPS intents (cut from the store's
-# 300k so that both phases stay within 120 s)
+# size so that both phases stay within 120 s; the region phase's state)
 SVC_SAMPLE = 256  # ISA searches, and as many op queries, per phase
 HTTP_OPS = 50_000  # the HTTP server's WAL: ops besides the poll ISAs
 HTTP_SEARCHES = 256
@@ -1637,6 +1661,29 @@ def write_store_wal(path, cols, now=NOW) -> dict:
                     uss_base_url="https://authority.example", cells=c))})
     wal.close()
     return {"rid_recs": rid_recs, "areas": areas, "window": (w0, w1)}
+
+
+def seed_region_log(log_cls, path, entries, snapshot_at, state) -> None:
+    """A region log written offline through `log_cls` (a RegionLog of
+    either package; the smoke passes the port's): one lease append per
+    entry (an entry is one transaction's records), the state snapshot
+    `state` put at entry index `snapshot_at` (the log compacts below
+    it, as a live region's does after an instance's upload), then a
+    clean shutdown, so the region server that boots from it keeps its
+    epoch."""
+    log = log_cls(path)
+    try:
+        for k, recs in enumerate(entries):
+            token = log.acquire("seed", 60.0)
+            if log.append(token, list(recs)) is None:
+                raise RuntimeError(f"seed append {k} fenced")
+            if k + 1 == snapshot_at:
+                plan = log.put_snapshot(snapshot_at, state)
+                if plan is None:
+                    raise RuntimeError("seed snapshot refused")
+                log.finish_compact(log.begin_compact(plan))
+    finally:
+        log.close()
 
 
 STORE_CLASSES = ("isa", "rid_sub", "op", "scd_sub", "constraint")
@@ -3135,7 +3182,7 @@ def shm_front_phase(smi, state, workers0) -> tuple:
 def replay_profile(wal, n_records, dev, smi) -> dict:
     """An in-process boot of DSSStore(storage="cuda") from `wal` under
     cProfile: the boot's seconds and the top 12 functions by cumulative
-    time, for the replay that cuts the store phase to 300k.  -> the
+    time, for the replay that cuts the store phase to 200k.  -> the
     `store_replay_profile` line."""
     import cProfile
     import os
@@ -4410,6 +4457,737 @@ def mesh_server(smi, state) -> tuple:
     return line, failures
 
 
+# -- the DSS Region (region/, cmds/region_server, the store's region mode) --
+
+REGION_TAIL = 800  # entries of the seeded log after its snapshot
+REGION_WRITES = 200  # writes on A, each polled on B (write-to-visible)
+REGION_QUERIES = 256  # op queries per instance against the oracle
+REGION_CONCURRENT = 4  # writer threads per instance, 4 writes each
+REGION_KILL_WRITERS = 2  # writer threads per instance across the SIGKILL
+REGION_WRITE_PAUSE_S = 0.1  # between one writer's writes across the kill
+REGION_POLL_S = 0.05  # --region_poll_interval (the server's default)
+REGION_DEADLINE_S = 60.0  # any one wait of the phase
+REGION_DEVICE = "cuda"  # the instances' --device and the store's device
+REGION_TALLY = Tally("region")  # every answer and acknowledged write
+
+
+def region_records(wal) -> list:
+    """The http phase's WAL records (the format record left out)."""
+    from dss_tpu_torch.dar.wal import FORMAT_RECORD_TYPE, WriteAheadLog
+
+    log_ = WriteAheadLog(wal)
+    try:
+        return [r for r in log_.replay() if r.get("t") != FORMAT_RECORD_TYPE]
+    finally:
+        log_.close()
+
+
+def region_state(records) -> dict:
+    """The store's snapshot form (DSSStore's rid/scd serialize_state) of
+    a sequence of put records with distinct ids."""
+    state = {"rid": {"isas": [], "subs": []},
+             "scd": {"ops": [], "subs": [], "constraints": []}}
+    where = {"isa_put": ("rid", "isas"), "rid_sub_put": ("rid", "subs"),
+             "scd_op_put": ("scd", "ops"), "scd_sub_put": ("scd", "subs"),
+             "scd_cst_put": ("scd", "constraints")}
+    for rec in records:
+        a, b = where[rec["t"]]
+        state[a][b].append(rec["doc"])
+    return state
+
+
+def isa_body(poly, w0, w1) -> dict:
+    from dss_tpu_torch.services import serialization as ser
+
+    return {"extents": {
+        "spatial_volume": {"footprint": {"vertices": [
+            {"lat": a, "lng": b} for a, b in poly]},
+            "altitude_lo": 0.0, "altitude_hi": 120.0},
+        "time_start": ser.format_time(w0), "time_end": ser.format_time(w1)},
+        "flights_url": "https://uss.example/f"}
+
+
+class RegionProc:
+    """One process of the region phase: its command, log file and base
+    URL."""
+
+    def __init__(self, name, argv, port, work, root):
+        import os
+
+        self.name, self.port = name, port
+        self.base = f"http://127.0.0.1:{port}"
+        self.log_path = os.path.join(work, f"{name}.log")
+        self._f = open(self.log_path, "wb")
+        self.t0 = time.perf_counter()
+        self.p = subprocess.Popen([sys.executable, "-m", *argv], cwd=root,
+                                  stdout=subprocess.DEVNULL, stderr=self._f)
+        self.healthy_s = None
+        self.rc = None
+
+    def wait_healthy(self, limit=REGION_DEADLINE_S * 2) -> float:
+        import urllib.request
+
+        while True:
+            if self.p.poll() is not None:
+                raise RuntimeError(f"{self.name} exited at boot: rc "
+                                   f"{self.p.returncode}: {self.tail()}")
+            if time.perf_counter() - self.t0 > limit:
+                raise RuntimeError(f"{self.name} never became healthy")
+            try:
+                with urllib.request.urlopen(self.base + "/healthy",
+                                            timeout=1) as r:
+                    if r.status == 200:
+                        self.healthy_s = time.perf_counter() - self.t0
+                        return self.healthy_s
+            except OSError:
+                pass
+            time.sleep(0.05)
+
+    def tail(self, n=2000) -> str:
+        if not self._f.closed:
+            self._f.flush()
+        with open(self.log_path, "rb") as f:
+            return f.read()[-n:].decode(errors="replace")
+
+    def stop(self, sig=None, grace=HTTP_GRACE_S):
+        """SIGTERM (or `sig`) -> its exit code (None: killed past the
+        grace)."""
+        import signal
+
+        if self.p.poll() is None:
+            self.p.send_signal(sig or signal.SIGTERM)
+            try:
+                self.rc = self.p.wait(timeout=grace)
+            except subprocess.TimeoutExpired:
+                self.p.kill()
+                self.p.wait(30)
+                self.rc = None
+        else:
+            self.rc = self.p.returncode
+        self._f.close()
+        return self.rc
+
+
+def card_used_mib():
+    """nvidia-smi's memory.used of card 0 in MiB (None if unreadable):
+    the processes' sum, since this machine's nvidia-smi lists no
+    per-process pids of this pid namespace."""
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True).stdout.strip()
+    try:
+        return float(out)
+    except ValueError:
+        return None
+
+
+def warm_end(proc, limit=REGION_DEADLINE_S * 4) -> dict:
+    """Wait for a server process's boot warm to end (its log line) ->
+    the line's message."""
+    t = time.perf_counter()
+    while True:
+        with open(proc.log_path, "rb") as f:
+            warm = [json.loads(x) for x in f.read().splitlines()
+                    if b"resident graph warm" in x
+                    or b"resident warm failed" in x]
+        if warm:
+            return warm[0]["msg"]
+        if time.perf_counter() - t > limit:
+            raise RuntimeError(f"{proc.name}: the boot warm never ended")
+        time.sleep(0.1)
+
+
+def region_phase(smi, state) -> tuple:
+    """The DSS Region on the card.  The http phase's WAL (its 54,800
+    records) becomes a region log, seeded offline through the port's
+    RegionLog: one entry per record, a snapshot put REGION_TAIL entries
+    before the head.  Then, as tests/e2e/test_failover.py:69 runs it:
+    the port's region_server as a primary with two --mirror_of mirrors
+    at --quorum 2 (mirrors too carry --quorum 2), the shared secret
+    from a token file; two server processes (A, B: `--storage cuda
+    --enable_scd --region_url <primary>,<mirror1>,<mirror2>`, as
+    deploy/k8s/dss.yaml's two replicas) and one in-process
+    DSSStore(storage="cuda", region_url=...) booting at once (snapshot
+    + tail, each one's time to /healthy); cross-instance checks over
+    HTTP (a write on A read on B, a conflicting op refused across
+    instances, concurrent writers converging to equal ids, versions and
+    OVNs); write-to-visible staleness of REGION_WRITES writes on A
+    polled on B; REGION_QUERIES op queries on each instance against the
+    oracle, and the in-process store's bulk stale drain (B1 from zero);
+    a fenced append and a forced resync while a graph warm captures;
+    the snapshot's serialisation and upload, timed; a SIGKILL of the
+    primary with writers running, the most caught-up mirror promoted
+    with `region_server --promote`, the other repointed, every
+    acknowledged write read back on A and B; a late joiner booting from
+    snapshot + tail; the card's compute apps; SIGTERM of every process.
+    -> (the `region` line, failures, B1's counts in the phase)."""
+    import os
+    import shutil
+    import signal
+    import uuid
+    from datetime import timedelta
+
+    from dss_tpu_torch import errors
+    from dss_tpu_torch.clock import from_nanos
+    from dss_tpu_torch.dar.dss_store import DSSStore
+    from dss_tpu_torch.models import rid as ridm
+    from dss_tpu_torch.ops import resident
+    from dss_tpu_torch.region.client import RegionError
+    from dss_tpu_torch.region.log_server import RegionLog, epoch_gen
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(state["work"], "region")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    line = {"card": smi}
+    failures = []
+
+    def fail(msg):
+        failures.append(f"region: {msg}")
+
+    # -- 0. the region log, seeded offline -------------------------------
+    t = time.perf_counter()
+    recs = region_records(state["wal"])
+    snap_at = len(recs) - REGION_TAIL
+    region_wal = os.path.join(work, "primary.wal")
+    seed_region_log(RegionLog, region_wal, [[r] for r in recs], snap_at,
+                    region_state(recs[:snap_at]))
+    line["seed"] = {"records": len(recs), "entries": len(recs),
+                    "snapshot_index": snap_at, "seconds":
+                    time.perf_counter() - t, "mib":
+                    os.path.getsize(region_wal) / 2**20}
+    token = uuid.uuid4().hex
+    token_file = os.path.join(work, "region.token")
+    with open(token_file, "w") as f:
+        f.write(token)
+    auth = {"Authorization": f"Bearer {token}"}
+
+    def region_json(base, method, path, body=None, timeout=30.0):
+        import urllib.error
+        import urllib.request
+
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(
+            base + path, data=data, method=method,
+            headers={"Content-Type": "application/json", **auth})
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as r:
+                return r.status, json.loads(r.read() or b"null")
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read() or b"null")
+
+    procs = {}
+    store = None
+    writers_stop = threading.Event()
+    on_card = torch.cuda.is_available()
+    used0 = card_used_mib()
+    reserved0 = torch.cuda.memory_reserved() if on_card else 0
+    try:
+        # -- 1. the primary and its two mirrors ----------------------------
+        ports = [free_port() for _ in range(3)]
+        urls = [f"http://127.0.0.1:{p}" for p in ports]
+        for k, (name, port) in enumerate(zip(("primary", "mirror1",
+                                              "mirror2"), ports)):
+            argv = ["dss_tpu_torch.cmds.region_server",
+                    "--addr", f"127.0.0.1:{port}",
+                    "--wal_path", os.path.join(work, f"{name}.wal"),
+                    "--token_file", token_file, "--quorum", "2",
+                    "--advertise_url", urls[k]]
+            if k:
+                argv += ["--mirror_of", urls[0]]
+            procs[name] = RegionProc(name, argv, port, work, root)
+        for name in ("primary", "mirror1", "mirror2"):
+            procs[name].wait_healthy()
+        line["log_servers_healthy_s"] = {
+            n: procs[n].healthy_s for n in ("primary", "mirror1", "mirror2")}
+
+        def heads():
+            return {n: region_json(procs[n].base, "GET", "/status")[1]
+                    for n in ("primary", "mirror1", "mirror2")
+                    if procs[n].p.poll() is None}
+
+        # -- 2-3. two server processes and the in-process store ------------
+        region_url = ",".join(urls)
+        for name in ("A", "B"):
+            port = free_port()
+            procs[name] = RegionProc(name, [
+                "dss_tpu_torch.cmds.server", "--addr", f"127.0.0.1:{port}",
+                "--enable_scd", "--storage", "cuda", "--device",
+                REGION_DEVICE, "--insecure_no_auth", "--region_url",
+                region_url, "--region_token_file", token_file,
+                "--region_poll_interval", str(REGION_POLL_S),
+                "--instance_id", f"dss-{name.lower()}",
+                "--shutdown_grace", str(HTTP_GRACE_S)], port, work, root)
+        dev = torch.device(REGION_DEVICE)
+        t = time.perf_counter()
+        store = DSSStore(storage="cuda", device=dev, region_url=region_url,
+                         region_token=token,
+                         region_poll_interval_s=REGION_POLL_S,
+                         instance_id="dss-smoke")
+        store_boot_s = time.perf_counter() - t
+        coord = store.region
+        for name in ("A", "B"):
+            procs[name].wait_healthy()
+        A, B = procs["A"].base, procs["B"].base
+        n_state = len(recs)
+        line["boot"] = {
+            "records": n_state, "snapshot_records": snap_at,
+            "tail_entries": REGION_TAIL,
+            "A_healthy_s": procs["A"].healthy_s,
+            "B_healthy_s": procs["B"].healthy_s,
+            "store_s": store_boot_s,
+            "store_records_per_s": n_state / store_boot_s,
+            "store_applied": coord.applied,
+            "classes": store_counts(store),
+        }
+        if coord.applied != len(recs):
+            fail(f"store booted at entry {coord.applied}, log head "
+                 f"{len(recs)}")
+        for name, st in heads().items():
+            line.setdefault("log_status_at_boot", {})[name] = {
+                k: st[k] for k in ("role", "head", "base", "epoch")}
+
+        def ok(status_body, what, want=200):
+            status, body = status_body
+            if status != want:
+                raise RuntimeError(f"{what}: HTTP {status} {body}")
+            return body
+
+        def until(fn, what, limit=REGION_DEADLINE_S):
+            t = time.perf_counter()
+            while True:
+                v = fn()
+                if v is not None:
+                    return v, time.perf_counter() - t
+                if time.perf_counter() - t > limit:
+                    raise RuntimeError(f"{what}: not within {limit} s")
+                time.sleep(0.005)
+
+        now = time.time_ns()
+        w0 = from_nanos(now + 10 * 60 * 10**9)
+        w1 = from_nanos(now + HOUR)
+        isa_path = "/v1/dss/identification_service_areas/"
+
+        def put_isa(base, k):
+            isa_id = str(uuid.uuid4())
+            st, body = http_json(base, "PUT", isa_path + isa_id, isa_body(
+                svc_square(2 * (k % (N_CELLS // 2)) + 1), w0, w1), 60.0)
+            return isa_id, st, body
+
+        def read_isa(base, isa_id):
+            st, body = http_json(base, "GET", isa_path + isa_id)
+            return body["service_area"] if st == 200 else None
+
+        # -- 4. cross-instance checks over HTTP ----------------------------
+        cross = {}
+        isa_id, st, body = put_isa(A, 11)
+        ok((st, body), "ISA PUT on A")
+        got, cross["a_to_b_visible_s"] = until(
+            lambda: read_isa(B, isa_id), "A's ISA on B")
+        REGION_TALLY.check(got == body["service_area"],
+                           "A's ISA read on B != A's answer")
+        # an op on B, then A's overlapping op without B's OVN (off the
+        # metro region's keys, where the WAL's intents would conflict)
+        aoi = scd_volume(svc_square(N_CELLS + 50_001), 0.0, 3000.0,
+                         now + HOUR // 3, now + HOUR)
+        op_b, op_a = str(uuid.uuid4()), str(uuid.uuid4())
+        op_body = {"extents": [aoi], "uss_base_url": "https://uss.example",
+                   "new_subscription": {"uss_base_url":
+                                        "https://uss.example"},
+                   "state": "Accepted", "old_version": 0, "key": []}
+        put_b = ok(http_json(B, "PUT", f"/dss/v1/operation_references/"
+                             f"{op_b}", op_body), "op PUT on B")
+        ovn_b = put_b["operation_reference"]["ovn"]
+        until(lambda: http_json(A, "GET", f"/dss/v1/operation_references/"
+                                f"{op_b}")[0] == 200 or None, "B's op on A")
+        st, conflict = http_json(A, "PUT", f"/dss/v1/operation_references/"
+                                 f"{op_a}", op_body)
+        cross["conflict_status"] = st
+        cross["conflict_names_b"] = any(
+            c.get("operation_reference", {}).get("id") == op_b
+            for c in (conflict or {}).get("entity_conflicts", []))
+        REGION_TALLY.check(st == 409 and cross["conflict_names_b"],
+                           f"A's op without B's OVN: HTTP {st}")
+        ok(http_json(A, "PUT", f"/dss/v1/operation_references/{op_a}",
+                     dict(op_body, key=[ovn_b])), "op PUT on A with key")
+        # concurrent writers on both instances converge
+        made, errs = [], []
+
+        def writer(base, k0):
+            for j in range(4):
+                i, st, body = put_isa(base, k0 + j)
+                if st == 200:
+                    made.append(i)
+                else:
+                    errs.append((base, st, body))
+
+        ths = [threading.Thread(target=writer, args=(b, 100 * (i + 1)))
+               for i, b in enumerate([A, B] * REGION_CONCURRENT)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(120)
+        if errs:
+            fail(f"concurrent writers: {errs[:3]}")
+        for i in made + [isa_id]:
+            a, _ = until(lambda i=i: read_isa(A, i), "converged on A")
+            b, _ = until(lambda i=i: read_isa(B, i), "converged on B")
+            REGION_TALLY.check(a == b, f"ISA {i}: A != B")
+        for op_id in (op_a, op_b):
+            a = ok(http_json(A, "GET", f"/dss/v1/operation_references/"
+                             f"{op_id}"), "op GET on A")
+            b, _ = until(lambda op_id=op_id: (lambda r: r[1] if r[0] == 200
+                                              else None)(http_json(
+                B, "GET", f"/dss/v1/operation_references/{op_id}")),
+                "op on B")
+            REGION_TALLY.check(a == b, f"op {op_id}: A != B (OVN, version)")
+        for op_id in (op_a, op_b):  # the oracle below holds the WAL's ops
+            ok(http_json(A, "DELETE", f"/dss/v1/operation_references/"
+                         f"{op_id}"), "op DELETE")
+        cross["concurrent_writes"] = len(made)
+        line["cross"] = cross
+
+        # -- 5. write-to-visible staleness, A -> B -------------------------
+        vis = []
+        t = time.perf_counter()
+        for k in range(REGION_WRITES):
+            i, st, body = put_isa(A, 1000 + k)
+            ok((st, body), "staleness ISA PUT on A")
+            t_ack = time.perf_counter()
+            until(lambda i=i: read_isa(B, i), "staleness read on B")
+            vis.append(time.perf_counter() - t_ack)
+        line["staleness"] = {"writes": REGION_WRITES, "poll_s":
+                             REGION_POLL_S, "seconds":
+                             time.perf_counter() - t, **lat_ms(vis)}
+
+        # -- 6. op queries against the oracle, and the store's drain -------
+        orc = StoreOracle(state["cols"], time.time_ns())
+        aois = svc_aois(73, REGION_QUERIES, state["now"] + HOUR // 2)
+        mism = {}
+        for name, base in (("A", A), ("B", B)):
+            mism[name] = 0
+            for params, args in aois:
+                got = ok(http_json(base, "POST",
+                                   "/dss/v1/operation_references/query",
+                                   params), f"op query on {name}")
+                good = sorted(o["id"] for o in got[
+                    "operation_references"]) == orc.ids(*args)
+                mism[name] += not good
+                REGION_TALLY.check(good, f"op query on {name} != oracle")
+        shift = state["now"] + HOUR // 2 - NOW
+        ff.fused_window_filter.launches = 0
+        ff.fused_window_filter.graph_replays = 0
+        store.configure_serving(min_batch=BURST_MIN_BATCH)
+        bursts = []
+        for k in range(STORE_BURSTS):
+            q = list(make_batch(95_000 + k, BURST_CALLERS, N_CELLS, WIDTH))
+            q[3], q[4] = q[3] + shift, q[4] + shift
+            bursts.append([(tuple(q), i) for i in range(BURST_CALLERS)])
+        drains = drain_bursts(
+            store, bursts,
+            lambda it: [x[0] for x in op_query(store, *it, allow_stale=True)],
+            lambda it: orc.ids(*(col[it[1]] for col in it[0])), "region")
+        launches = ff.fused_window_filter.launches
+        replays = ff.fused_window_filter.graph_replays
+        line["queries"] = {"per_instance": REGION_QUERIES,
+                           "mismatches": mism, "store_drains": drains,
+                           "b1_launches": launches,
+                           "b1_graph_replays": replays}
+        if drains["client_errors"]:
+            fail(f"store drains: {drains['client_errors']}")
+        if launches <= 0:
+            fail("B1 never launched on the region store")
+
+        # -- 7. a fenced append and a forced resync while a warm captures ---
+        cache = resident.graph_cache()
+        fails0, size0 = cache.capture_failures, cache.size()
+        store.configure_serving(resident=True, slo_ms=SLO_MS)
+        built = []
+        warm_th = threading.Thread(
+            target=lambda: built.append(store.warm_resident()))
+        st0 = store.stats()
+        warm_th.start()
+        until(lambda: (cache.size() > size0 or not warm_th.is_alive())
+              or None, "the warm's first capture")
+        real_append = coord._client.append
+        fenced = {"n": 0}
+
+        def flaky_append(token, records, **kw):
+            fenced["n"] += 1
+            if fenced["n"] == 1:
+                raise RegionError("smoke: lease fenced")
+            return real_append(token, records, **kw)
+
+        coord._optimistic = False
+        coord._client.append = flaky_append
+        fenced_id = str(uuid.uuid4())
+        probe = ridm.IdentificationServiceArea(
+            id=fenced_id, owner="smoke", url="https://uss.example/f",
+            cells=s2cell.dar_key_to_cell(np.arange(3, 9, 2, dtype=np.int64)),
+            start_time=w0, end_time=w1, altitude_lo=0.0, altitude_hi=100.0)
+        try:
+            store.rid.insert_isa(probe)
+            fail("the fenced append was acknowledged")
+        except errors.StatusError as e:
+            fenced["status"] = e.http_status
+        finally:
+            coord._client.append = real_append
+            coord._optimistic = True
+        if store.rid.get_isa(fenced_id) is not None:
+            fail("the fenced append's ISA stayed in local state")
+        t = time.perf_counter()
+        with store._lock:
+            coord._resync_locked()
+        resync_s = time.perf_counter() - t
+        warm_alive_at_resync_end = warm_th.is_alive()
+        warm_th.join(600)
+        t = time.perf_counter()
+        rewarm = store.warm_resident()
+        st1 = store.stats()
+        line["resync"] = {
+            "seconds": resync_s, "records": n_state,
+            "records_per_s": n_state / resync_s,
+            "fenced_append_status": fenced.get("status"),
+            "rollbacks": st1["region_rollbacks"] - st0["region_rollbacks"],
+            "resyncs": st1["region_resyncs"] - st0["region_resyncs"],
+            "warm_entries": built[0] if built else None,
+            "warm_running_through_resync": warm_alive_at_resync_end,
+            "rewarm_entries": rewarm, "rewarm_s": time.perf_counter() - t,
+            "capture_failures": cache.capture_failures - fails0,
+        }
+        if line["resync"]["capture_failures"]:
+            fail(f"{line['resync']['capture_failures']} capture failures "
+                 "across the forced resync")
+        if line["resync"]["rollbacks"] < 1 or line["resync"]["resyncs"] < 1:
+            fail(f"no rollback or resync: {line['resync']}")
+
+        # -- the snapshot, serialised and uploaded as the poller does ------
+        with store._lock:
+            idx = coord.applied
+            refs = (store.rid.snapshot_refs(), store.scd.snapshot_refs())
+        t = time.perf_counter()
+        snap = {"rid": type(store.rid).serialize_refs(refs[0]),
+                "scd": type(store.scd).serialize_refs(refs[1])}
+        state_json = json.dumps(snap, separators=(",", ":"))
+        ser_s = time.perf_counter() - t
+        t = time.perf_counter()
+        accepted = store._region_client.put_snapshot(idx,
+                                                     state_json=state_json)
+        line["snapshot_upload"] = {
+            "index": idx, "mib": len(state_json) / 2**20,
+            "serialize_s": ser_s, "upload_s": time.perf_counter() - t,
+            "accepted": accepted}
+
+        # -- the card's memory once A's and B's boot warms ended ----------
+        warms = {n: warm_end(procs[n]) for n in ("A", "B")}
+        used1 = card_used_mib()
+        smoke_mib = ((torch.cuda.memory_reserved() - reserved0) / 2**20
+                     if on_card else 0.0)
+        line["card_memory"] = {
+            "used_mib_at_start": used0, "used_mib_with_a_b": used1,
+            "smoke_store_reserved_mib": smoke_mib,
+            "a_and_b_mib": (None if None in (used0, used1)
+                            else used1 - used0 - smoke_mib),
+            "warm_logs": warms}
+        if any("failed" in m for m in warms.values()):
+            fail(f"boot warm: {warms}")
+
+        # -- 8. SIGKILL of the primary mid-writes, then --promote ----------
+        acked, refused = [], []
+
+        def kill_writer(name, base, k0):
+            k = k0
+            while not writers_stop.is_set():
+                i, st, body = put_isa(base, k)
+                k += 1
+                if st == 200:
+                    acked.append((name, i, time.perf_counter()))
+                else:
+                    refused.append((name, st, time.perf_counter()))
+                time.sleep(REGION_WRITE_PAUSE_S)
+
+        wths = [threading.Thread(target=kill_writer,
+                                 args=(n, b, 5000 + 1000 * j))
+                for j, (n, b) in enumerate(
+                    [("A", A), ("B", B)] * REGION_KILL_WRITERS)]
+        for th in wths:
+            th.start()
+        until(lambda: len(acked) >= 20 or None, "writes before the kill")
+        gen0 = epoch_gen(heads()["primary"]["epoch"])
+        t_kill = time.perf_counter()
+        procs["primary"].stop(signal.SIGKILL)
+        n_before = len(acked)
+        # the most caught-up mirror, once the mirrors' heads settle
+        time.sleep(0.5)
+        hs = {n: s["head"] for n, s in heads().items()}
+        best = max(("mirror1", "mirror2"), key=lambda n: hs[n])
+        other = "mirror2" if best == "mirror1" else "mirror1"
+        promote = subprocess.run(
+            [sys.executable, "-m", "dss_tpu_torch.cmds.region_server",
+             "--promote", "--addr", f"127.0.0.1:{procs[best].port}",
+             "--token_file", token_file],
+            cwd=root, capture_output=True, text=True, timeout=60)
+        promoted = json.loads(promote.stdout.strip().splitlines()[-1])
+        t_promoted = time.perf_counter()
+        ok(region_json(procs[other].base, "POST", "/repoint",
+                       {"primary": urls[ports.index(procs[best].port)]}),
+           "repoint")
+
+        def first_after(name):
+            after = [t for n, _, t in acked if n == name and t > t_promoted]
+            return min(after) if after else None
+
+        until(lambda: (first_after("A") and first_after("B")) or None,
+              "a write on each instance after the promotion", limit=120)
+        writers_stop.set()
+        for th in wths:
+            th.join(120)
+        gen1 = epoch_gen(heads()[best]["epoch"])
+
+        def missing(base, ids, wait_s):
+            """The ids of `ids` that `base` does not serve within wait_s."""
+            from concurrent.futures import ThreadPoolExecutor
+
+            def one(i):
+                try:
+                    until(lambda: read_isa(base, i), "acked ISA", wait_s)
+                    return None
+                except RuntimeError:
+                    return i
+
+            with ThreadPoolExecutor(8) as ex:
+                return [i for i in ex.map(one, ids) if i is not None]
+
+        lost = {}
+        for name, base in (("A", A), ("B", B)):
+            gone = missing(base, [i for _, i, _ in acked], 30.0)
+            lost[name] = len(gone)
+            for _, i, _ in acked:
+                REGION_TALLY.check(i not in gone,
+                                   f"acked write {i} lost on {name}")
+        metrics = {}
+        for name, base in (("A", A), ("B", B)):
+            import urllib.request
+
+            with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+                text = r.read().decode()
+            metrics[name] = {k: int(sum(metric_values(text, k).values()))
+                             for k in ("region_failovers", "region_resyncs",
+                                       "region_optimistic_commits",
+                                       "region_optimistic_conflicts",
+                                       "region_txn_lease_count",
+                                       "region_rollbacks",
+                                       "region_client_retries")}
+            metrics[name]["capture_failures"] = int(max(metric_values(
+                text, "_co_res_graph_capture_failures").values(),
+                default=0))
+        line["failover"] = {
+            "acked_before_kill": n_before, "acked": len(acked),
+            "refused": len(refused), "mirror_heads": hs,
+            "promoted": best, "promote_rc": promote.returncode,
+            "promote_out": promoted, "epoch_gen": [gen0, gen1],
+            "promote_s": t_promoted - t_kill,
+            "A_failover_s": first_after("A") - t_kill,
+            "B_failover_s": first_after("B") - t_kill,
+            "lost_acked_writes": lost, "instances": metrics,
+        }
+        if sum(lost.values()):
+            fail(f"acknowledged writes lost: {lost}")
+        if gen1 <= gen0:
+            fail(f"epoch generation did not rise: {gen0} -> {gen1}")
+        for name in ("A", "B"):
+            if metrics[name]["region_failovers"] <= 0:
+                fail(f"{name}'s client never failed over")
+            if metrics[name]["capture_failures"]:
+                fail(f"{name}: {metrics[name]['capture_failures']} capture "
+                     "failures")
+
+        # -- 9. a late joiner: snapshot + tail -----------------------------
+        port = free_port()
+        used_before_c = card_used_mib()
+        procs["C"] = RegionProc("C", [
+            "dss_tpu_torch.cmds.server", "--addr", f"127.0.0.1:{port}",
+            "--enable_scd", "--storage", "cuda", "--device", REGION_DEVICE,
+            "--insecure_no_auth", "--region_url", region_url,
+            "--region_token_file", token_file, "--instance_id", "dss-c",
+            "--shutdown_grace", str(HTTP_GRACE_S)], port, work, root)
+        procs["C"].wait_healthy()
+        warms["C"] = warm_end(procs["C"])
+        used_c = card_used_mib()
+        line["card_memory"]["c_mib"] = (
+            None if None in (used_before_c, used_c)
+            else used_c - used_before_c)
+        C = procs["C"].base
+        late_mism = 0
+        for params, args in aois[:64]:
+            got = ok(http_json(C, "POST", "/dss/v1/operation_references/"
+                               "query", params), "op query on C")
+            good = sorted(o["id"] for o in got["operation_references"]) \
+                == orc.ids(*args)
+            late_mism += not good
+            REGION_TALLY.check(good, "op query on C != oracle")
+        late_lost = len(missing(C, [i for _, i, _ in acked], 10.0))
+        REGION_TALLY.check(late_lost == 0, "acked writes missing on C")
+        line["late_joiner"] = {
+            "healthy_s": procs["C"].healthy_s,
+            "records_per_s": n_state / procs["C"].healthy_s,
+            "queries": 64, "mismatches": late_mism,
+            "acked_missing": late_lost,
+            "log_status": {n: {k: s[k] for k in ("role", "head", "base",
+                                                 "snapshot_index")}
+                           for n, s in heads().items()}}
+
+        # -- the card's compute apps: A, B, C and this smoke ---------------
+        apps = [x.strip() for x in subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.splitlines()
+            if x.strip()]
+        fds = {n: nvidia_fds(p.p.pid) for n, p in procs.items()
+               if p.p.poll() is None}
+        pids = {n: p.p.pid for n, p in procs.items()}
+        mib = {}
+        for a in apps:
+            pid, used = (x.strip() for x in a.split(",", 1))
+            who = next((n for n, p in pids.items() if p == int(pid)),
+                       "smoke" if int(pid) == os.getpid() else pid)
+            mib[who] = used
+        smoke_ctx = torch.cuda.is_initialized()
+        line["compute_apps"] = {
+            "nvidia_smi": apps, "listed_by_process": mib, "nvidia_fds": fds,
+            "expected_apps": 3 + smoke_ctx, "smoke_pid": os.getpid(),
+            "pids": pids}
+        if (len(apps) != 3 + smoke_ctx
+                or any(fds[n] <= 0 for n in ("A", "B", "C"))
+                or any(fds.get(n, 0) > 0 for n in ("mirror1", "mirror2"))):
+            fail(f"not A, B, C and the smoke on the card: "
+                 f"{line['compute_apps']}")
+    finally:
+        writers_stop.set()
+        # -- 10. SIGTERM of every process -----------------------------------
+        t = time.perf_counter()
+        codes = {}
+        for name in ("C", "A", "B", "mirror1", "mirror2", "primary"):
+            p = procs.get(name)
+            if p is not None:
+                codes[name] = p.stop()
+        line["exit_codes"] = codes
+        line["sigterm_s"] = time.perf_counter() - t
+        for name, rc in codes.items():
+            want = -signal.SIGKILL if name == "primary" else 0
+            if rc != want:
+                fail(f"{name} exit code {rc}: {procs[name].tail()}")
+        if store is not None:
+            store.close()
+    line["mismatches"] = REGION_TALLY.mismatches
+    line["compared"] = REGION_TALLY.compared
+    return {"region": line}, failures, {
+        "region_launches": line.get("queries", {}).get("b1_launches", 0),
+        "region_graph_replays": line.get("queries", {}).get(
+            "b1_graph_replays", 0)}
+
+
 def run(dev, smi) -> tuple:
     """Phases 2-7 on `dev`; -> (the entries of the kernels line, the
     serving phase's failures)."""
@@ -4575,6 +5353,7 @@ def run(dev, smi) -> tuple:
     log(json.dumps(http))
     failures += bad
     log(f"seconds before the shm front: {time.perf_counter() - t_all:.2f}")
+    region_counts = {}
     if http_state is None:
         log(json.dumps({"shm_front": {"ran": False,
                                       "why": "the http phase did not run"}}))
@@ -4591,6 +5370,13 @@ def run(dev, smi) -> tuple:
             t = time.perf_counter()
             MESH_LINE["server"], bad = mesh_server(smi, http_state)
             MESH_LINE["server"]["seconds"] = time.perf_counter() - t
+            failures += bad
+            log(f"seconds before the region: "
+                f"{time.perf_counter() - t_all:.2f}")
+            t = time.perf_counter()
+            region, bad, region_counts = region_phase(smi, http_state)
+            region["region"]["seconds"] = time.perf_counter() - t
+            log(json.dumps(region))
             failures += bad
         finally:
             import shutil
@@ -4610,6 +5396,7 @@ def run(dev, smi) -> tuple:
     b1.update(store)
     b1.update(nat_counts)
     b1.update(push_counts)
+    b1.update(region_counts)
     return [b1] + legacy, failures
 
 
@@ -4639,10 +5426,11 @@ def main() -> int:
         return 1
     if failures:
         print(f"chip_smoke: a serving, store, services, http, shm front, "
-              f"push or mesh phase failed: {failures}", file=sys.stderr)
+              f"push, mesh or region phase failed: {failures}",
+              file=sys.stderr)
         return 1
     tallies = list(TALLY.values()) + [STORE_TALLY, NATIVE_TALLY, PUSH_TALLY,
-                                      MESH_TALLY]
+                                      MESH_TALLY, REGION_TALLY]
     bad = sum(t.mismatches for t in tallies)
     if bad:
         print(f"chip_smoke: {bad} of "

@@ -20,7 +20,7 @@ pkg/scd/server.go:58-76, pkg/aux_/server.go:17-21.
 A copy of the reference's `dss_tpu/api/app.py`, the shm front's read-
 worker proxy included.  What the port does not have yet raises
 `NotImplementedError` naming its slice when it is asked for: a
-federation router (region slice).  Without it the reference's
+federation router (federation slice).  Without it the reference's
 federation branches are no-ops, so they are left out here.  Inline
 reads follow `native.available()` (`_native_ready`), and
 `/debug/profile` records a `torch.profiler` Chrome trace where the
@@ -597,7 +597,7 @@ def build_app(
     health_fn=None,  # degradation mode: DSSStore.health.mode_name
     default_timeout_s: float = 10.0,
     replica=None,  # ShardedOpReplica: multi-chip read-replica surface
-    federation=None,  # FederationRouter: the region slice (raises)
+    federation=None,  # FederationRouter: the federation slice (raises)
     push=None,  # PushPipeline: webhook registry + ingest surface
     trace_requests: bool = False,
     profile_dir: str = "",
@@ -608,7 +608,7 @@ def build_app(
     from dss_tpu_torch.obs.logging import make_access_log_middleware
 
     if federation is not None:
-        errors.later_slice("the federation peer surface", "region")
+        errors.later_slice("the federation peer surface", "federation")
     middlewares = [
         make_access_log_middleware(
             metrics, dump_requests=dump_requests, health_fn=health_fn

@@ -3,9 +3,8 @@
 
   faults   named fault sites (`chaos.fault_point("wal.fsync")`)
            consulting a seeded, replayable FaultPlan loaded from
-           DSS_FAULT_PLAN — zero overhead when no plan is installed
-           (sync seams only; the event-loop seams come with the API
-           slice)
+           DSS_FAULT_PLAN — zero overhead when no plan is installed;
+           `chaos.async_fault_point` for event-loop seams
   retry    ONE jittered-backoff policy + per-remote circuit breakers
   ladder   the store-level degradation state machine
            (HEALTHY -> DEVICE_LOST -> MESH_DEGRADED ->
@@ -22,6 +21,7 @@ from dss_tpu_torch.chaos.faults import (  # noqa: F401
     FaultEvent,
     FaultPlan,
     FaultRegistry,
+    async_fault_point,
     clear_plan,
     fault_point,
     install_plan,

@@ -1,12 +1,13 @@
 """Deterministic fault injection: named seams + a seeded schedule.
 
-The port of the reference's `dss_tpu/chaos/faults.py` (sync seams
-only; the event-loop seams come with the API slice).  Every failure
+The port of the reference's `dss_tpu/chaos/faults.py`.  Every failure
 seam of the serving path is a NAMED FAULT SITE that consults one
 process-global schedule:
 
     from dss_tpu_torch import chaos
-    chaos.fault_point("device.dispatch")
+    chaos.fault_point("device.dispatch")     # sync seams
+    await chaos.async_fault_point(           # event-loop seams
+        "region.mirror.replicate", detail=url)
 
 A site is a no-op (one module-global bool read) unless a FaultPlan is
 installed, so the instrumented hot paths pay nothing in production.
@@ -30,7 +31,8 @@ Actions:
   partition    raise FaultError(kind="partition")
   device_lost  raise DeviceLostError — the coalescer absorbs it and
                re-serves the batch on the host route (no caller error)
-  delay        sleep delay_s at the site (stall injection)
+  delay        sleep delay_s at the site (stall injection; async
+               sites await instead of blocking the loop)
 
 Registered sites (grep for the literal to find the seam):
   wal.append / wal.fsync          dar/wal.py
@@ -38,6 +40,9 @@ Registered sites (grep for the literal to find the seam):
   device.dispatch                 dar/coalesce.py (cold fused submit)
   resident.submit                 ops/resident.py (stream feeder)
   graph.capture                   ops/resident.py (CUDA graph capture)
+  region.client.request           region/client.py (region log hop)
+  region.mirror.replicate         region/mirror.py (async: primary ->
+                                  mirror pushes, mirror heartbeats)
 
 Only the injected DeviceLostError counts as a device loss
 (is_device_loss): a real CUDA error raised by a kernel wrapper is
@@ -63,6 +68,7 @@ __all__ = [
     "install_plan",
     "clear_plan",
     "fault_point",
+    "async_fault_point",
     "is_device_loss",
     "load_env_plan",
 ]
@@ -294,6 +300,20 @@ class FaultRegistry:
             return
         self._raise_for(site, action, ev)
 
+    async def fire_async(
+        self, site: str, detail: Optional[str] = None
+    ) -> None:
+        hit = self.check(site, detail)
+        if hit is None:
+            return
+        action, ev = hit
+        if action == "delay":
+            import asyncio
+
+            await asyncio.sleep(ev.delay_s)
+            return
+        self._raise_for(site, action, ev)
+
 
 _REGISTRY = FaultRegistry()
 _ACTIVE = False  # mirror of "a plan is installed": the zero-overhead gate
@@ -322,6 +342,16 @@ def fault_point(site: str, detail: Optional[str] = None) -> None:
     if not _ACTIVE:
         return
     _REGISTRY.fire(site, detail)
+
+
+async def async_fault_point(
+    site: str, detail: Optional[str] = None
+) -> None:
+    """fault_point for event-loop seams: delay events await instead of
+    blocking the loop."""
+    if not _ACTIVE:
+        return
+    await _REGISTRY.fire_async(site, detail)
 
 
 def load_env_plan() -> bool:

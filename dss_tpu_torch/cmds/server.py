@@ -9,14 +9,18 @@ Run: python -m dss_tpu_torch.cmds.server --addr :8082 --enable_scd \
          --accepted_jwt_audiences localhost --storage cuda
 
 A copy of the reference's `dss_tpu/cmds/server.py` in standalone mode,
-with its read-worker fleet (`--workers N`).
+with its read-worker fleet (`--workers N`), and in region mode
+(`--region_url`: one instance of a DSS Region over a shared region log,
+dss_tpu_torch/region; `--workers` stays standalone-only, as in the
+reference).
 `--storage cuda` (the default) puts every entity class's tables on
 `--device` (default `cuda`, which raises on a machine without a card;
 `--device cpu` runs the plain versions).  `--device` and
 `--virtual_devices N` (a mesh of N positions on `--device`) take the
 place of the reference's JAX-only `--virtual_cpu_devices`.
 `--sharded_replica dp,sp` keeps a sharded read replica of every entity
-class on a (dp, sp) mesh, tailing the WAL (parallel/replica.py).  With
+class on a (dp, sp) mesh, tailing the WAL or the region log
+(parallel/replica.py).  With
 `--workers N`
 the leader is the one process that owns the card; its N read workers
 run `--device cpu` (the reference pins them to JAX's CPU the same way),
@@ -130,29 +134,50 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--region_url",
         default="",
-        help="region log server URL(s): join a multi-instance DSS "
-        "Region (region slice)",
+        help="region log server URL(s), comma-separated primary + "
+        "mirrors for failover (python -m "
+        "dss_tpu_torch.cmds.region_server, or the reference's).  When "
+        "set, this instance joins a multi-instance DSS Region: writes "
+        "go through the shared region log and remote writes are "
+        "tail-applied.  Mutually exclusive with --wal_path",
     )
-    p.add_argument("--region_token_file", default="",
-                   help="the shared region secret (region slice)")
-    p.add_argument("--region_poll_interval", type=float, default=0.05,
-                   help="region log tail poll seconds (region slice)")
-    p.add_argument("--region_snapshot_every", type=int, default=512,
-                   help="region snapshot period in entries (region slice)")
-    p.add_argument("--instance_id", default="",
-                   help="this instance's identity in the region "
-                   "(region slice)")
+    p.add_argument(
+        "--region_token_file",
+        default="",
+        help="file holding the shared region secret (env "
+        "DSS_REGION_TOKEN overrides)",
+    )
+    p.add_argument(
+        "--region_poll_interval",
+        type=float,
+        default=0.05,
+        help="seconds between region log tail polls (read staleness "
+        "bound on non-writing instances)",
+    )
+    p.add_argument(
+        "--region_snapshot_every",
+        type=int,
+        default=512,
+        help="upload a state snapshot to the region log every N "
+        "applied entries; the log compacts below it, bounding "
+        "late-join/recovery cost",
+    )
+    p.add_argument(
+        "--instance_id",
+        default="",
+        help="stable identity of this DSS instance within the region",
+    )
     p.add_argument(
         "--federation_map",
         default=os.environ.get("DSS_FED_MAP", ""),
-        help="multi-region federation map (region slice).  Env "
+        help="multi-region federation map (federation slice).  Env "
         "fallback DSS_FED_MAP",
     )
     p.add_argument(
         "--federation_region",
         default=os.environ.get("DSS_FED_REGION", ""),
         help="this deployment's region id in the federation map "
-        "(region slice; env DSS_FED_REGION)",
+        "(federation slice; env DSS_FED_REGION)",
     )
     p.add_argument(
         "--push",
@@ -501,8 +526,7 @@ def _make_authorizer(args):
 # process-spanning mesh is also entered through DSS_JAX_COORDINATOR, as
 # in the reference.
 LATER_SLICE_FLAGS = {
-    "federation_map": ("", "region"),
-    "region_url": ("", "region"),
+    "federation_map": ("", "federation"),
     "jax_coordinator": ("", "multihost"),
     "process_id": (None, "multihost"),
     "num_processes": (None, "multihost"),
@@ -514,16 +538,17 @@ LATER_SLICE_FLAGS = {
 
 def refuse_later_slices(args) -> None:
     """SystemExit naming the slice of the first flag that a later slice
-    of the port brings (the port serves standalone mode, with or
-    without its read-worker fleet and its single-process mesh)."""
+    of the port brings (the port serves standalone and region mode,
+    with or without its read-worker fleet and its single-process
+    mesh)."""
     if os.environ.get("DSS_JAX_COORDINATOR"):
         args.jax_coordinator = os.environ["DSS_JAX_COORDINATOR"]
     for flag, (unset, slice_) in LATER_SLICE_FLAGS.items():
         if getattr(args, flag) != unset:
             raise SystemExit(
                 f"--{flag} is not ported yet; it comes with the {slice_} "
-                "slice of the PyTorch/CUDA port (standalone mode and the "
-                "single-process mesh only)"
+                "slice of the PyTorch/CUDA port (standalone and region "
+                "mode and the single-process mesh only)"
             )
 
 
@@ -542,11 +567,21 @@ def mesh_devices(args) -> list:
     return [dev]
 
 
+def region_token(args) -> str:
+    """The shared region secret: DSS_REGION_TOKEN, else
+    --region_token_file; "" for none."""
+    token = os.environ.get("DSS_REGION_TOKEN", "")
+    if not token and args.region_token_file:
+        with open(args.region_token_file, "r", encoding="utf-8") as fh:
+            token = fh.read().strip()
+    return token
+
+
 def make_replica(args, store, log):
     """`--sharded_replica dp,sp`: a ShardedReplica of every entity class
-    tailing `--wal_path` on a (dp, sp) mesh, refreshing in the
-    background and attached to the store's coalescers; None without
-    the flag."""
+    tailing `--wal_path` or the region log of `--region_url` on a (dp,
+    sp) mesh, refreshing in the background and attached to the store's
+    coalescers; None without the flag."""
     if not args.sharded_replica:
         return None
     from dss_tpu_torch.parallel.mesh import make_mesh
@@ -559,9 +594,19 @@ def make_replica(args, store, log):
             f"--sharded_replica must be 'dp,sp' (got "
             f"{args.sharded_replica!r})"
         )
-    if not args.wal_path:
+    region_client = None
+    if args.region_url:
+        from dss_tpu_torch.region.client import RegionClient
+
+        region_client = RegionClient(
+            args.region_url,
+            (args.instance_id or "dss") + "-replica",
+            auth_token=region_token(args) or None,
+        )
+    elif not args.wal_path:
         raise SystemExit(
-            "--sharded_replica needs --wal_path (a log to tail)"
+            "--sharded_replica needs --wal_path or --region_url "
+            "(a log to tail)"
         )
     devs = mesh_devices(args)
     if len(devs) < dp * sp:
@@ -574,8 +619,10 @@ def make_replica(args, store, log):
     # every bucket a mesh-offloaded chunk can land in (chunks are
     # <= 64; remainders bucket to 16/32): the first offload after a
     # swap finds its kernels loaded
-    replica = ShardedReplica(mesh, wal_path=args.wal_path,
-                             warm_batches=(1, 32, 64))
+    replica = ShardedReplica(
+        mesh, wal_path=None if region_client else args.wal_path,
+        region_client=region_client, warm_batches=(1, 32, 64),
+    )
     if args.no_shard_rebalance:
         replica.rebalance_ratio = 0.0
     replica.start(args.replica_refresh_interval)
@@ -583,7 +630,8 @@ def make_replica(args, store, log):
     store.attach_mesh_replica(replica)
     log.info(
         "sharded replica serving all entity classes on a %dx%d mesh "
-        "over %s (wal)", dp, sp, mesh.distinct_devices(),
+        "over %s (%s)", dp, sp, mesh.distinct_devices(),
+        "region log" if args.region_url else "wal",
     )
     return replica
 
@@ -608,20 +656,26 @@ def build(args) -> web.Application:
 
         device = resolve_device(args.device)
     clock = Clock()
+    token = region_token(args)
     store = DSSStore(
         storage=args.storage,
         clock=clock,
         wal_path=args.wal_path or None,
         wal_fsync=args.wal_fsync,
         device=device,
+        region_url=args.region_url or None,
+        region_token=token or None,
+        region_poll_interval_s=args.region_poll_interval,
+        region_snapshot_every=args.region_snapshot_every,
+        instance_id=args.instance_id or None,
     )
     log.info(
-        "store ready: storage=%s device=%s wal=%s scd=%s "
-        "region=(standalone)",
+        "store ready: storage=%s device=%s wal=%s scd=%s region=%s",
         args.storage,
         device if device is not None else "-",
         args.wal_path or "(none)",
         args.enable_scd,
+        args.region_url or "(standalone)",
     )
     log.info(
         "read cache: %s (cap=%d entries, stale_lag=%d gens; "
@@ -910,6 +964,11 @@ def main():
         return
 
     if args.workers > 0:
+        if args.region_url:
+            raise SystemExit(
+                "--workers is standalone-only (region instances already "
+                "scale horizontally; run more instances instead)"
+            )
         if ssl_ctx is not None:
             raise SystemExit(
                 "--tls_cert is single-process only: the worker fleet "

@@ -1,12 +1,12 @@
 """The store implementation: host-authoritative state + spatial index + WAL.
 
 The port of the reference's `dss_tpu/dar/dss_store.py`, standalone
-mode.  One implementation serves both backends — the spatial index
-strategy is injected (`storage="memory"` -> MemorySpatialIndex linear
-scans, `storage="cuda"` -> CudaSpatialIndex, the DarTable on the card),
-mirroring how the upstream DSS selects its store behind the repository
-seam.  Region mode, the federation and the tuner come with later
-slices; asking for them raises.
+and region mode.  One implementation serves both backends — the
+spatial index strategy is injected (`storage="memory"` ->
+MemorySpatialIndex linear scans, `storage="cuda"` -> CudaSpatialIndex,
+the DarTable on the card), mirroring how the upstream DSS selects its
+store behind the repository seam.  The federation and the tuner come
+with later slices; asking for them raises.
 
 Semantics mirrored from the reference:
   - RID fenced writes on the commit-timestamp version
@@ -227,6 +227,12 @@ class _CachedSearchMixin:
     which must never be stamped as fresh."""
 
     _cache: Optional[rcache.ReadCache] = None
+    _epoch_fn = staticmethod(lambda: "")
+
+    def _init_cache(self, cache, epoch_fn):
+        self._cache = cache
+        if epoch_fn is not None:
+            self._epoch_fn = epoch_fn
 
     def _fenced_index_swap(self, *old_indexes):
         """Fresh indexes for a state reset, carrying the old cell
@@ -280,7 +286,7 @@ class _CachedSearchMixin:
         t_cl_w = t_cl0 = 0
         if th is not None:
             t_cl_w, t_cl0 = time.time_ns(), time.perf_counter()
-        epoch = ""  # standalone: no region epoch joins the fence
+        epoch = self._epoch_fn()
         fence = clock_fence(cells)
         key = (cls, owner_id, qkey, cells.tobytes())
         ids = cache.lookup(
@@ -365,17 +371,21 @@ class OwnerInterner:
 class RIDStoreImpl(_PushMixin, _TxnTimeMixin, _CachedSearchMixin, RIDStore):
     def __init__(
         self, *, clock, ts_oracle, owners, lock, journal, index_factory,
-        cache=None,
+        txn=None, capture_undo=False, cache=None, epoch_fn=None,
     ):
         self._clock = clock
         self._ts = ts_oracle
         self._owners = owners
         self._lock = lock
-        self._txn = _lock_txn(lock)
+        self._txn = txn if txn is not None else _lock_txn(lock)
         self._journal = journal
         self._index_factory = index_factory
+        # region mode: each journal record carries an "undo" list (wal
+        # records that revert the mutation) so the coordinator can roll
+        # back an aborted txn precisely instead of resyncing from the log
+        self._capture_undo = capture_undo
         self._init_txn_time()
-        self._cache = cache
+        self._init_cache(cache, epoch_fn)
         self._isas: Dict[str, ridm.IdentificationServiceArea] = {}
         self._subs: Dict[str, ridm.Subscription] = {}
         self._isa_index = index_factory()
@@ -394,12 +404,36 @@ class RIDStoreImpl(_PushMixin, _TxnTimeMixin, _CachedSearchMixin, RIDStore):
         self._sub_index = new_sub
 
     def serialize_state(self) -> dict:
-        """Full-state snapshot as plain JSON docs."""
+        """Full-state snapshot as plain JSON docs (region snapshot
+        upload; the CRDB-range-snapshot analog)."""
+        return self.serialize_refs(self.snapshot_refs())
+
+    def snapshot_refs(self) -> tuple:
+        """Grab record references for a consistent snapshot cut (cheap;
+        call under the store lock).  Records are immutable — replaced,
+        never mutated — so serialize_refs may run outside the lock."""
+        return (list(self._isas.values()), list(self._subs.values()))
+
+    @staticmethod
+    def serialize_refs(refs: tuple) -> dict:
+        isas, subs = refs
         return {
-            "isas": [codec.isa_to_doc(x) for x in list(self._isas.values())],
-            "subs": [codec.rid_sub_to_doc(x)
-                     for x in list(self._subs.values())],
+            "isas": [codec.isa_to_doc(x) for x in isas],
+            "subs": [codec.rid_sub_to_doc(x) for x in subs],
         }
+
+    def restore_state(self, state: dict) -> None:
+        """Region snapshot install: reset, then one index put per
+        record, as the WAL replay does."""
+        self.reset_state()
+        for d in state.get("isas", []):
+            isa = codec.doc_to_isa(d)
+            self._isas[isa.id] = isa
+            self._index_isa(isa)
+        for d in state.get("subs", []):
+            sub = codec.doc_to_rid_sub(d)
+            self._subs[sub.id] = sub
+            self._index_sub(sub)
 
     # -- ISAs ----------------------------------------------------------------
 
@@ -443,6 +477,12 @@ class RIDStoreImpl(_PushMixin, _TxnTimeMixin, _CachedSearchMixin, RIDStore):
             self._isas[stored.id] = stored
             self._index_isa(stored)
             rec = {"t": "isa_put", "doc": codec.isa_to_doc(stored)}
+            if self._capture_undo:
+                rec["undo"] = [
+                    {"t": "isa_put", "doc": codec.isa_to_doc(old)}
+                    if old is not None
+                    else {"t": "isa_del", "id": stored.id}
+                ]
             self._journal(rec)
             return dataclasses.replace(stored)
 
@@ -459,6 +499,8 @@ class RIDStoreImpl(_PushMixin, _TxnTimeMixin, _CachedSearchMixin, RIDStore):
             del self._isas[isa.id]
             self._isa_index.remove(isa.id)
             rec = {"t": "isa_del", "id": isa.id}
+            if self._capture_undo:
+                rec["undo"] = [{"t": "isa_put", "doc": codec.isa_to_doc(old)}]
             self._journal(rec)
             return dataclasses.replace(old)
 
@@ -539,6 +581,12 @@ class RIDStoreImpl(_PushMixin, _TxnTimeMixin, _CachedSearchMixin, RIDStore):
             self._subs[stored.id] = stored
             self._index_sub(stored)
             rec = {"t": "rid_sub_put", "doc": codec.rid_sub_to_doc(stored)}
+            if self._capture_undo:
+                rec["undo"] = [
+                    {"t": "rid_sub_put", "doc": codec.rid_sub_to_doc(old)}
+                    if old is not None
+                    else {"t": "rid_sub_del", "id": stored.id}
+                ]
             self._journal(rec)
             return dataclasses.replace(stored)
 
@@ -555,6 +603,10 @@ class RIDStoreImpl(_PushMixin, _TxnTimeMixin, _CachedSearchMixin, RIDStore):
             del self._subs[sub.id]
             self._sub_index.remove(sub.id)
             rec = {"t": "rid_sub_del", "id": sub.id}
+            if self._capture_undo:
+                rec["undo"] = [
+                    {"t": "rid_sub_put", "doc": codec.rid_sub_to_doc(old)}
+                ]
             self._journal(rec)
             return dataclasses.replace(old)
 
@@ -612,12 +664,21 @@ class RIDStoreImpl(_PushMixin, _TxnTimeMixin, _CachedSearchMixin, RIDStore):
         with self._txn_scope():
             ids = self._push_match_ids("rid_sub", cells)
             out = []
+            undo = []
             for i in sorted(ids):
+                if self._capture_undo:
+                    prev = self._subs.get(i)
+                    if prev is not None:
+                        undo.append(
+                            {"t": "rid_sub_put", "doc": codec.rid_sub_to_doc(prev)}
+                        )
                 bumped = _bump_sub(self._subs, i)
                 if bumped is not None:
                     out.append(dataclasses.replace(bumped))
             if out:
                 rec = {"t": "rid_sub_bump", "ids": [s.id for s in out]}
+                if self._capture_undo:
+                    rec["undo"] = undo
                 self._journal(rec)
                 self._offer_push("rid", entity, out, removed=removed)
             return out
@@ -657,17 +718,21 @@ class SCDStoreImpl(_PushMixin, _TxnTimeMixin, _CachedSearchMixin, SCDStore):
 
     def __init__(
         self, *, clock, ts_oracle, owners, lock, journal, index_factory,
-        cache=None,
+        txn=None, capture_undo=False, cache=None, epoch_fn=None,
     ):
         self._clock = clock
         self._ts = ts_oracle
         self._owners = owners
         self._lock = lock
-        self._txn = _lock_txn(lock)
+        self._txn = txn if txn is not None else _lock_txn(lock)
         self._journal = journal
         self._index_factory = index_factory
+        # region mode: each journal record carries an "undo" list (wal
+        # records that revert the mutation) so the coordinator can roll
+        # back an aborted txn precisely instead of resyncing from the log
+        self._capture_undo = capture_undo
         self._init_txn_time()
-        self._cache = cache
+        self._init_cache(cache, epoch_fn)
         self._ops: Dict[str, scdm.Operation] = {}
         self._subs: Dict[str, scdm.Subscription] = {}
         self._csts: Dict[str, scdm.Constraint] = {}
@@ -689,14 +754,45 @@ class SCDStoreImpl(_PushMixin, _TxnTimeMixin, _CachedSearchMixin, SCDStore):
         self._cst_index = new_cst
 
     def serialize_state(self) -> dict:
-        """Full-state snapshot as plain JSON docs."""
+        """Full-state snapshot as plain JSON docs (region snapshot
+        upload; the CRDB-range-snapshot analog)."""
+        return self.serialize_refs(self.snapshot_refs())
+
+    def snapshot_refs(self) -> tuple:
+        """Record references for a consistent cut (cheap; call under
+        the store lock); serialize_refs may then run outside it."""
+        return (
+            list(self._ops.values()),
+            list(self._subs.values()),
+            list(self._csts.values()),
+        )
+
+    @staticmethod
+    def serialize_refs(refs: tuple) -> dict:
+        ops, subs, csts = refs
         return {
-            "ops": [codec.op_to_doc(x) for x in list(self._ops.values())],
-            "subs": [codec.scd_sub_to_doc(x)
-                     for x in list(self._subs.values())],
-            "constraints": [codec.constraint_to_doc(x)
-                            for x in list(self._csts.values())],
+            "ops": [codec.op_to_doc(x) for x in ops],
+            "subs": [codec.scd_sub_to_doc(x) for x in subs],
+            "constraints": [codec.constraint_to_doc(x) for x in csts],
         }
+
+    def restore_state(self, state: dict) -> None:
+        """Region snapshot install: reset, then one index put per
+        record, as the WAL replay does."""
+        self.reset_state()
+        for d in state.get("ops", []):
+            op = codec.doc_to_op(d)
+            self._ops[op.id] = op
+            self._index_op(op)
+        for d in state.get("subs", []):
+            sub = codec.doc_to_scd_sub(d)
+            self._subs[sub.id] = sub
+            self._index_scd_sub(sub)
+        # absent on pre-constraint snapshots (rolling upgrade): .get
+        for d in state.get("constraints", []):
+            cst = codec.doc_to_constraint(d)
+            self._csts[cst.id] = cst
+            self._index_cst(cst)
 
     def _visible_op(self, id) -> Optional[scdm.Operation]:
         """Expired operations are invisible (operations.go:103-112)."""
@@ -895,6 +991,7 @@ class SCDStoreImpl(_PushMixin, _TxnTimeMixin, _CachedSearchMixin, SCDStore):
         )
         want_constraints = trigger == "constraints"
         out = []
+        undo = []
         for i in sorted(ids):
             prev = self._subs.get(i)
             if prev is None:
@@ -904,11 +1001,17 @@ class SCDStoreImpl(_PushMixin, _TxnTimeMixin, _CachedSearchMixin, SCDStore):
                     continue
             elif not prev.notify_for_operations:
                 continue
+            if self._capture_undo:
+                undo.append(
+                    {"t": "scd_sub_put", "doc": codec.scd_sub_to_doc(prev)}
+                )
             bumped = _bump_sub(self._subs, i)
             if bumped is not None:
                 out.append(dataclasses.replace(bumped))
         if out:
             rec = {"t": "scd_sub_bump", "ids": [s.id for s in out]}
+            if self._capture_undo:
+                rec["undo"] = undo
             self._journal(rec)
         return out
 
@@ -985,9 +1088,20 @@ class SCDStoreImpl(_PushMixin, _TxnTimeMixin, _CachedSearchMixin, SCDStore):
                 version=(old.version if old else 0) + 1,
                 ovn=new_ovn_from_time(ts, op.id),
             )
+            if self._capture_undo:
+                # exact inverse: restore whatever the id maps to NOW,
+                # including an expired (invisible) record `old` misses
+                prev_raw = self._ops.get(op.id)
+                undo = [
+                    {"t": "scd_op_put", "doc": codec.op_to_doc(prev_raw)}
+                    if prev_raw is not None
+                    else {"t": "scd_op_del", "id": stored.id}
+                ]
             self._ops[stored.id] = stored
             self._index_op(stored)
             rec = {"t": "scd_op_put", "doc": codec.op_to_doc(stored)}
+            if self._capture_undo:
+                rec["undo"] = undo
             self._journal(rec)
             subs = self._notify_subs_locked(stored.cells)
             self._offer_push(
@@ -1013,6 +1127,8 @@ class SCDStoreImpl(_PushMixin, _TxnTimeMixin, _CachedSearchMixin, SCDStore):
             del self._ops[id]
             self._op_index.remove(id)
             rec = {"t": "scd_op_del", "id": id}
+            if self._capture_undo:
+                rec["undo"] = [{"t": "scd_op_put", "doc": codec.op_to_doc(old)}]
             self._journal(rec)
             # implicit-subscription GC (operations.go:249-267,296-298)
             sub = self._subs.get(old.subscription_id)
@@ -1027,6 +1143,10 @@ class SCDStoreImpl(_PushMixin, _TxnTimeMixin, _CachedSearchMixin, SCDStore):
                 del self._subs[sub.id]
                 self._sub_index.remove(sub.id)
                 gc_rec = {"t": "scd_sub_del", "id": sub.id}
+                if self._capture_undo:
+                    gc_rec["undo"] = [
+                        {"t": "scd_sub_put", "doc": codec.scd_sub_to_doc(sub)}
+                    ]
                 self._journal(gc_rec)
             self._offer_push(
                 "operations", old, subs, removed=True,
@@ -1068,9 +1188,21 @@ class SCDStoreImpl(_PushMixin, _TxnTimeMixin, _CachedSearchMixin, SCDStore):
                 version=(old.version if old else 0) + 1,
                 ovn=new_ovn_from_time(ts, cst.id),
             )
+            if self._capture_undo:
+                # exact inverse: raw get includes an expired
+                # (invisible) record that `old` misses
+                prev_raw = self._csts.get(cst.id)
+                undo = [
+                    {"t": "scd_cst_put",
+                     "doc": codec.constraint_to_doc(prev_raw)}
+                    if prev_raw is not None
+                    else {"t": "scd_cst_del", "id": stored.id}
+                ]
             self._csts[stored.id] = stored
             self._index_cst(stored)
             rec = {"t": "scd_cst_put", "doc": codec.constraint_to_doc(stored)}
+            if self._capture_undo:
+                rec["undo"] = undo
             self._journal(rec)
             subs = self._notify_subs_locked(
                 stored.cells, trigger="constraints",
@@ -1102,6 +1234,10 @@ class SCDStoreImpl(_PushMixin, _TxnTimeMixin, _CachedSearchMixin, SCDStore):
             del self._csts[id]
             self._cst_index.remove(id)
             rec = {"t": "scd_cst_del", "id": id}
+            if self._capture_undo:
+                rec["undo"] = [
+                    {"t": "scd_cst_put", "doc": codec.constraint_to_doc(old)}
+                ]
             self._journal(rec)
             self._offer_push(
                 "constraints", old, subs, removed=True,
@@ -1155,9 +1291,20 @@ class SCDStoreImpl(_PushMixin, _TxnTimeMixin, _CachedSearchMixin, SCDStore):
             stored = dataclasses.replace(
                 sub, version=(old.version if old else 0) + 1
             )
+            if self._capture_undo:
+                # exact inverse: raw get includes an expired (invisible)
+                # record that `old` (visibility-filtered) misses
+                prev_raw = self._subs.get(sub.id)
+                undo = [
+                    {"t": "scd_sub_put", "doc": codec.scd_sub_to_doc(prev_raw)}
+                    if prev_raw is not None
+                    else {"t": "scd_sub_del", "id": stored.id}
+                ]
             self._subs[stored.id] = stored
             self._index_scd_sub(stored)
             rec = {"t": "scd_sub_put", "doc": codec.scd_sub_to_doc(stored)}
+            if self._capture_undo:
+                rec["undo"] = undo
             self._journal(rec)
             affected = (
                 self._search_ops(
@@ -1188,6 +1335,10 @@ class SCDStoreImpl(_PushMixin, _TxnTimeMixin, _CachedSearchMixin, SCDStore):
             del self._subs[id]
             self._sub_index.remove(id)
             rec = {"t": "scd_sub_del", "id": id}
+            if self._capture_undo:
+                rec["undo"] = [
+                    {"t": "scd_sub_put", "doc": codec.scd_sub_to_doc(old)}
+                ]
             self._journal(rec)
             return dataclasses.replace(old)
 
@@ -1258,10 +1409,19 @@ class DSSStore:
     """One DSS instance's storage: RID + SCD stores sharing a lock, a
     commit-timestamp oracle, an owner interner, and a durable log.
 
-    Standalone mode: a local WriteAheadLog is the source of truth; boot
-    replays it, one `apply_wal` -> `index.put` per record.  The
-    reference's region mode (`region_url`, the shared region log as the
-    source of truth) comes with the region slice and raises here.
+    Two durability modes, as in the reference:
+      - standalone (default): a local WriteAheadLog is the source of
+        truth; boot replays it, one `apply_wal` -> `index.put` per
+        record.
+      - region (`region_url` set): the shared region log
+        (dss_tpu_torch.region) is the source of truth; every mutation
+        runs as a region transaction (an optimistic disjoint-cell
+        append, or a lease-fenced one), and a tail poller applies
+        remote instances' writes.  Boot restores the log's latest
+        snapshot (one index put per record, as the WAL replay) and
+        applies the tail after it.  The local WAL is disabled (the
+        region server owns durability), as the upstream DSS's instances
+        keep no local state beside the shared CRDB cluster.
 
     `storage="cuda"` puts every entity class's DarTable on `device`
     (None means `cuda`, so without a card the default raises);
@@ -1276,6 +1436,12 @@ class DSSStore:
         wal_fsync: bool = False,
         device=None,
         region_url: Optional[str] = None,
+        region_token: Optional[str] = None,
+        region_poll_interval_s: float = 0.05,
+        region_snapshot_every: int = 512,
+        region_optimistic: bool = True,  # False forces the lease path
+        #                    (bench/diagnosis of lease-path round trips)
+        instance_id: Optional[str] = None,
     ):
         if storage == "cuda":
             index_factory = functools.partial(CudaSpatialIndex, device=device)
@@ -1283,18 +1449,39 @@ class DSSStore:
             index_factory = MemorySpatialIndex
         else:
             raise ValueError(f"unknown storage backend {storage!r}")
-        if region_url:
-            errors.later_slice("region mode (region_url=)", "region")
+        if region_url and wal_path:
+            raise ValueError(
+                "wal_path is unused in region mode: the region log server "
+                "owns durability (give the WAL path to the region server)"
+            )
         self.storage = storage
         self.clock = clock or Clock()
         # the graceful-degradation ladder (chaos/ladder.py): ONE
         # explicit health state machine for this store — the planner
-        # reads device_ok from it, and recovery re-warms (the graph
-        # grid) before re-admitting routes.
+        # reads device_ok from it, the region client drives
+        # REGION_LOG_DOWN into it, and recovery re-warms (the graph
+        # grid) before re-admitting routes.  Surfaced in /status,
+        # X-DSS-Freshness, and the dss_degraded_mode gauge.
         self.health = chaos.DegradationLadder()
         self.health.on_recover("device_lost", self._rewarm_after_device_loss)
-        self.wal = WriteAheadLog(wal_path, fsync=wal_fsync)
+        self.wal = WriteAheadLog(None if region_url else wal_path,
+                                 fsync=wal_fsync)
         self._lock = threading.RLock()
+        self.region = None
+        txn = None
+        epoch_fn = None
+        if region_url:
+            from dss_tpu_torch.region.client import RegionClient
+            from dss_tpu_torch.region.coordinator import RegionCoordinator
+
+            self._region_client = RegionClient(
+                region_url, instance_id, auth_token=region_token,
+                health=self.health,
+            )
+            txn = self._region_txn
+            # region epoch joins the cache fence: a promotion or a
+            # restored-backup rotation invalidates every cached answer
+            epoch_fn = self._region_client.current_epoch
         # version-fenced read cache (dar/readcache.py): one shared
         # instance fronting all five entity classes' search paths;
         # DSS_CACHE_* env knobs, configure_serving(cache=) at runtime
@@ -1312,7 +1499,10 @@ class DSSStore:
             lock=self._lock,
             journal=self._journal,
             index_factory=index_factory,
+            txn=txn,
+            capture_undo=bool(region_url),
             cache=self.cache,
+            epoch_fn=epoch_fn,
         )
         self.scd = SCDStoreImpl(
             clock=self.clock,
@@ -1321,7 +1511,10 @@ class DSSStore:
             lock=self._lock,
             journal=self._journal,
             index_factory=index_factory,
+            txn=txn,
+            capture_undo=bool(region_url),
             cache=self.cache,
+            epoch_fn=epoch_fn,
         )
         # per-class cache hit/miss counters ride the coalescer stats
         # path (dss_dar_<class>_co_cache_*), so hit rate renders next
@@ -1342,7 +1535,26 @@ class DSSStore:
         # until attach_shm_front makes this process the device owner
         self._shm_owner = None
         self._replaying = False
-        self._replay()
+        if region_url:
+            self.region = RegionCoordinator(
+                self._region_client,
+                self.rid,
+                self.scd,
+                self._lock,
+                poll_interval_s=region_poll_interval_s,
+                snapshot_every=region_snapshot_every,
+                optimistic=region_optimistic,
+            )
+            try:
+                self.region.bootstrap()
+            except BaseException:
+                self._region_client.close()
+                raise
+        else:
+            self._replay()
+
+    def _region_txn(self):
+        return self.region.txn()
 
     def _class_indexes(self):
         return (
@@ -1369,11 +1581,14 @@ class DSSStore:
     def _journal(self, rec: dict):
         if self._replaying:
             return
-        self.wal.append(rec)
+        if self.region is not None:
+            self.region.journal(rec)
+        else:
+            self.wal.append(rec)
 
     def apply_log_record(self, rec: dict) -> None:
-        """Apply one WAL record to the right sub-store (caller holds
-        the lock and has set _replaying)."""
+        """Apply one WAL/region-log record to the right sub-store
+        (caller holds the lock and has set _replaying)."""
         t = rec.get("t", "")
         if t.startswith("isa") or t.startswith("rid"):
             self.rid.apply_wal(rec)
@@ -1569,7 +1784,7 @@ class DSSStore:
         return owner
 
     def attach_federation(self, router) -> None:
-        errors.later_slice("federation (attach_federation)", "region")
+        errors.later_slice("federation (attach_federation)", "federation")
 
     def attach_push(self, pipeline) -> None:
         """Wire the reverse-query push pipeline (push/pipeline.py) onto
@@ -1638,6 +1853,9 @@ class DSSStore:
             self.push.close()
         if self._shm_owner is not None:
             self._shm_owner.close()
+        if self.region is not None:
+            self.region.close()
+            self._region_client.close()
         for index, _ in self._class_indexes():
             closer = getattr(index, "close", None)
             if closer is not None:
@@ -1670,7 +1888,12 @@ class DSSStore:
         out["dss_fault_injected_total"] = (
             chaos.registry().injected_by_site()
         )
-        out["dss_breaker_state"] = {}
+        breakers = {}
+        if self.region is not None:
+            fn = getattr(self._region_client, "breaker_states", None)
+            if fn is not None:
+                breakers = fn()
+        out["dss_breaker_state"] = breakers
         # federation family: empty until its slice attaches it
         out.update(
             {k: (dict(v) if isinstance(v, dict) else v)
@@ -1700,13 +1923,15 @@ class DSSStore:
         )
         # trace recorder gauges (obs/trace.py)
         out.update(trace.stats())
+        if self.region is not None:
+            out.update(self.region.stats())
         return out
 
     def freshness_status(self) -> dict:
         """Operator view of the version-fence state (GET /status):
-        per-class write generation + cell-clock high-water mark, and
-        the cache counters — enough to verify fence behaviour without
-        reading code."""
+        region epoch, per-class write generation + cell-clock
+        high-water mark, and the cache counters — enough to verify
+        fence behaviour without reading code."""
         classes = {}
         for index, name in self._class_indexes():
             clock = getattr(index, "cell_clock", None)
@@ -1717,9 +1942,12 @@ class DSSStore:
                 ),
                 "live_records": index.stats().get("live_records", 0),
             }
+        epoch = ""
+        if self.region is not None:
+            epoch = self._region_client.current_epoch()
         return {
             "storage": self.storage,
-            "epoch": "",
+            "epoch": epoch,
             "cache": self.cache.stats(),
             "classes": classes,
             # the degradation ladder's operator view: current mode +

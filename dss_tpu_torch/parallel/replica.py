@@ -1,8 +1,7 @@
 """ShardedDar refresh: tail a durable log into serving multi-device
 read replicas — one per entity class.
 
-The port of the reference's `dss_tpu/parallel/replica.py` (all of it
-but `_RegionTail`, which comes with the region slice).  SURVEY §7 step
+The port of the reference's `dss_tpu/parallel/replica.py`.  SURVEY §7 step
 7 (second half): writes land in the single-device store + WAL; this
 replica tails that log and
 periodically folds each entity class (SCD operations, RID ISAs, RID
@@ -26,10 +25,13 @@ only the delta dar — O(churn), not O(table) — and a major rebuild
 (full repack) runs only when the churn ratio crosses the same
 DSS_TIER_RATIO policy the DarTable uses.
 
-Source: `wal_path`, a standalone server's WriteAheadLog file, tailed
-incrementally (remembers the byte offset, only consumes whole lines,
-tolerates a torn tail write until the next poll).  The reference's
-other source, `region_client`, raises naming the region slice.
+Sources (exactly one):
+  - `wal_path`: tail a standalone server's WriteAheadLog file
+    incrementally (remembers the byte offset, only consumes whole
+    lines, tolerates a torn tail write until the next poll);
+  - `region_client`: fetch entries from a region log server
+    (`_RegionTail`: snapshot + tail, rebuilt wholesale when the log's
+    epoch changes).
 
 On a card, a rebuild's host->device copies finish (its stream is
 synchronized, `ShardedDar`) before the atomic swap publishes the
@@ -49,7 +51,6 @@ from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 
-from dss_tpu_torch import errors
 from dss_tpu_torch.clock import to_nanos
 from dss_tpu_torch.dar import codec
 from dss_tpu_torch.dar import oracle
@@ -189,9 +190,107 @@ def _keys_of(cells) -> np.ndarray:
     ).astype(np.int32)
 
 
+class _RegionTail:
+    """Incremental reader of a region log (batch entries)."""
+
+    def __init__(self, client):
+        self.client = client
+        self._applied = 0
+        self.errors = 0  # consecutive fetch failures (operability)
+        self.caught_up = False  # reached head at the last poll
+
+    @property
+    def position(self) -> int:
+        """Next log entry index to apply (the reference's multihost
+        refresh-cut currency in region mode)."""
+        return self._applied
+
+    def at_end(self) -> bool:
+        """Best-effort: head reached at the LAST poll.  Region-mode
+        reads are bounded-stale by design (non-writing instances serve
+        tail-poll state), so mesh offload matches that contract rather
+        than strict read-your-writes."""
+        return self.caught_up
+
+    def poll(self, limit: Optional[int] = None) -> List[dict]:
+        from dss_tpu_torch.region.client import (
+            EpochChanged,
+            RegionError,
+            SnapshotRequired,
+        )
+
+        out = []
+        try:
+            while True:
+                try:
+                    entries, head = self.client.fetch(self._applied)
+                    self.errors = 0
+                except SnapshotRequired:
+                    snap = self.client.get_snapshot()
+                    if snap is None:
+                        return out
+                    idx, state = snap
+                    # the snapshot carries full docs: replace local
+                    # state wholesale, then resume tailing after it
+                    out.append({"t": "__replica_reset__", "state": state})
+                    self._applied = idx
+                    continue
+                except EpochChanged:
+                    # the log server rebooted and may have regressed
+                    # (lost unsynced acked entries, or an older WAL
+                    # restored): our incrementally-applied state may
+                    # contain entries the reborn log never will —
+                    # rebuild wholesale from the log's truth instead
+                    # of silently skipping new entries
+                    log.warning(
+                        "replica: region log epoch changed; rebuilding"
+                    )
+                    # fetch the rebuild material FIRST: adopting the
+                    # epoch before a failed get_snapshot would silence
+                    # the regression forever (no dirty flag here — the
+                    # next poll must re-raise EpochChanged until the
+                    # reset actually happens)
+                    snap = self.client.get_snapshot()
+                    self.client.adopt_epoch()
+                    if snap is not None:
+                        idx, state = snap
+                        out.append(
+                            {"t": "__replica_reset__", "state": state}
+                        )
+                        self._applied = idx
+                    else:
+                        out.append(
+                            {"t": "__replica_reset__", "state": {}}
+                        )
+                        self._applied = 0
+                    continue
+                for idx, recs in entries:
+                    if idx >= self._applied and (
+                        limit is None or idx < limit
+                    ):
+                        out.extend(recs)
+                        self._applied = idx + 1
+                if limit is not None and self._applied >= limit:
+                    return out
+                if self._applied >= head:
+                    self.caught_up = True
+                    return out
+                self.caught_up = False
+        except RegionError as e:
+            # transient (next poll retries) — but a replica cut off
+            # from the region must be VISIBLY stale, not silently so
+            self.errors += 1
+            self.caught_up = False
+            log.warning(
+                "replica region tail failed (%d consecutive): %s",
+                self.errors, e,
+            )
+            return out
+
+
 class ShardedReplica:
     """Multi-device read replica of EVERY entity class on a ("dp",
-    "sp") mesh, refreshed from a WAL tail."""
+    "sp") mesh, refreshed from a WAL or region-log tail."""
 
     def __init__(
         self,
@@ -211,10 +310,7 @@ class ShardedReplica:
         #   member hosts' autotune profiles' capacity_weight scalars);
         #   None = homogeneous members, the historical split
     ):
-        if region_client is not None:
-            errors.later_slice("a region-log replica (region_client=)",
-                               "region")
-        if wal_path is None:
+        if (wal_path is None) == (region_client is None):
             raise ValueError("exactly one of wal_path / region_client")
         self.mesh = mesh
         self.max_results = max_results
@@ -290,7 +386,9 @@ class ShardedReplica:
         # buckets; here each runs the new dar once, so the first
         # oversized batch after a swap finds its torch kernels loaded)
         self.warm_batches = tuple(warm_batches)
-        self._tail = _WalTail(wal_path)
+        self._tail = (
+            _WalTail(wal_path) if wal_path else _RegionTail(region_client)
+        )
         self._records: Dict[str, Dict[str, Record]] = {
             c: {} for c in CLASSES
         }

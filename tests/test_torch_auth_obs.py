@@ -9,9 +9,8 @@ key resolution and rotation, the signature cache (auth/); the metrics
 registry's exposition (obs/metrics.py); and the WAL's format gate
 (dar/wal.py).  The follower's log tail is the port's
 `dar/follower._WalTail` (the reference's lives in
-`parallel/replica.py`, a later slice).  One case is not here:
-`test_region_log_compaction_carries_format` drives the region log
-server, which comes with the region slice.
+`parallel/replica.py`).  `test_region_log_compaction_carries_format`
+drives the port's region log (region/log_server.py).
 
 Then a few checks that hold the port's exposition and access log
 against the reference's on the same observations.
@@ -36,7 +35,7 @@ from dss_tpu_torch.obs.metrics import MetricsRegistry, stage_hist_delta
 TESTS = Path(__file__).resolve().parent
 # module paths of the reference that live elsewhere in the port
 MOVED = {"dss_tpu.parallel.replica": "dss_tpu_torch.dar.follower"}
-LEFT_OUT = {"test_region_log_compaction_carries_format": "region"}
+LEFT_OUT = {}
 
 
 def _port_copy(name: str) -> dict:
@@ -76,7 +75,7 @@ def test_the_copied_cases_are_all_here():
     if "test_round_trip" not in _COPIED:  # test_auth skipped
         pytest.importorskip("cryptography")
     assert want - set(_COPIED) == set(LEFT_OUT)
-    assert len(_COPIED) == 19
+    assert len(_COPIED) == 20
 
 
 # -- the port's exposition and access log beside the reference's ---------------

@@ -245,7 +245,7 @@ def test_debug_profile_writes_a_torch_trace(keypair, tmp_path):
 
 
 def test_later_slice_arguments_raise():
-    with pytest.raises(NotImplementedError, match="region slice"):
+    with pytest.raises(NotImplementedError, match="federation slice"):
         build_app(federation=object())
     # the read-worker proxy is the shm front's, ported
     assert callable(p_app.make_worker_proxy_middleware("http://127.0.0.1:1"))

@@ -12,9 +12,12 @@
   push.match, push.pipeline; the shm front's by name: parallel,
   parallel.shmring, dar.shmfront, plan.shmroute; the mesh route's by
   name: ops.conflict, parallel.mesh, parallel.sharded,
-  parallel.replica), chip_smoke and
-  b1_device_time import in a process where `jax` and every `dss_tpu`
-  module are refused.
+  parallel.replica; the region's by name: region, region.client,
+  region.log_server, region.mirror, region.coordinator,
+  cmds.region_server), chip_smoke and b1_device_time import in a
+  process where `jax`, `requests` (absent on the card's machine; the
+  region client rides http.client) and every `dss_tpu` module are
+  refused.
 - Tables and stores built without device= on a machine without CUDA
   raise instead of running on the CPU.
 - convert round trip: reference records and table arrays become port
@@ -53,6 +56,7 @@ _PROBE = textwrap.dedent(
     import importlib, pkgutil, sys
 
     sys.modules["jax"] = None  # any `import jax` raises ImportError
+    sys.modules["requests"] = None  # nor `import requests`
 
     class RefuseReference:
         def find_spec(self, name, path=None, target=None):
@@ -86,14 +90,16 @@ _PROBE = textwrap.dedent(
                 "push.pipeline", "parallel", "parallel.shmring",
                 "dar.shmfront", "plan.shmroute", "ops.conflict",
                 "parallel.mesh", "parallel.sharded",
-                "parallel.replica"):
+                "parallel.replica", "region", "region.client",
+                "region.log_server", "region.mirror",
+                "region.coordinator", "cmds.region_server"):
         assert "dss_tpu_torch." + mod in names, (mod, names)
     import chip_smoke  # its helpers; main() only runs as a script
     assert callable(chip_smoke.run) and callable(chip_smoke.make_batch)
     import b1_device_time  # loads chip_smoke anew from its own path
     assert callable(b1_device_time.load_smoke(b1_device_time.HERE).run)
     bad = sorted(m for m in sys.modules
-                 if m == "jax" and sys.modules[m] is not None
+                 if m in ("jax", "requests") and sys.modules[m] is not None
                  or m == "dss_tpu" or m.startswith("dss_tpu."))
     assert not bad, bad
     print(len(names))
@@ -108,7 +114,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         capture_output=True, text=True, timeout=120,
     )
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 45  # every module was reached
+    assert int(res.stdout.split()[-1]) >= 51  # every module was reached
 
 
 def _tiny_table_args():
@@ -124,7 +130,8 @@ def _tiny_table_args():
 
 
 @pytest.mark.parametrize("make", ["fasttable", "dartable", "index", "snapshot",
-                                  "warmup", "store", "mesh"])
+                                  "warmup", "store", "region_store",
+                                  "mesh"])
 def test_default_device_without_a_card_raises(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args, se = _tiny_table_args()
@@ -137,6 +144,9 @@ def test_default_device_without_a_card_raises(monkeypatch, make):
         ),
         "warmup": lambda: warmup(),
         "store": lambda: DSSStore(storage="cuda"),
+        # a region instance: the card is needed before the log is asked
+        "region_store": lambda: DSSStore(storage="cuda",
+                                         region_url="http://127.0.0.1:1"),
         "mesh": lambda: make_mesh(2, dp=1, sp=2),
     }[make]
     with pytest.raises(RuntimeError, match="cuda"):

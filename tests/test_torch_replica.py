@@ -112,10 +112,17 @@ def _area_keys(lat):
 
 def test_follower_tails_with_the_replica_wal_tail():
     assert p_follower._WalTail is pr._WalTail
-    with pytest.raises(NotImplementedError, match="region slice"):
-        pr.ShardedReplica(_meshes()[1], region_client=object())
+    # a region-log replica tails the region log (tests/test_torch_region.py
+    # drives one against a live log server)
+    client = object()
+    rep = pr.ShardedReplica(_meshes()[1], region_client=client)
+    assert isinstance(rep._tail, pr._RegionTail)
+    assert rep._tail.client is client and rep._tail.position == 0
     with pytest.raises(ValueError, match="exactly one"):
         pr.ShardedReplica(_meshes()[1])
+    with pytest.raises(ValueError, match="exactly one"):
+        pr.ShardedReplica(_meshes()[1], wal_path="x.wal",
+                          region_client=client)
 
 
 def test_replica_tails_live_wal_into_sharded_dar(tmp_path):

@@ -124,10 +124,12 @@ def oauth(certs):
 
 
 def _server(module, certs, wal, *extra, env=None):
+    """A DSS server process booted from the WAL `wal` (None: no
+    --wal_path, as a region instance) -> (process, base URL)."""
     port = free_port()
     p = _popen(
         module, "--addr", f"127.0.0.1:{port}", "--enable_scd",
-        "--wal_path", str(wal),
+        *(("--wal_path", str(wal)) if wal is not None else ()),
         "--public_key_files", str(certs / "oauth.pem"),
         "--accepted_jwt_audiences", AUD,
         "--shutdown_grace", str(GRACE_S - 2), *extra, env=env,
@@ -267,8 +269,7 @@ def test_later_slice_flags_name_their_slice(monkeypatch):
                  "DSS_AUTOTUNE_PROFILE", "DSS_JAX_COORDINATOR"):
         monkeypatch.delenv(flag, raising=False)
     cases = {
-        "--federation_map m.json": "region",
-        "--region_url http://x": "region",
+        "--federation_map m.json": "federation",
         "--jax_coordinator h:1": "multihost", "--process_id 0": "multihost",
         "--num_processes 2": "multihost",
         "--multihost_dryrun 2": "multihost",
@@ -291,6 +292,12 @@ def test_later_slice_flags_name_their_slice(monkeypatch):
     p_server.refuse_later_slices(parser.parse_args(
         "--sharded_replica 1,2 --virtual_devices 2 "
         "--replica_refresh_interval 0.1 --no_shard_rebalance".split()
+    ))
+    # and so are the region's (test_region_url_boots_from_a_region_log)
+    p_server.refuse_later_slices(parser.parse_args(
+        "--region_url http://a,http://b --region_token_file t "
+        "--region_poll_interval 0.1 --region_snapshot_every 64 "
+        "--instance_id dss-a".split()
     ))
     monkeypatch.setenv("DSS_JAX_COORDINATOR", "h:1")
     with pytest.raises(SystemExit, match="the multihost slice"):
@@ -636,3 +643,68 @@ def test_sharded_replica_needs_its_positions_and_a_wal():
     assert p_server.make_replica(parser.parse_args([]), None, None) is None
     assert len(p_server.mesh_devices(parser.parse_args(
         "--device cpu --virtual_devices 3".split()))) == 3
+
+
+def test_region_url_boots_from_a_region_log_and_serves(certs, oauth,
+                                                       tmp_path):
+    """A region of processes: the port's region log server; a
+    reference server with --region_url takes the writes; the port's
+    server with --region_url (cuda on the CPU) boots from the log and
+    answers every read as the reference instance does; a write on the
+    port instance is read on the reference's.  `--workers` with
+    `--region_url` exits, as in the reference."""
+    rport = free_port()
+    rlog = _popen("dss_tpu_torch.cmds.region_server", "--addr",
+                  f"127.0.0.1:{rport}", "--wal_path",
+                  str(tmp_path / "region.wal"))
+    region = f"http://127.0.0.1:{rport}"
+    procs = [rlog]
+    try:
+        _wait_http(f"{region}/healthy", rlog, "region log server")
+        ref, ref_base = _server(
+            "dss_tpu.cmds.server", certs, None, "--storage", "memory",
+            "--region_url", region, "--region_poll_interval", "0.02",
+            "--instance_id", "ref")
+        procs.append(ref)
+        reads = _write_state(ref_base, oauth)
+        want = _answers(ref_base, reads)
+        assert [st for st, _ in want] == [200] * 8 + [409]
+        port, base = _server(
+            "dss_tpu_torch.cmds.server", certs, None, "--storage", "cuda",
+            "--device", "cpu", "--region_url", region,
+            "--region_poll_interval", "0.02", "--instance_id", "port",
+            env=_port_env())
+        procs.append(port)
+        assert _answers(base, reads) == want
+        status = requests.get(base + "/status", timeout=5).json()
+        assert status["epoch"] == requests.get(
+            region + "/status", timeout=5).json()["epoch"]
+        # a write on the port instance, read on the reference's
+        isa = str(uuid.uuid4())
+        rid = oauth.hdr(bb.RID_SCOPE)
+        r = requests.put(
+            f"{base}/v1/dss/identification_service_areas/{isa}",
+            json=bb.isa_params(lat=44.3), headers=rid, timeout=5)
+        assert r.status_code == 200, r.text
+        deadline = time.monotonic() + 15
+        while True:
+            g = requests.get(
+                f"{ref_base}/v1/dss/identification_service_areas/{isa}",
+                headers=rid, timeout=5)
+            if g.status_code == 200 or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        assert g.status_code == 200
+        assert g.json() == requests.get(
+            f"{base}/v1/dss/identification_service_areas/{isa}",
+            headers=rid, timeout=5).json()
+        m = requests.get(base + "/metrics", timeout=10).text
+        assert "region_applied" in m and "dss_breaker_state" in m
+    finally:
+        codes = [_stop(p)[0] for p in reversed(procs)]
+    assert codes == [0] * len(procs), codes
+    w = _popen("dss_tpu_torch.cmds.server", "--workers", "2",
+               "--region_url", region, "--storage", "memory")
+    w.wait(timeout=BOOT_S)
+    assert w.returncode == 1
+    assert "--workers is standalone-only" in w.stderr.read().decode()

@@ -455,15 +455,19 @@ def test_storage_choices():
 
 
 def test_later_slices_raise():
-    with pytest.raises(NotImplementedError, match="region slice"):
-        PStore(storage="memory", region_url="http://localhost:1")
+    # region mode is ported (tests/test_torch_region.py); as in the
+    # reference, it takes no local WAL
+    with pytest.raises(ValueError, match="wal_path is unused"):
+        PStore(storage="memory", region_url="http://localhost:1",
+               wal_path="x.wal")
     s = PStore(storage="memory")
     try:
-        for name, args in (
-            ("attach_federation", (None,)),
-            ("attach_tuner", (None,)),
+        assert s.region is None and not s.rid._capture_undo
+        for name, args, slice_ in (
+            ("attach_federation", (None,), "federation slice"),
+            ("attach_tuner", (None,), "measurement surfaces slice"),
         ):
-            with pytest.raises(NotImplementedError, match="slice"):
+            with pytest.raises(NotImplementedError, match=slice_):
                 getattr(s, name)(*args)
         # the mesh slice is ported: a memory store has no coalescer to
         # take a delegate, and the replica adopts the store's load map
