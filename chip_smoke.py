@@ -140,7 +140,27 @@ Phases (any failure exits non-zero; nothing is caught):
      a late joiner from snapshot + tail; nvidia-smi's compute apps (A,
      B, the joiner and the smoke; no region server); SIGTERM of every
      process, exit 0; the `region` line;
- 14. the device time of each kernel by device kernel name, the kernels
+ 14. the federation (region/federation.py), after the region phase, on
+     the http phase's live state split at its median DAR key into two
+     WALs (a record straddling the boundary left out): regions a and b,
+     each a DSSStore(storage="cuda") on the card booted from its WAL,
+     federated in-process through serve_query/serve_sync with the
+     reference dryrun's fault seam; against the merged state, 64 local
+     and 256 cross-region op queries, 32 ISA and 32 constraint queries
+     over both regions, 8 bulk stale drains of 128 through each
+     region's federated store (B1 from zero, per region), a write into
+     the other region's airspace (400 with the owner's URLs), the
+     mirror's full-state sync timed (serve_sync s and MiB, apply_sync
+     s), a seeded FaultPlan partition of b (FEDERATION_DEGRADED, stale
+     answers exact against the mirror's synced state, a lag bound below
+     the mirror's lag shed with a Retry-After, a remote write 503,
+     local queries served), the heal (the ladder back to healthy, b's
+     write in the partition seen); then the dryrun's sigkill leg
+     (cmds/federation_dryrun) with its two DSS servers on the card:
+     0 local 5xx, 0 lost acknowledged writes, bit-identical to the
+     merged oracle, the card's memory.used around the servers; the
+     `federation` line;
+ 15. the device time of each kernel by device kernel name, the kernels
      line (four kernels; B1's entry with its graph replays and its
      store-phase counts), with each kernel's count of comparisons made
      and of those that disagreed; then the ok line, or exit 1 if any
@@ -155,7 +175,10 @@ Phases (any failure exits non-zero; nothing is caught):
      B1 launch on the mesh route, no mesh offload in the drains, no
      boundary move at the hottest Zipf alpha, or in the region phase a
      lost acknowledged write, no B1 launch on the region store, a
-     capture failure, an instance off the card or an unclean exit).
+     capture failure, an instance off the card or an unclean exit, or
+     in the federation phase no B1 launch on either region's store, a
+     ladder that never entered or left FEDERATION_DEGRADED, a local 5xx
+     or a lost acknowledged write in the sigkill leg).
 Times: `ms` is a kernel's device time per wrapper call with the L2
 flushed (a real batch finds its blocks cold): the kernels, memsets and
 copies that 30 calls launched, summed from torch.profiler, over 30;
@@ -5188,6 +5211,624 @@ def region_phase(smi, state) -> tuple:
             "b1_graph_replays", 0)}
 
 
+FED_QUERIES = 256  # cross-region op queries against the merged oracle
+FED_LOCAL = 64  # op queries inside region a's airspace (the local path)
+FED_RUN = 4  # keys per run; a cross-region covering is one run each side
+FED_SPAN = 3000  # keys either side of the boundary a run starts within
+FED_CHECKS = 32  # ISA, and as many constraint, queries across both regions
+FED_DRAINS = 8  # bounded-stale drains of BURST_CALLERS through each store
+FED_STALE = 64  # cross-region op queries served from the mirror
+FED_RESET_S = 0.5  # the peers' breaker reset (DSS_FED_BREAKER_RESET_S)
+FED_DEVICE = "cuda"  # the regions' stores' device, and the dryrun's
+FED_TALLY = Tally("federation")  # every answer against the merged oracle
+_FED_CLASS = {"isa": "isa", "rid_sub": "rid_sub", "scd_op": "op",
+              "scd_sub": "scd_sub", "scd_cst": "constraint"}
+_FED_PUT = {"isa": "isa_put", "rid_sub": "rid_sub_put", "op": "scd_op_put",
+            "scd_sub": "scd_sub_put", "constraint": "scd_cst_put"}
+
+
+def fed_split(records) -> tuple:
+    """The http phase's WAL records -> the live state (puts minus
+    deletes, per class and id), split at the median DAR key of the
+    records' first keys: region a owns keys below the boundary, b the
+    rest.  A record whose cells straddle the boundary is left out of
+    both (a federation's ownership guard never lets one be written).
+    -> (boundary, {"a": [put records], "b": [...]}, left out)."""
+    live = {}
+    for rec in records:
+        t = rec.get("t", "")
+        head, _, kind = t.rpartition("_")
+        cls = _FED_CLASS.get(head)
+        if cls is None or kind not in ("put", "del"):
+            continue
+        if kind == "put":
+            live[(cls, rec["doc"]["id"])] = rec["doc"]
+        else:
+            live.pop((cls, rec["id"]), None)
+    span = {}
+    for key, doc in live.items():
+        k = s2cell.cell_to_dar_key(np.asarray(doc["cells"], np.uint64))
+        span[key] = (int(k.min()), int(k.max()))
+    boundary = int(np.median([lo for lo, _ in span.values()]))
+    out, dropped = {"a": [], "b": []}, 0
+    for key, doc in live.items():
+        lo, hi = span[key]
+        if lo < boundary <= hi:
+            dropped += 1
+            continue
+        out["a" if hi < boundary else "b"].append(
+            {"t": _FED_PUT[key[0]], "doc": doc})
+    return boundary, out, dropped
+
+
+class DocOracle:
+    """oracle.search over operation documents (a postings index of
+    their DAR keys), at the wall clock's `now` as the store's
+    visibility rule; `add` and `drop` follow later writes."""
+
+    def __init__(self, docs):
+        from dss_tpu_torch.clock import to_nanos
+        from dss_tpu_torch.dar import codec
+
+        self.recs = []
+        for d in docs:
+            op = codec.doc_to_op(d)
+            self.add(op.id, op.cells, op.altitude_lower, op.altitude_upper,
+                     to_nanos(op.start_time), to_nanos(op.end_time))
+        self.dead = set()
+
+    def add(self, oid, cells, alo, ahi, t0, t1):
+        keys = np.unique(s2cell.cell_to_dar_key(
+            np.asarray(cells, np.uint64)))
+        self.recs.append(Record(
+            oid, keys, -np.inf if alo is None else float(alo),
+            np.inf if ahi is None else float(ahi), int(t0), int(t1), 0))
+        self._index = None
+
+    def drop(self, oid):
+        self.dead.add(oid)
+
+    def ids(self, keys_row, alo, ahi, ts, te) -> list:
+        if self._index is None:
+            flat = np.concatenate([r.keys for r in self.recs])
+            rows = np.repeat(np.arange(len(self.recs)),
+                             [len(r.keys) for r in self.recs])
+            order = np.argsort(flat, kind="stable")
+            self._index = (flat[order], rows[order])
+        keys, rows = self._index
+        q = np.unique(np.asarray(keys_row, np.int32))
+        lo = np.searchsorted(keys, q, "left")
+        hi = np.searchsorted(keys, q, "right")
+        hit = np.unique(np.concatenate([rows[a:b] for a, b in zip(lo, hi)]
+                                       or [np.zeros(0, np.int64)]))
+        cand = {i: self.recs[r] for i, r in enumerate(hit)
+                if self.recs[r].entity_id not in self.dead}
+        slots = oracle.search(cand, q, float(alo), float(ahi), int(ts),
+                              int(te), time.time_ns())
+        return sorted(cand[s].entity_id for s in slots)
+
+
+def fed_queries(seed, n, boundary, shift, runs) -> list:
+    """n op queries of FED_RUN-key runs (`runs` of them, one each side
+    of the boundary when 2; one inside region a when 1), a 300 m band,
+    a 1 h window around the phase's clock: [(keys, alo, ahi, ts, te)]."""
+    r = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        if runs == 2:
+            starts = (int(r.integers(boundary - FED_SPAN, boundary - FED_RUN)),
+                      int(r.integers(boundary, boundary + FED_SPAN)))
+        else:
+            starts = (int(r.integers(max(0, boundary - 4 * FED_SPAN),
+                                     boundary - FED_RUN)),)
+        keys = np.concatenate([np.arange(s, s + FED_RUN) for s in starts])
+        alo = float(np.float32(r.uniform(0, 3000)))
+        t0 = NOW + shift + int(r.integers(-2, 2)) * HOUR
+        out.append((keys.astype(np.int32), alo,
+                    float(np.float32(alo + 300.0)), t0, t0 + HOUR))
+    return out
+
+
+def fed_search(store, q):
+    from dss_tpu_torch.clock import from_nanos
+
+    keys, alo, ahi, ts, te = q
+    got = store.scd.search_operations(
+        s2cell.dar_key_to_cell(keys), alo, ahi, from_nanos(ts),
+        from_nanos(te), allow_stale=True)
+    return sorted(o.id for o in got)
+
+
+def fed_drain(stores, order, qs, entry) -> dict:
+    """One bulk stale drain of len(qs) callers through stores[entry]'s
+    federated store: each store's op table (in `order`: the entry's own
+    first, then the peer's) holds its submit until BURST_QUEUED callers
+    queue there and the previous store's drain is done, so each region
+    drains one batch past HOST_MAX_BATCH.  B1's counts are read between
+    the releases: -> {"answers", "launches": {region: n}, "replays":
+    {region: n}, "queued": {region: n}, "errors"}."""
+    gates, subs = {}, {}
+    for k in order:
+        table = stores[k].scd._op_index.table
+        gates[k] = threading.Event()
+        subs[k] = table.query_many_submit
+
+        def gated(*a, _k=k, **kw):
+            gates[_k].wait(10.0)
+            return subs[_k](*a, **kw)
+
+        table.query_many_submit = gated
+    got, errs = [None] * len(qs), []
+
+    def client(i):
+        try:
+            got[i] = fed_search(stores[entry], qs[i])
+        except Exception as e:  # noqa: BLE001 — fails the phase below
+            errs.append(repr(e))
+
+    out = {"launches": {}, "replays": {}, "queued": {}}
+    ths = [threading.Thread(target=client, args=(i,))
+           for i in range(len(qs))]
+    ff.fused_window_filter.launches = 0
+    ff.fused_window_filter.graph_replays = 0
+    try:
+        for th in ths:
+            th.start()
+        prev = None
+        for k in order:
+            co = stores[k].scd._op_index.coalescer
+            until = time.perf_counter() + 5.0
+            while time.perf_counter() < until and (
+                    co.stats()["co_queue_depth"] < BURST_QUEUED
+                    or (prev is not None and prev.stats()["co_inflight"])):
+                time.sleep(0.002)
+            out["queued"][k] = co.stats()["co_queue_depth"]
+            if prev is not None:
+                out["launches"][order[0]] = ff.fused_window_filter.launches
+                out["replays"][order[0]] = \
+                    ff.fused_window_filter.graph_replays
+                ff.fused_window_filter.launches = 0
+                ff.fused_window_filter.graph_replays = 0
+            gates[k].set()
+            prev = co
+        for th in ths:
+            th.join(60)
+        out["launches"][order[-1]] = ff.fused_window_filter.launches
+        out["replays"][order[-1]] = ff.fused_window_filter.graph_replays
+    finally:
+        for k in order:
+            stores[k].scd._op_index.table.__dict__.pop("query_many_submit",
+                                                         None)
+            gates[k].set()
+    out["answers"], out["errors"] = got, errs
+    return out
+
+
+def federation_phase(smi, state) -> tuple:
+    """The federation on the card (region/federation.py).
+    Part A, in-process: the http phase's WAL (its live state) split at
+    the median DAR key into two WALs, each booting a
+    DSSStore(storage="cuda") on the card: region a (keys below the
+    boundary) and region b; each federated with the other through
+    in-process transports over serve_query/serve_sync with the
+    `region.federation.request` fault seam (the reference's dryrun
+    transport), the sync driven by hand.  Every answer is held against
+    the merged state (op queries: oracle.search over both regions' ops;
+    ISAs and constraints: one memory store restored from both): local
+    and cross-region op queries, ISA and constraint queries over both
+    regions, FED_DRAINS bulk stale drains of BURST_CALLERS through each
+    region's federated store (B1 counted per region from zero), a write
+    into the other region's airspace (400 with the owner's URLs), the
+    mirror's full-state sync timed, a seeded FaultPlan partition
+    (stale answers exact against the mirror's synced state, a lag
+    bound below the mirror's lag shed with a Retry-After, a write to a
+    remote cell 503, FEDERATION_DEGRADED entered), the heal (the ladder
+    walks back and the state converges).  Part B: the dryrun's sigkill
+    leg (cmds/federation_dryrun.run_sigkill_leg) with its two servers
+    on --device FED_DEVICE, the card's memory.used read around them.
+    -> (the `federation` line, failures, B1's counts in the phase)."""
+    import os
+    import shutil
+    import uuid
+
+    from dss_tpu_torch import chaos, errors
+    from dss_tpu_torch.clock import Clock, from_nanos, to_nanos
+    from dss_tpu_torch.cmds import federation_dryrun
+    from dss_tpu_torch.dar.dss_store import DSSStore
+    from dss_tpu_torch.dar.wal import WriteAheadLog
+    from dss_tpu_torch.models import rid as ridm
+    from dss_tpu_torch.models import scd as scdm
+    from dss_tpu_torch.region import federation as fed
+
+    work = os.path.join(state["work"], "federation")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    line = {"card": smi}
+    failures = []
+    counts = {"a": [0, 0], "b": [0, 0]}  # region -> [launches, replays]
+
+    def fail(msg):
+        failures.append(f"federation: {msg}")
+
+    # -- the split, and one WAL per region --------------------------------
+    t = time.perf_counter()
+    boundary, parts, dropped = fed_split(region_records(state["wal"]))
+    wals = {}
+    for k, recs in parts.items():
+        wals[k] = os.path.join(work, f"region-{k}.wal")
+        w = WriteAheadLog(wals[k])
+        for rec in recs:
+            w.append(rec)
+        w.close()
+    line["split"] = {
+        "boundary": boundary, "left_out": dropped, "seconds":
+        time.perf_counter() - t,
+        "records": {k: len(v) for k, v in parts.items()},
+        "by_class": {k: {c: sum(r["t"] == p for r in v)
+                         for c, p in _FED_PUT.items()}
+                     for k, v in parts.items()}}
+    dev = torch.device(FED_DEVICE)
+    entries = [fed.RegionEntry("a", urls=("http://region-a.invalid",)),
+               fed.RegionEntry("b", urls=("http://region-b.invalid",))]
+    routers, stores = {}, {}
+    oracle_store = None
+
+    def transport_to(name):
+        def transport(method, path, payload):
+            chaos.fault_point("region.federation.request",
+                              detail=f"{name}:{path}")
+            if path.endswith("/query"):
+                return fed.serve_query(routers[name], payload)
+            return fed.serve_sync(routers[name])
+        return transport
+
+    chaos.clear_plan()
+    chaos.registry().reset_counters()
+    try:
+        # -- 1. both regions boot from their WALs on the card --------------
+        alloc0 = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        boot = {}
+        for local, remote in (("a", "b"), ("b", "a")):
+            routers[local] = fed.FederationRouter(
+                fed.FederationMap(entries, np.array([boundary], np.int32),
+                                  local),
+                {remote: fed.FederationPeer(remote, transport_to(remote),
+                                            fail_threshold=3,
+                                            reset_s=FED_RESET_S)})
+        for local in ("a", "b"):
+            t = time.perf_counter()
+            stores[local] = DSSStore(storage="cuda", device=dev,
+                                     wal_path=wals[local], clock=Clock())
+            boot[local] = {"seconds": time.perf_counter() - t,
+                           "records": len(parts[local])}
+            # the sync is driven by hand below: no sync loop
+            routers[local].start = lambda: None
+            stores[local].attach_federation(routers[local])
+        for local in ("a", "b"):
+            boot[local]["settle_s"] = settle(stores[local], 0.25)
+            boot[local]["records_per_s"] = (
+                boot[local]["records"] / boot[local]["seconds"])
+            boot[local]["classes"] = store_counts(stores[local])
+        line["boot"] = boot
+        line["card_mib_two_regions"] = (
+            (torch.cuda.memory_allocated() - alloc0) / 2**20
+            if dev.type == "cuda" else None)
+        sa, sb = stores["a"], stores["b"]
+        ra, rb = routers["a"], routers["b"]
+
+        # -- 2. the merged oracle ------------------------------------------
+        t = time.perf_counter()
+        docs = {k: [r["doc"] for r in v if r["t"] == "scd_op_put"]
+                for k, v in parts.items()}
+        orc = DocOracle(docs["a"] + docs["b"])
+        oracle_store = DSSStore(storage="memory", clock=Clock())
+        oracle_store.rid.restore_state({
+            "isas": [r["doc"] for v in parts.values() for r in v
+                     if r["t"] == "isa_put"],
+            "subs": [r["doc"] for v in parts.values() for r in v
+                     if r["t"] == "rid_sub_put"]})
+        oracle_store.scd.restore_state({
+            "ops": [], "subs": [],
+            "constraints": [r["doc"] for v in parts.values() for r in v
+                            if r["t"] == "scd_cst_put"]})
+        line["oracle_s"] = time.perf_counter() - t
+        shift = state["now"] + HOUR // 2 - NOW
+
+        def held(store, qs, what):
+            lat, bad = [], 0
+            for i, q in enumerate(qs):
+                t = time.perf_counter()
+                got = fed_search(store, q)
+                lat.append(time.perf_counter() - t)
+                good = got == orc.ids(*q)
+                bad += not good
+                FED_TALLY.check(good, f"{what} {i} != merged oracle")
+                fed.take_fed_note()
+            return {"queries": len(qs), "mismatches": bad, **lat_ms(lat)}
+
+        # -- 3. local and cross-region op queries --------------------------
+        line["local"] = held(sa, fed_queries(61, FED_LOCAL, boundary,
+                                             shift, 1), "local op query")
+        cross = fed_queries(62, FED_QUERIES, boundary, shift, 2)
+        line["cross"] = held(sa, cross[:FED_QUERIES // 2], "cross op query")
+        line["cross_from_b"] = held(sb, cross[FED_QUERIES // 2:],
+                                    "cross op query from b")
+        line["remote_queries"] = {"a": ra.remote_queries,
+                                  "b": rb.remote_queries}
+
+        # -- 4. ISAs and constraints over both regions ---------------------
+        now_dt = from_nanos(time.time_ns())
+        w1 = from_nanos(state["now"] + 6 * HOUR)
+        r = np.random.default_rng(63)
+        isa_bad = cst_bad = hits = 0
+        for i in range(FED_CHECKS):
+            area = int(r.integers(0, POLL_AREAS))
+            keys = np.concatenate([
+                np.arange(area * POLL_CELLS, area * POLL_CELLS + 8),
+                np.arange(boundary + 8 * i, boundary + 8 * i + 8)])
+            cells = s2cell.dar_key_to_cell(keys.astype(np.int64))
+            got = sorted(x.id for x in sa.rid.search_isas(
+                cells, now_dt, None, allow_stale=True))
+            want = sorted(x.id for x in oracle_store.rid.search_isas(
+                cells, now_dt, None))
+            isa_bad += got != want
+            hits += len(got)
+            FED_TALLY.check(got == want, f"ISA query {i} != merged oracle")
+            s = int(r.integers(0, boundary - 64))
+            keys = np.concatenate([np.arange(s, s + 64),
+                                   np.arange(boundary, boundary + 64)
+                                   + int(r.integers(0, N_CELLS // 4))])
+            cells = s2cell.dar_key_to_cell(keys.astype(np.int64))
+            got = sorted(x.id for x in sb.scd.search_constraints(
+                cells, None, None, now_dt, w1, allow_stale=True))
+            want = sorted(x.id for x in oracle_store.scd.search_constraints(
+                cells, None, None, now_dt, w1))
+            cst_bad += got != want
+            hits += len(got)
+            FED_TALLY.check(got == want,
+                            f"constraint query {i} != merged oracle")
+        fed.take_fed_note()
+        line["isa_constraint"] = {"queries": 2 * FED_CHECKS, "hits": hits,
+                                  "isa_mismatches": isa_bad,
+                                  "constraint_mismatches": cst_bad}
+
+        # -- 5. bulk stale drains through each region's federated store ----
+        for store in (sa, sb):
+            store.configure_serving(min_batch=BURST_MIN_BATCH)
+        drains = {"bursts_per_region": FED_DRAINS, "callers": BURST_CALLERS,
+                  "queued": [], "errors": []}
+        t = time.perf_counter()
+        for j in range(2 * FED_DRAINS):
+            entry = "a" if j < FED_DRAINS else "b"
+            order = ("a", "b") if entry == "a" else ("b", "a")
+            qs = fed_queries(700 + j, BURST_CALLERS, boundary, shift, 2)
+            out = fed_drain(stores, order, qs, entry)
+            drains["queued"].append(out["queued"])
+            drains["errors"] += out["errors"][:2]
+            for k in ("a", "b"):
+                counts[k][0] += out["launches"].get(k, 0)
+                counts[k][1] += out["replays"].get(k, 0)
+            for i, (q, g) in enumerate(zip(qs, out["answers"])):
+                FED_TALLY.check(g is not None and g == orc.ids(*q),
+                                f"drain {j} caller {i} != merged oracle")
+        fed.take_fed_note()
+        drains["seconds"] = time.perf_counter() - t
+        drains["b1_launches"] = {k: v[0] for k, v in counts.items()}
+        drains["b1_graph_replays"] = {k: v[1] for k, v in counts.items()}
+        drains["route_mix"] = {
+            k: {rt: s.scd._op_index.coalescer.stats()[
+                f"co_route_{rt}_batches"]
+                for rt in ("host", "hostchunk", "device", "resident")}
+            for k, s in stores.items()}
+        line["drains"] = drains
+        if drains["errors"]:
+            fail(f"drains: {drains['errors'][:3]}")
+        for k in ("a", "b"):
+            if counts[k][0] + counts[k][1] <= 0:
+                fail(f"B1 never launched on region {k}'s store")
+
+        # -- 6. a write into the other region's airspace -------------------
+        w0 = from_nanos(time.time_ns() + 10 * 60 * 10**9)
+        b_cells = s2cell.dar_key_to_cell(
+            np.arange(boundary + 10, boundary + 14, dtype=np.int64))
+
+        def isa(cells):
+            return ridm.IdentificationServiceArea(
+                id=str(uuid.uuid4()), owner="smoke",
+                url="https://uss.example/f", cells=cells, start_time=w0,
+                end_time=from_nanos(time.time_ns() + HOUR),
+                altitude_lo=0.0, altitude_hi=120.0)
+
+        guard = {}
+        try:
+            sa.rid.insert_isa(isa(b_cells))
+            fail("a write into b's airspace was accepted at a")
+        except errors.StatusError as e:
+            guard["healthy_status"] = e.http_status
+            guard["names_owner_url"] = "region-b.invalid" in e.message
+        FED_TALLY.check(guard.get("healthy_status") == 400
+                        and guard.get("names_owner_url", False),
+                        f"remote-owned write at a: {guard}")
+
+        # -- 7. the mirror's full-state sync, timed -----------------------
+        t = time.perf_counter()
+        body = fed.serve_sync(rb)
+        serve_s = time.perf_counter() - t
+        t = time.perf_counter()
+        mib = len(json.dumps(body)) / 2**20
+        json_s = time.perf_counter() - t
+        t = time.perf_counter()
+        ra.mirrors["b"].apply_sync(body)
+        apply_s = time.perf_counter() - t
+        del body
+        t = time.perf_counter()
+        ok_sync = ra.sync_peer("b") and rb.sync_peer("a")
+        line["sync"] = {
+            "serve_sync_s": serve_s, "mib": mib, "json_s": json_s,
+            "apply_sync_s": apply_s, "records": len(parts["b"]),
+            "both_ways_s": time.perf_counter() - t,
+            "mirror_counts": {"a<-b": ra.mirrors["b"].counts(),
+                              "b<-a": rb.mirrors["a"].counts()}}
+        if not ok_sync:
+            fail("a sync failed on a healthy link")
+
+        # -- 8. a seeded partition of b ------------------------------------
+        chaos.registry().reset_counters()
+        chaos.install_plan({"seed": 17, "events": [
+            {"site": "region.federation.request", "match": "b:",
+             "action": "partition", "count": -1},
+            {"site": "region.federation.sync", "match": "b",
+             "action": "partition", "count": -1}]})
+        part = {}
+        t_part = time.perf_counter()
+        syncs = [ra.sync_peer("b") for _ in range(3)]
+        part["syncs"] = syncs
+        part["degraded_after_syncs"] = sa.health.mode_name()
+        if sa.health.mode_name() != "federation_degraded":
+            fail(f"the ladder did not enter FEDERATION_DEGRADED: "
+                 f"{sa.health.mode_name()}")
+        # b keeps writing its own airspace: the mirror does not see it
+        new_op = scdm.Operation(
+            id=str(uuid.uuid4()), owner="uss-b", version=0,
+            start_time=from_nanos(state["now"] + HOUR // 2 - HOUR),
+            end_time=from_nanos(state["now"] + 3 * HOUR),
+            altitude_lower=0.0, altitude_upper=3000.0,
+            uss_base_url="https://uss.example", state="Accepted",
+            cells=s2cell.dar_key_to_cell(
+                np.arange(boundary + 20, boundary + 28, dtype=np.int64)))
+        stored, _ = sb.scd.upsert_operation(new_op, [], key_checked=True)
+        stale_qs = fed_queries(64, FED_STALE, boundary, shift, 2)
+        stale_qs[0] = (np.concatenate([
+            np.arange(boundary - 8, boundary - 4),
+            np.arange(boundary + 20, boundary + 24)]).astype(np.int32),
+            0.0, 3000.0, NOW + shift - HOUR, NOW + shift + HOUR)
+        lat, stale_bad, modes = [], 0, set()
+        s0 = ra.stale_served
+        for i, q in enumerate(stale_qs):
+            t = time.perf_counter()
+            got = fed_search(sa, q)
+            lat.append(time.perf_counter() - t)
+            note = fed.take_fed_note()
+            modes.add(note["mode"] if note else None)
+            good = got == orc.ids(*q)  # the mirror's state: pre-write
+            stale_bad += not good
+            FED_TALLY.check(good, f"stale query {i} != the mirror's state")
+        part["stale"] = {"queries": len(stale_qs), "mismatches": stale_bad,
+                         "served": ra.stale_served - s0,
+                         "modes": sorted(str(m) for m in modes),
+                         "mirror_lag_s": ra.mirrors["b"].lag_s(),
+                         **lat_ms(lat)}
+        if modes != {"stale"}:
+            fail(f"cross-region reads in the partition were {modes}")
+        fed.set_lag_bound(0.0)
+        try:
+            fed_search(sa, stale_qs[1])
+            fail("a lag bound below the mirror's lag was served")
+        except fed.FederationUnavailable as e:
+            part["overbound"] = {"status": e.http_status,
+                                 "retry_after_s": e.retry_after_s}
+        finally:
+            fed.set_lag_bound(None)
+            fed.take_fed_note()
+        try:
+            sa.rid.insert_isa(isa(b_cells))
+            fail("a write into partitioned b's airspace was accepted")
+        except errors.StatusError as e:
+            part["remote_write"] = {
+                "status": e.http_status,
+                "retry_after_s": getattr(e, "retry_after_s", None)}
+        local_ok = 0
+        for q in fed_queries(65, 16, boundary, shift, 1):
+            local_ok += fed_search(sa, q) == orc.ids(*q)
+        fed.take_fed_note()
+        part["local_served"] = {"queries": 16, "exact": local_ok}
+        FED_TALLY.check(local_ok == 16, "local queries in the partition")
+        FED_TALLY.check(part.get("overbound", {}).get("status") == 503
+                        and part["overbound"]["retry_after_s"] > 0,
+                        f"over-bound read: {part.get('overbound')}")
+        FED_TALLY.check(part.get("remote_write", {}).get("status") == 503,
+                        f"remote write in the partition: "
+                        f"{part.get('remote_write')}")
+        part["injected"] = chaos.registry().injected_by_site()
+
+        # -- 9. the heal: the ladder walks back, the state converges ------
+        chaos.clear_plan()
+        t_heal = time.perf_counter()
+        syncs = 0
+        while not ra.sync_peer("b"):
+            syncs += 1
+            if time.perf_counter() - t_heal > REGION_DEADLINE_S:
+                raise RuntimeError("b never re-synced after the heal")
+            time.sleep(0.02)
+        t_ok = time.perf_counter()
+        part["recover_s"] = t_ok - t_heal
+        part["failed_syncs_before_recovery"] = syncs
+        part["degraded_s"] = t_ok - t_part
+        part["ladder_dwell_s"] = sa.health.dwell_s("federation_degraded")
+        part["mode_after"] = sa.health.mode_name()
+        if sa.health.mode_name() != "healthy":
+            fail(f"the ladder did not walk back: {sa.health.mode_name()}")
+        orc.add(stored.id, stored.cells, stored.altitude_lower,
+                stored.altitude_upper, to_nanos(stored.start_time),
+                to_nanos(stored.end_time))
+        conv = held(sa, stale_qs, "converged query")
+        conv["has_b_write"] = stored.id in fed_search(sa, stale_qs[0])
+        FED_TALLY.check(conv["has_b_write"], "b's write not seen after heal")
+        conv["mirror_counts"] = ra.mirrors["b"].counts()
+        FED_TALLY.check(conv["mirror_counts"]["op"] == sum(
+            r["t"] == "scd_op_put" for r in parts["b"]) + 1,
+            f"mirror ops after heal {conv['mirror_counts']}")
+        fed.take_fed_note()
+        part["converged"] = conv
+        line["partition"] = part
+        line["router_stats"] = {k: {m: v for m, v in r_.stats().items()
+                                    if not isinstance(v, dict)}
+                                for k, r_ in routers.items()}
+    except Exception as e:  # noqa: BLE001 — the phase fails, the run goes on
+        fail(f"part A: {e!r}")
+    finally:
+        chaos.clear_plan()
+        fed.take_fed_note()
+        fed.set_lag_bound(None)
+        for s in stores.values():
+            s.close()
+        if oracle_store is not None:
+            oracle_store.close()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # -- Part B: the dryrun's sigkill leg, its servers on the card --------
+    t = time.perf_counter()
+    used0 = card_used_mib()
+    os.makedirs(os.path.join(work, "sigkill"), exist_ok=True)
+    try:
+        verdict = federation_dryrun.run_sigkill_leg(
+            os.path.join(work, "sigkill"), device=FED_DEVICE,
+            on_ready=lambda: {"card_used_mib": card_used_mib()})
+    except Exception as e:  # noqa: BLE001 — reported, fails the phase
+        verdict = {"ok": False, "error": repr(e)}
+    ready = verdict.pop("on_ready", {}).get("card_used_mib")
+    verdict["card_mib_two_servers"] = (
+        None if None in (used0, ready) else ready - used0)
+    verdict["seconds"] = time.perf_counter() - t
+    line["sigkill"] = verdict
+    local_5xx = verdict.get("partition", {}).get("local_5xx")
+    FED_TALLY.check(bool(verdict.get("ok")) and local_5xx == 0
+                    and verdict.get("bit_identical") is True
+                    and verdict.get("unexpected_statuses") == 0,
+                    f"sigkill leg: {verdict}")
+    if not verdict.get("ok"):
+        fail(f"sigkill leg: {verdict.get('error')}")
+    shutil.rmtree(work, ignore_errors=True)
+    line["mismatches"] = FED_TALLY.mismatches
+    line["compared"] = FED_TALLY.compared
+    return {"federation": line}, failures, {
+        "federation_launches": counts["a"][0] + counts["b"][0],
+        "federation_graph_replays": counts["a"][1] + counts["b"][1],
+        "federation_launches_by_region": {
+            k: v[0] for k, v in counts.items()}}
+
+
 def run(dev, smi) -> tuple:
     """Phases 2-7 on `dev`; -> (the entries of the kernels line, the
     serving phase's failures)."""
@@ -5353,7 +5994,7 @@ def run(dev, smi) -> tuple:
     log(json.dumps(http))
     failures += bad
     log(f"seconds before the shm front: {time.perf_counter() - t_all:.2f}")
-    region_counts = {}
+    region_counts, fed_counts = {}, {}
     if http_state is None:
         log(json.dumps({"shm_front": {"ran": False,
                                       "why": "the http phase did not run"}}))
@@ -5378,6 +6019,13 @@ def run(dev, smi) -> tuple:
             region["region"]["seconds"] = time.perf_counter() - t
             log(json.dumps(region))
             failures += bad
+            log(f"seconds before the federation: "
+                f"{time.perf_counter() - t_all:.2f}")
+            t = time.perf_counter()
+            fed_line, bad, fed_counts = federation_phase(smi, http_state)
+            fed_line["federation"]["seconds"] = time.perf_counter() - t
+            log(json.dumps(fed_line))
+            failures += bad
         finally:
             import shutil
 
@@ -5397,6 +6045,7 @@ def run(dev, smi) -> tuple:
     b1.update(nat_counts)
     b1.update(push_counts)
     b1.update(region_counts)
+    b1.update(fed_counts)
     return [b1] + legacy, failures
 
 
@@ -5426,11 +6075,12 @@ def main() -> int:
         return 1
     if failures:
         print(f"chip_smoke: a serving, store, services, http, shm front, "
-              f"push, mesh or region phase failed: {failures}",
+              f"push, mesh, region or federation phase failed: "
+              f"{failures}",
               file=sys.stderr)
         return 1
     tallies = list(TALLY.values()) + [STORE_TALLY, NATIVE_TALLY, PUSH_TALLY,
-                                      MESH_TALLY, REGION_TALLY]
+                                      MESH_TALLY, REGION_TALLY, FED_TALLY]
     bad = sum(t.mismatches for t in tallies)
     if bad:
         print(f"chip_smoke: {bad} of "

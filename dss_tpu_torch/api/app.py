@@ -18,10 +18,7 @@ Scope tables mirror pkg/rid/server/server.go:34-49,
 pkg/scd/server.go:58-76, pkg/aux_/server.go:17-21.
 
 A copy of the reference's `dss_tpu/api/app.py`, the shm front's read-
-worker proxy included.  What the port does not have yet raises
-`NotImplementedError` naming its slice when it is asked for: a
-federation router (federation slice).  Without it the reference's
-federation branches are no-ops, so they are left out here.  Inline
+worker proxy and the federation peer surface included.  Inline
 reads follow `native.available()` (`_native_ready`), and
 `/debug/profile` records a `torch.profiler` Chrome trace where the
 reference records a JAX trace.
@@ -274,6 +271,24 @@ def make_timeout_middleware(timeout_s: float):
     return timeout_middleware
 
 
+def _request_lag_bound(request) -> Optional[float]:
+    """The request's declared staleness bound (X-DSS-Max-Lag seconds)
+    for bounded-stale cross-region reads: the federation router
+    tightens its configured DSS_FED_STALE_LAG_S to this — a request
+    exceeding its own bound is rejected 503, never silently served
+    staler.  Unparseable values are ignored (the server bound
+    applies)."""
+    if request is None:
+        return None
+    raw = request.headers.get("X-DSS-Max-Lag")
+    if not raw:
+        return None
+    try:
+        return float(raw)
+    except ValueError:
+        return None
+
+
 async def _call(fn, *args, request=None):
     """Run a synchronous service call off the event loop.  The service
     layer holds the store lock and may run multi-ms device work (first
@@ -286,10 +301,12 @@ async def _call(fn, *args, request=None):
     from dss_tpu_torch.dar import readcache as _readcache
     from dss_tpu_torch.obs import stages as _stages
     from dss_tpu_torch.obs import trace as _trace
+    from dss_tpu_torch.region import federation as _fed
 
     loop = asyncio.get_running_loop()
     sink = None if request is None else request.get("dss_stages")
     route_dl = None if request is None else request.get("dss_deadline")
+    lag_bound = _request_lag_bound(request)
     th = _trace_handle(request)
     t0 = time.perf_counter()
 
@@ -298,6 +315,8 @@ async def _call(fn, *args, request=None):
             _stages.set_sink(sink)
         if route_dl is not None:
             _deadline.set_route_deadline(route_dl)
+        _fed.set_lag_bound(lag_bound)
+        _fed.take_fed_note()  # clear any stale note on this thread
         try:
             # trace handoff to the executor thread: a "service" span
             # under the request root; everything the service layer
@@ -314,6 +333,10 @@ async def _call(fn, *args, request=None):
             note = _readcache.take_note()
             if request is not None and note is not None:
                 request["dss_freshness"] = note
+            fed_note = _fed.take_fed_note()
+            if request is not None and fed_note is not None:
+                request["dss_fed"] = fed_note
+            _fed.set_lag_bound(None)
             if sink is not None:
                 _stages.set_sink(None)
             if route_dl is not None:
@@ -340,11 +363,18 @@ def _freshness_json_response(request, data) -> web.Response:
     the wire without reading code.  When the store's degradation
     ladder is non-healthy the header additionally carries
     `;mode=<condition>` — a degraded answer (hostchunk-only serving,
-    fenced-cache reads during a region outage) is honest about it.
-    (The reference adds federation provenance here; the port has no
-    federation yet.)"""
+    fenced-cache reads during a region outage) is honest about it."""
     note = request.get("dss_freshness")
+    fed = request.get("dss_fed")
     headers = None
+    if note is None and fed is not None and fed["mode"] != "local":
+        # a purely-remote federated answer never touched the local
+        # read path: synthesize the base fields from the remote's
+        # freshness stamp so the header still carries epoch + gen
+        note = {
+            "epoch": fed["epoch"], "cls": fed["cls"] or "-",
+            "gen": fed["gen"], "hit": False,
+        }
     if note is not None:
         val = (
             f"epoch={note['epoch'] or '-'};"
@@ -360,8 +390,21 @@ def _freshness_json_response(request, data) -> web.Response:
                 mode = None
             if mode == "healthy":
                 mode = None
+        if mode is None and fed is not None and fed["mode"] == "stale":
+            # a declared-lag mirror answer is honest about it even
+            # when the ladder has already walked back
+            mode = "stale"
         if mode:
             val += f";mode={mode}"
+        if fed is not None:
+            # federation provenance: serving region(s), how the
+            # remote slice was served, and the worst measured lag
+            val += (
+                f";region={','.join(fed['regions'])}"
+                f";fed={fed['mode']}"
+            )
+            if fed["mode"] == "stale":
+                val += f";lag={fed['lag_s']:.3f}"
         headers = {"X-DSS-Freshness": val}
     return web.json_response(data, headers=headers)
 
@@ -597,7 +640,7 @@ def build_app(
     health_fn=None,  # degradation mode: DSSStore.health.mode_name
     default_timeout_s: float = 10.0,
     replica=None,  # ShardedOpReplica: multi-chip read-replica surface
-    federation=None,  # FederationRouter: the federation slice (raises)
+    federation=None,  # FederationRouter: peer query/sync surface
     push=None,  # PushPipeline: webhook registry + ingest surface
     trace_requests: bool = False,
     profile_dir: str = "",
@@ -607,8 +650,6 @@ def build_app(
 ) -> web.Application:
     from dss_tpu_torch.obs.logging import make_access_log_middleware
 
-    if federation is not None:
-        errors.later_slice("the federation peer surface", "federation")
     middlewares = [
         make_access_log_middleware(
             metrics, dump_requests=dump_requests, health_fn=health_fn
@@ -662,6 +703,7 @@ def build_app(
         from dss_tpu_torch.dar import readcache as _readcache
         from dss_tpu_torch.obs import stages as _stages
         from dss_tpu_torch.obs import trace as _trace
+        from dss_tpu_torch.region import federation as _fed
 
         sink = request.get("dss_stages")
         before = None if sink is None else dict(sink)
@@ -673,10 +715,12 @@ def build_app(
         if route_dl is not None:
             _deadline.set_route_deadline(route_dl)
         _budget.set_host_only(True)
+        _fed.set_lag_bound(_request_lag_bound(request))
         # clear any stale freshness note on the loop thread: a prior
         # request that escalated to the executor mid-note must not
         # donate its note to this one (first-wins would keep it)
         _readcache.take_note()
+        _fed.take_fed_note()
         try:
             with _trace.use(th), _trace.span("service"):
                 out = fn(*args)
@@ -692,14 +736,21 @@ def build_app(
             # drop the aborted attempt's note BEFORE awaiting: the
             # executor re-run stashes the real one, other inline
             # requests may interleave during the await, and the
-            # finally below must find this thread's slot empty
+            # finally below must find this thread's slot empty (the
+            # re-run reads the request's X-DSS-Max-Lag anew and sets
+            # it on the executor thread that runs it)
             _readcache.take_note()
+            _fed.take_fed_note()
             return await _call(fn, *args, request=request)
         finally:
             _budget.set_host_only(False)
             note = _readcache.take_note()
             if note is not None:
                 request["dss_freshness"] = note
+            fed_note = _fed.take_fed_note()
+            if fed_note is not None:
+                request["dss_fed"] = fed_note
+            _fed.set_lag_bound(None)
             if sink is not None:
                 _stages.set_sink(None)
                 sink["service_ms"] = round(
@@ -874,6 +925,36 @@ def build_app(
             )
 
         app.router.add_post("/debug/profile", debug_profile)
+
+    if federation is not None:
+        # the cross-region peer surface (region/federation.py): a
+        # remote region's router queries/syncs against the LOCAL
+        # stores (never recursing through the federation layer)
+        from dss_tpu_torch.region import federation as _fedmod
+
+        async def federation_query(request):
+            auth(request, _AUX + "FederationQuery")
+            payload = await _params(request)
+            return web.json_response(
+                await _call_r(
+                    request,
+                    functools.partial(
+                        _fedmod.serve_query, federation, payload
+                    ),
+                )
+            )
+
+        async def federation_sync(request):
+            auth(request, _AUX + "FederationSync")
+            return web.json_response(
+                await _call_r(
+                    request,
+                    functools.partial(_fedmod.serve_sync, federation),
+                )
+            )
+
+        app.router.add_post("/aux/v1/federation/query", federation_query)
+        app.router.add_get("/aux/v1/federation/sync", federation_sync)
 
     if push is not None:
         # the push-pipeline surface (dss_tpu/push): webhook hook

@@ -12,7 +12,9 @@ A copy of the reference's `dss_tpu/cmds/server.py` in standalone mode,
 with its read-worker fleet (`--workers N`), and in region mode
 (`--region_url`: one instance of a DSS Region over a shared region log,
 dss_tpu_torch/region; `--workers` stays standalone-only, as in the
-reference).
+reference), and federated (`--federation_map`: one region of several,
+each owning a key range of the airspace, region/federation.py; refused
+with `--workers`, as in the reference).
 `--storage cuda` (the default) puts every entity class's tables on
 `--device` (default `cuda`, which raises on a machine without a card;
 `--device cpu` runs the plain versions).  `--device` and
@@ -170,14 +172,19 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--federation_map",
         default=os.environ.get("DSS_FED_MAP", ""),
-        help="multi-region federation map (federation slice).  Env "
-        "fallback DSS_FED_MAP",
+        help="path to the format-versioned multi-region federation "
+        "map (S2-key-range -> region ownership + peer URLs, "
+        "region/federation.py).  Joins this region to the federation: "
+        "locality routing serves owned coverings locally, fans "
+        "cross-region slices out to peers, and serves bounded-stale "
+        "follower reads during partitions.  Env fallback DSS_FED_MAP; "
+        "DSS_FED_* knobs in the README",
     )
     p.add_argument(
         "--federation_region",
         default=os.environ.get("DSS_FED_REGION", ""),
         help="this deployment's region id in the federation map "
-        "(federation slice; env DSS_FED_REGION)",
+        "(overrides the map's 'local' field; env DSS_FED_REGION)",
     )
     p.add_argument(
         "--push",
@@ -347,6 +354,11 @@ def build_worker(args) -> web.Application:
     log = get_logger("dss.worker")
     if not args.wal_path or not args.leader_url:
         raise SystemExit("--worker_reader needs --wal_path and --leader_url")
+    if args.federation_map:
+        raise SystemExit(
+            "--worker_reader cannot serve a federated region (see the"
+            " --federation_map/--workers refusal in the leader)"
+        )
     device = None
     if args.storage == "cuda":
         from dss_tpu_torch.ops.fastpath import resolve_device
@@ -522,11 +534,9 @@ def _make_authorizer(args):
 
 # flag -> (its value when unset, the slice of the port that brings it).
 # The parser's defaults already read the reference's env fallbacks
-# (DSS_FED_MAP, DSS_PUSH, DSS_TUNE, DSS_AUTOTUNE_PROFILE); the
-# process-spanning mesh is also entered through DSS_JAX_COORDINATOR, as
-# in the reference.
+# (DSS_TUNE, DSS_AUTOTUNE_PROFILE); the process-spanning mesh is also
+# entered through DSS_JAX_COORDINATOR, as in the reference.
 LATER_SLICE_FLAGS = {
-    "federation_map": ("", "federation"),
     "jax_coordinator": ("", "multihost"),
     "process_id": (None, "multihost"),
     "num_processes": (None, "multihost"),
@@ -539,16 +549,16 @@ LATER_SLICE_FLAGS = {
 def refuse_later_slices(args) -> None:
     """SystemExit naming the slice of the first flag that a later slice
     of the port brings (the port serves standalone and region mode,
-    with or without its read-worker fleet and its single-process
-    mesh)."""
+    federated or not, with or without its read-worker fleet and its
+    single-process mesh)."""
     if os.environ.get("DSS_JAX_COORDINATOR"):
         args.jax_coordinator = os.environ["DSS_JAX_COORDINATOR"]
     for flag, (unset, slice_) in LATER_SLICE_FLAGS.items():
         if getattr(args, flag) != unset:
             raise SystemExit(
                 f"--{flag} is not ported yet; it comes with the {slice_} "
-                "slice of the PyTorch/CUDA port (standalone and region "
-                "mode and the single-process mesh only)"
+                "slice of the PyTorch/CUDA port (standalone, region "
+                "and federated mode and the single-process mesh only)"
             )
 
 
@@ -643,6 +653,17 @@ def build(args) -> web.Application:
     refuse_later_slices(args)
     if args.worker_reader:
         return build_worker(args)
+    if args.federation_map and args.workers > 0:
+        # worker readers serve searches from a plain WAL-tail replica
+        # with no federation layer: a cross-region covering landing on
+        # a worker would return a silently PARTIAL answer, and peer
+        # federation calls would 404.  Refuse the combination (before
+        # the store boots) until workers grow federation-aware routing.
+        raise SystemExit(
+            "--federation_map with --workers > 0 is not supported yet:"
+            " read workers would serve cross-region coverings"
+            " partially; run federated instances single-process"
+        )
 
     configure_logging()
     log = get_logger("dss.server")
@@ -691,6 +712,28 @@ def build(args) -> web.Application:
         "loaded" if native.available() else "not built yet (numpy)",
         "on" if _inline_reads(args) else "off",
     )
+    fed_router = None
+    if args.federation_map:
+        # multi-region federation: attach BEFORE building services so
+        # they see the federated store wrappers (locality routing +
+        # ownership-guarded writes + bounded-stale remote reads)
+        from dss_tpu_torch.region import federation as fedmod
+
+        fmap = fedmod.FederationMap.load(
+            args.federation_map, local=args.federation_region or None
+        )
+        fed_router = fedmod.FederationRouter.from_map(
+            fmap,
+            token=os.environ.get("DSS_FED_TOKEN") or None,
+            **fedmod.env_knobs(),
+        )
+        store.attach_federation(fed_router)
+        log.info(
+            "federation: region %s of %s (stale lag bound %.1fs, "
+            "sync every %.2fs)",
+            fmap.local, fmap.region_ids, fed_router.stale_lag_s,
+            fed_router.sync_interval_s,
+        )
     rid = RIDService(store.rid, clock)
     scd = SCDService(store.scd, clock) if args.enable_scd else None
 
@@ -786,6 +829,7 @@ def build(args) -> web.Application:
         health_fn=store.health.mode_name,
         default_timeout_s=args.default_timeout,
         replica=replica,
+        federation=fed_router,
         push=push,
         trace_requests=args.trace_requests,
         profile_dir=args.profile_dir,
@@ -805,8 +849,11 @@ def build(args) -> web.Application:
         # loops (store.close, push first), so that no daemon thread is
         # inside a torch call when the interpreter exits (it would
         # abort the process: "terminate called without an active
-        # exception"); the replica's tail stops first
+        # exception"); the federation's sync thread and the replica's
+        # tail stop first
         def close():
+            if fed_router is not None:
+                fed_router.close()
             if replica is not None:
                 replica.close()
             if warm_thread is not None:

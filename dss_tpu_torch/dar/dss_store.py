@@ -5,8 +5,8 @@ and region mode.  One implementation serves both backends — the
 spatial index strategy is injected (`storage="memory"` ->
 MemorySpatialIndex linear scans, `storage="cuda"` -> CudaSpatialIndex,
 the DarTable on the card), mirroring how the upstream DSS selects its
-store behind the repository seam.  The federation and the tuner come
-with later slices; asking for them raises.
+store behind the repository seam.  The tuner comes with a later
+slice; asking for it raises.
 
 Semantics mirrored from the reference:
   - RID fenced writes on the commit-timestamp version
@@ -56,23 +56,12 @@ from dss_tpu_torch.models.core import Version, new_ovn_from_time
 MAX_RID_SUBSCRIPTIONS_PER_AREA = 10  # DSS0030
 MAX_SCD_SUBSCRIPTIONS_PER_AREA = 10
 
-# The stable gauge key sets of the attachments the port leaves out so
-# far (the reference's federation.empty_stats, then tune.empty_stats):
-# a standalone store exports them empty so dashboards never miss a
-# series.  The push and shm families come from push.empty_stats() and
-# shmring.empty_stats() (or the attached pipeline's and owner's stats).
-_EMPTY_FED_STATS = {
-    "dss_fed_partitioned": 0.0,
-    "dss_fed_peer_state": {},
-    "dss_fed_mirror_lag_s": {},
-    "dss_fed_local_queries": 0.0,
-    "dss_fed_remote_queries": 0.0,
-    "dss_fed_stale_served": 0.0,
-    "dss_fed_shed": 0.0,
-    "dss_fed_writes_rejected": 0.0,
-    "dss_fed_syncs": 0.0,
-    "dss_fed_sync_failures": 0.0,
-}
+# The stable gauge key set of the attachment the port leaves out so far
+# (the reference's tune.empty_stats): a standalone store exports it
+# empty so dashboards never miss a series.  The federation, push and
+# shm families come from federation.empty_stats(), push.empty_stats()
+# and shmring.empty_stats() (or the attached router's, pipeline's and
+# owner's stats).
 _EMPTY_TUNE_STATS = {
     "dss_tune_enabled": 0,
     "dss_tune_frozen": 0,
@@ -1527,6 +1516,11 @@ class DSSStore:
                 )
                 co.set_load_view(self.range_load)
                 co.set_health(self.health)
+        # multi-region federation (region/federation.py): None until
+        # attach_federation wraps the sub-stores with the locality
+        # router; stats() exports the stable dss_fed_* key set either
+        # way so dashboards never miss a series
+        self.federation = None
         # reverse-query push pipeline (push/pipeline.py): None until
         # attach_push wires the durable delivery queue onto the write
         # path; stats() exports the stable dss_push_* key set either way
@@ -1784,7 +1778,31 @@ class DSSStore:
         return owner
 
     def attach_federation(self, router) -> None:
-        errors.later_slice("federation (attach_federation)", "federation")
+        """Put the multi-region FederationRouter in front of the
+        store: binds the UNWRAPPED sub-stores for peer-facing serving
+        (a remote's query must never recurse through the federation
+        layer), wires the degradation ladder (remote-unreachable ->
+        FEDERATION_DEGRADED, recovery re-syncs the follower tail
+        before re-admission), swaps self.rid/self.scd for the
+        federated wrappers (searches federate, cells-carrying writes
+        are ownership-guarded), and starts the mirror sync loop.
+        Call BEFORE building services — they must see the wrappers."""
+        from dss_tpu_torch.region import federation as fedmod
+
+        if self.federation is not None:
+            raise RuntimeError("federation already attached")
+        epoch_fn = None
+        if self.region is not None:
+            epoch_fn = self._region_client.current_epoch
+        router.bind_local(
+            self.rid, self.scd, epoch_fn=epoch_fn,
+            wall_clock=self.clock,
+        )
+        router.set_health(self.health)
+        self.federation = router
+        self.rid = fedmod.FederatedRIDStore(self.rid, router)
+        self.scd = fedmod.FederatedSCDStore(self.scd, router)
+        router.start()
 
     def attach_push(self, pipeline) -> None:
         """Wire the reverse-query push pipeline (push/pipeline.py) onto
@@ -1803,7 +1821,7 @@ class DSSStore:
 
     def attach_tuner(self, controller) -> None:
         errors.later_slice("the self-tuning controller (attach_tuner)",
-                     "measurement surfaces")
+                           "tuner")
 
     def attach_mesh_replica(self, replica, min_batch: int = 64) -> None:
         """Route oversized bounded-staleness search batches from each
@@ -1853,6 +1871,8 @@ class DSSStore:
             self.push.close()
         if self._shm_owner is not None:
             self._shm_owner.close()
+        if self.federation is not None:
+            self.federation.close()
         if self.region is not None:
             self.region.close()
             self._region_client.close()
@@ -1894,11 +1914,15 @@ class DSSStore:
             if fn is not None:
                 breakers = fn()
         out["dss_breaker_state"] = breakers
-        # federation family: empty until its slice attaches it
-        out.update(
-            {k: (dict(v) if isinstance(v, dict) else v)
-             for k, v in _EMPTY_FED_STATS.items()}
-        )
+        # federation gauges: the stable key set whether or not a
+        # router is attached (dss_fed_peer_state/mirror_lag_s render
+        # as labeled families keyed by region)
+        from dss_tpu_torch.region import federation as _fedmod
+
+        if self.federation is not None:
+            out.update(self.federation.stats())
+        else:
+            out.update(_fedmod.empty_stats())
         # shared-memory front gauges: same stable-key-set discipline
         # (per-worker counters render as dss_shm_worker_*{process})
         from dss_tpu_torch.parallel import shmring as _shmmod
@@ -1954,6 +1978,9 @@ class DSSStore:
             # every active condition with its age and reason
             "degraded_mode": self.health.mode_name(),
             "degraded": self.health.active(),
-            "federation": None,
+            "federation": (
+                None if self.federation is None
+                else self.federation.status()
+            ),
             "push": None if self.push is None else self.push.status(),
         }

@@ -1,7 +1,6 @@
 """One planner over the serving routes.
 
-A copy of the reference's `dss_tpu/plan/planner.py` (the federation
-read admissibility waits for the federation slice).  A routing
+A copy of the reference's `dss_tpu/plan/planner.py`.  A routing
 decision is an explicit **Plan** produced by one pure function,
 `decide(shape, state, headroom_ms)`:
 
@@ -643,3 +642,60 @@ class Planner:
             out["co_plan_fallbacks"] = self._fallbacks
             out["co_plan_total"] = sum(self._plans.values())
         return out
+
+
+# -- federation read admissibility (region/federation.py) --------------------
+#
+# The cross-region analog of decide(): pure, replayable, and owning
+# the ONE policy question a federated read poses — live peer, declared-
+# lag mirror, or honest shed.  The FederationRouter feeds it breaker +
+# mirror state; keeping the decision here keeps route admissibility a
+# planner concern (same discipline as device_ok gating the device
+# class under DEVICE_LOST).
+
+FED_REMOTE = "remote"
+FED_STALE = "stale"
+FED_SHED = "shed"
+
+
+@dataclasses.dataclass(frozen=True)
+class FederationReadPlan:
+    """The chosen cross-region route for one remote slice.
+    retry_after_s is only meaningful for FED_SHED — the honest
+    Retry-After (breaker cooldown, floored so clients cannot
+    busy-poll a flapping link)."""
+
+    route: str
+    retry_after_s: float = 0.0
+
+
+def decide_federation_read(
+    *,
+    peer_allowed: bool,
+    cooldown_s: float,
+    mirror_synced: bool,
+    mirror_lag_s: float,
+    lag_bound_s: float,
+    allow_stale: bool = True,
+) -> FederationReadPlan:
+    """Pure federation-read route choice.
+
+      peer breaker allows traffic      -> FED_REMOTE (live bounded-
+                                          stale follower read at the
+                                          remote region)
+      else, bounded-stale query AND
+      the local mirror's measured lag
+      is inside the declared bound     -> FED_STALE (declared-lag
+                                          mirror read; the response
+                                          header carries the lag)
+      else                             -> FED_SHED (503 + honest
+                                          Retry-After; never silently
+                                          served staler than declared)
+    """
+    if peer_allowed:
+        return FederationReadPlan(FED_REMOTE)
+    if allow_stale and mirror_synced and mirror_lag_s <= lag_bound_s:
+        return FederationReadPlan(FED_STALE)
+    return FederationReadPlan(
+        FED_SHED, retry_after_s=max(0.5, float(cooldown_s))
+    )

@@ -1,7 +1,6 @@
 """Multi-instance DSS Region: replicated write log + per-instance DAR.
 
-The port of the reference's `dss_tpu/region` (all but the federation,
-which comes with its own slice).  The upstream DSS's region story is a
+The port of the reference's `dss_tpu/region`.  The upstream DSS's region story is a
 shared CockroachDB cluster — N organizations' DSS instances
 gossip/Raft-replicate one SQL database (its README.md:22-49,
 implementation_details.md:11-42) and every instance reads its own
@@ -46,14 +45,37 @@ from dss_tpu_torch.region.client import (
 from dss_tpu_torch.region.coordinator import RegionCoordinator
 from dss_tpu_torch.region.log_server import build_region_app
 
+# region.federation (multi-region locality routing + bounded-stale
+# follower reads) loads on first use: it pulls in the codec, the models
+# and the covering, which the log server and the client never need.
+_FEDERATION = (
+    "FederatedRIDStore",
+    "FederatedSCDStore",
+    "FederationMap",
+    "FederationPeer",
+    "FederationRouter",
+    "FederationUnavailable",
+    "FollowerMirror",
+    "HttpPeerTransport",
+    "PeerError",
+    "RegionEntry",
+)
+
 __all__ = [
     "RegionClient",
     "RegionCoordinator",
     "RegionError",
     "SnapshotRequired",
     "build_region_app",
+    "federation",
+    *_FEDERATION,
 ]
 
-# The reference's region.federation (multi-region locality routing +
-# bounded-stale follower reads) is imported explicitly by its users; the
-# port's comes with the federation slice.
+
+def __getattr__(name):
+    if name == "federation" or name in _FEDERATION:
+        import importlib
+
+        fed = importlib.import_module("dss_tpu_torch.region.federation")
+        return fed if name == "federation" else getattr(fed, name)
+    raise AttributeError(name)

@@ -78,11 +78,13 @@ class TransportError(OSError):
 
 
 class Response:
-    """A whole HTTP response: its status and body."""
+    """A whole HTTP response: its status, body and headers (looked up
+    without regard to case)."""
 
-    def __init__(self, status: int, body: bytes):
+    def __init__(self, status: int, body: bytes, headers=None):
         self.status_code = status
         self.content = body
+        self.headers = {} if headers is None else headers
 
     @property
     def text(self) -> str:
@@ -171,7 +173,7 @@ class _Transport:
             if resp.will_close:
                 conn.close()
                 conns.pop(key, None)
-            return Response(resp.status, body)
+            return Response(resp.status, body, resp.headers)
 
     def close(self) -> None:
         """Close every connection of every thread."""

@@ -245,8 +245,42 @@ def test_debug_profile_writes_a_torch_trace(keypair, tmp_path):
 
 
 def test_later_slice_arguments_raise():
-    with pytest.raises(NotImplementedError, match="federation slice"):
-        build_app(federation=object())
+    # the federation slice is ported: build_app(federation=) serves the
+    # peer surface (tests/test_torch_federation.py holds it to the
+    # reference)
+    import numpy as np
+
+    from dss_tpu_torch.geo.s2cell import dar_key_to_cell
+    from dss_tpu_torch.region import federation as p_fed
+
+    ps = DSSStore(storage="memory")
+    entries = [p_fed.RegionEntry("a"), p_fed.RegionEntry("b")]
+    router = p_fed.FederationRouter(
+        p_fed.FederationMap(entries, np.array([1000], np.int32), "a"),
+        {"b": p_fed.FederationPeer("b", lambda *a: {})},
+    )
+    ps.attach_federation(router)
+    router.close()
+    srv = LiveServer(build_app(RIDService(ps.rid, ps.clock),
+                               SCDService(ps.scd, ps.clock),
+                               federation=router))
+    try:
+        r = requests.get(srv.base + "/aux/v1/federation/sync", timeout=10)
+        assert r.status_code == 200, r.text
+        assert r.json()["region"] == "a"
+        cells = [int(c) for c in dar_key_to_cell(np.arange(4))]
+        r = requests.post(srv.base + "/aux/v1/federation/query",
+                          json={"cls": "isa", "cells": cells,
+                                "t0_ns": 0}, timeout=10)
+        assert r.status_code == 200, r.text
+        assert r.json()["docs"] == []
+        assert r.json()["freshness"]["region"] == "a"
+        r = requests.post(srv.base + "/aux/v1/federation/query",
+                          json={"cls": "nope", "cells": [1]}, timeout=10)
+        assert r.status_code == 400
+    finally:
+        srv.stop()
+        ps.close()
     # the read-worker proxy is the shm front's, ported
     assert callable(p_app.make_worker_proxy_middleware("http://127.0.0.1:1"))
     # inline reads follow the native library (no longer a later slice)

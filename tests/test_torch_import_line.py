@@ -14,7 +14,8 @@
   name: ops.conflict, parallel.mesh, parallel.sharded,
   parallel.replica; the region's by name: region, region.client,
   region.log_server, region.mirror, region.coordinator,
-  cmds.region_server), chip_smoke and b1_device_time import in a
+  cmds.region_server; the federation's by name: region.federation,
+  cmds.federation_dryrun), chip_smoke and b1_device_time import in a
   process where `jax`, `requests` (absent on the card's machine; the
   region client rides http.client) and every `dss_tpu` module are
   refused.
@@ -92,7 +93,8 @@ _PROBE = textwrap.dedent(
                 "parallel.mesh", "parallel.sharded",
                 "parallel.replica", "region", "region.client",
                 "region.log_server", "region.mirror",
-                "region.coordinator", "cmds.region_server"):
+                "region.coordinator", "cmds.region_server",
+                "region.federation", "cmds.federation_dryrun"):
         assert "dss_tpu_torch." + mod in names, (mod, names)
     import chip_smoke  # its helpers; main() only runs as a script
     assert callable(chip_smoke.run) and callable(chip_smoke.make_batch)
@@ -114,7 +116,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         capture_output=True, text=True, timeout=120,
     )
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 51  # every module was reached
+    assert int(res.stdout.split()[-1]) >= 53  # every module was reached
 
 
 def _tiny_table_args():

@@ -11,7 +11,10 @@ re-zero the scratch, with two units in flight, captured while
 another thread serves cold batches, and captured with a collection due
 at every allocation and a dead table's units waiting.  The store: DSSStore(storage="cuda")
 with no device= puts its tables on the card, and a burst of 128 stale
-store searches reaches B1 with the answers of a memory store.  The mesh
+store searches reaches B1 with the answers of a memory store.  The
+federation: two federated cuda stores (region/federation.py) drain 128
+cross-region stale searches, B1 launches on each region's store, and
+every answer equals two federated stores on the CPU.  The mesh
 route (ops/conflict.py's torch ops under parallel/sharded.py): a cuda
 ShardedDar on a virtual 2x4 mesh equals the CPU one; a replica
 refreshes in a loop while the GraphCache captures on another thread,
@@ -739,6 +742,140 @@ def test_store_burst_of_stale_callers_launches_b1(cuda):
     finally:
         store.close()
         mem.close()
+
+
+def _federated_stores(device, n, seed):
+    """Regions a (keys < 1000) and b, each a DSSStore(storage="cuda")
+    on `device` federated with the other through in-process transports,
+    holding n operations of its own airspace each."""
+    from dss_tpu_torch.clock import FakeClock, from_nanos
+    from dss_tpu_torch.dar.dss_store import DSSStore
+    from dss_tpu_torch.geo import s2cell
+    from dss_tpu_torch.models import scd as scdm
+    from dss_tpu_torch.region import federation as fed
+
+    entries = [fed.RegionEntry("a"), fed.RegionEntry("b")]
+    routers, stores = {}, {}
+
+    def transport_to(name):
+        def transport(method, path, payload):
+            if path.endswith("/query"):
+                return fed.serve_query(routers[name], payload)
+            return fed.serve_sync(routers[name])
+        return transport
+
+    for local, remote, lo in (("a", "b", 800), ("b", "a", 1000)):
+        routers[local] = fed.FederationRouter(
+            fed.FederationMap(entries, np.array([1000], np.int32), local),
+            {remote: fed.FederationPeer(remote, transport_to(remote))})
+        store = DSSStore(storage="cuda", device=device,
+                         clock=FakeClock(from_nanos(NOW)))
+        rng = np.random.default_rng(seed + lo)
+        for i in range(n):
+            s = int(rng.integers(lo, lo + 200 - 8))
+            alo = float(np.float32(rng.uniform(0, 3000)))
+            t0 = NOW + int(rng.integers(-4, 4)) * HOUR
+            store.scd.upsert_operation(scdm.Operation(
+                id=f"{local}op{i}", owner=f"uss{i % 7}",
+                start_time=from_nanos(t0),
+                end_time=from_nanos(t0 + int(rng.integers(1, 6)) * HOUR),
+                altitude_lower=alo, altitude_upper=alo + 400.0,
+                uss_base_url="https://uss.example", state="Accepted",
+                cells=s2cell.dar_key_to_cell(np.arange(s, s + 8)),
+            ), [], key_checked=True)
+        store.scd._op_index.table.fold()
+        store.configure_serving(min_batch=128, cache=False)
+        store.attach_federation(routers[local])
+        routers[local].close()
+        stores[local] = store
+    return stores
+
+
+@pytest.mark.gpu
+def test_federated_drains_launch_b1_on_both_regions(cuda):
+    """128 bounded-stale searches whose coverings span both regions,
+    through region a's federated store: a's op table and then b's hold
+    their submit until 80 queue, so each region drains one batch of
+    more than 64 on the device route.  B1 launches on each region's
+    store (counted from zero per region), and every answer equals two
+    federated stores on the CPU."""
+    import threading
+    import time
+
+    from dss_tpu_torch.clock import from_nanos
+    from dss_tpu_torch.geo import s2cell
+
+    rng = np.random.default_rng(42)
+    qs = []
+    for _ in range(128):
+        s = int(rng.integers(989, 1000))
+        alo = float(np.float32(rng.uniform(0, 3000)))
+        t0 = NOW + int(rng.integers(-2, 2)) * HOUR
+        qs.append((s2cell.dar_key_to_cell(np.arange(s, s + 12)), alo,
+                   alo + 300.0, from_nanos(t0), from_nanos(t0 + HOUR)))
+    card = _federated_stores(cuda, 3000, 5)
+    cpu = _federated_stores("cpu", 3000, 5)
+    try:
+        gates, submits = {}, {}
+        for k, store in card.items():
+            table = store.scd._op_index.table
+            gates[k] = threading.Event()
+            submits[k] = table.query_many_submit
+
+            def gated(*a, _k=k, **kw):
+                gates[_k].wait(10.0)
+                return submits[_k](*a, **kw)
+
+            table.query_many_submit = gated
+        got = [None] * len(qs)
+
+        def client(i):
+            got[i] = card["a"].scd.search_operations(*qs[i],
+                                                     allow_stale=True)
+
+        def queued(k, n):
+            co = card[k].scd._op_index.coalescer
+            until = time.perf_counter() + 5.0
+            while (co.stats()["co_queue_depth"] < n
+                   and time.perf_counter() < until):
+                time.sleep(0.005)
+
+        launches = {}
+        ff.fused_window_filter.launches = 0
+        ths = [threading.Thread(target=client, args=(i,))
+               for i in range(len(qs))]
+        try:
+            for th in ths:
+                th.start()
+            queued("a", 80)
+            gates["a"].set()
+            # every caller passes a's slice before it queues on b
+            queued("b", 80)
+            launches["a"] = ff.fused_window_filter.launches
+            ff.fused_window_filter.launches = 0
+            gates["b"].set()
+            for th in ths:
+                th.join(60)
+            launches["b"] = ff.fused_window_filter.launches
+        finally:
+            for k, store in card.items():
+                store.scd._op_index.table.__dict__.pop(
+                    "query_many_submit", None)
+                gates[k].set()
+        assert launches["a"] > 0 and launches["b"] > 0, launches
+        hits = 0
+        for q, g in zip(qs, got):
+            want = cpu["a"].scd.search_operations(*q, allow_stale=True)
+            assert [(o.id, o.version, o.ovn) for o in g] == [
+                (o.id, o.version, o.ovn) for o in want]
+            hits += len(g)
+        assert hits > 0
+        for k, store in card.items():
+            st = store.scd._op_index.coalescer.stats()
+            assert st["co_route_device_batches"] >= 1, (k, st)
+    finally:
+        for store in (*card.values(), *cpu.values()):
+            store.close()
 
 
 @pytest.mark.gpu

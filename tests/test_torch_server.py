@@ -269,7 +269,6 @@ def test_later_slice_flags_name_their_slice(monkeypatch):
                  "DSS_AUTOTUNE_PROFILE", "DSS_JAX_COORDINATOR"):
         monkeypatch.delenv(flag, raising=False)
     cases = {
-        "--federation_map m.json": "federation",
         "--jax_coordinator h:1": "multihost", "--process_id 0": "multihost",
         "--num_processes 2": "multihost",
         "--multihost_dryrun 2": "multihost",
@@ -299,6 +298,19 @@ def test_later_slice_flags_name_their_slice(monkeypatch):
         "--region_poll_interval 0.1 --region_snapshot_every 64 "
         "--instance_id dss-a".split()
     ))
+    # and so are the federation's (tests/test_torch_federation.py);
+    # as in the reference, a federated region is refused with read
+    # workers, before the store boots, and by a worker reader
+    fed = parser.parse_args("--federation_map m.json --federation_region a"
+                            .split())
+    p_server.refuse_later_slices(fed)
+    with pytest.raises(SystemExit, match="--workers > 0 is not supported"):
+        p_server.build(parser.parse_args(
+            "--federation_map m.json --workers 2".split()))
+    with pytest.raises(SystemExit, match="cannot serve a federated region"):
+        p_server.build(parser.parse_args(
+            "--worker_reader --wal_path w --leader_url http://l "
+            "--federation_map m.json".split()))
     monkeypatch.setenv("DSS_JAX_COORDINATOR", "h:1")
     with pytest.raises(SystemExit, match="the multihost slice"):
         p_server.refuse_later_slices(parser.parse_args([]))

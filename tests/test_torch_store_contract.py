@@ -463,12 +463,8 @@ def test_later_slices_raise():
     s = PStore(storage="memory")
     try:
         assert s.region is None and not s.rid._capture_undo
-        for name, args, slice_ in (
-            ("attach_federation", (None,), "federation slice"),
-            ("attach_tuner", (None,), "measurement surfaces slice"),
-        ):
-            with pytest.raises(NotImplementedError, match=slice_):
-                getattr(s, name)(*args)
+        with pytest.raises(NotImplementedError, match="tuner slice"):
+            s.attach_tuner(None)
         # the mesh slice is ported: a memory store has no coalescer to
         # take a delegate, and the replica adopts the store's load map
         # (tests/test_torch_replica.py drives a cuda store's offload)
@@ -482,6 +478,42 @@ def test_later_slices_raise():
         assert adopted == [s.range_load]
     finally:
         s.close()
+    # the federation slice is ported (tests/test_torch_federation.py):
+    # attaching a router wraps rid/scd and fills the dss_fed_* gauges
+    # as the reference's store does
+    from dss_tpu.region import federation as r_fed
+    from dss_tpu_torch.region import federation as p_fed
+
+    got = {}
+    for name, store_cls, fed in (("ref", RStore, r_fed),
+                                 ("port", PStore, p_fed)):
+        st = store_cls(storage="memory")
+        try:
+            plain = {k: v for k, v in st.stats().items()
+                     if k.startswith("dss_fed_")}
+            assert plain == fed.empty_stats()
+            assert st.freshness_status()["federation"] is None
+            entries = [fed.RegionEntry("a"), fed.RegionEntry("b")]
+            router = fed.FederationRouter(
+                fed.FederationMap(entries, np.array([1000], np.int32), "a"),
+                {"b": fed.FederationPeer("b", lambda *a: {})},
+            )
+            st.attach_federation(router)
+            router.close()
+            assert isinstance(st.rid, fed.FederatedRIDStore)
+            assert isinstance(st.scd, fed.FederatedSCDStore)
+            assert st.federation is router
+            with pytest.raises(RuntimeError, match="already attached"):
+                st.attach_federation(router)
+            stats = {k: v for k, v in st.stats().items()
+                     if k.startswith("dss_fed_")}
+            assert set(stats) == set(fed.empty_stats())
+            status = st.freshness_status()["federation"]
+            got[name] = (stats, {k: v for k, v in status.items()})
+        finally:
+            st.close()
+    assert got["port"] == got["ref"]
+    assert got["port"][0]["dss_fed_peer_state"] == {"b": 0.0}
 
 
 def test_device_loss_recovery_rewarms_through_the_ladder():
