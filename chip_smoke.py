@@ -75,7 +75,26 @@ Phases (any failure exits non-zero; nothing is caught):
      SCDService.search_operations (allow_stale=True), 8 bursts of 128
      callers; the `services` line (searches/s, p50/p99, the bursts'
      route mix, B1's launches and replays from zero, mismatches);
- 10. the server entry as a process on the card, `python3 -m
+ 10. the tuner (scenario/, plan/autotune.py, tune/): in the store phase,
+     before its store closes, the live loop (the store reseeded to the
+     coalescer's default 20 ms floor, a TuneController attached through
+     attach_tuner on a fake clock ticked by hand as bench.py's
+     tune_smoke_leg does: windows of 8 bulk stale drains of 128, every
+     answer against the oracle, until the first committed proposal or
+     14 windows) and the leg's three drills (a seeded FaultPlan at
+     tune.apply, a bad estimate the shadow rejects, a plausible lie the
+     guard window rolls back while a seeded FaultPlan delays every cold
+     dispatch); after the store phase, autotune(quick=False) on the
+     card at its 50,000 x 20,000 fixture, saved and loaded back, its
+     batches through B1 against a CPU twin and the oracle, then
+     bench.py autotune_leg's cold start (100,000 x 40,000, 8 threads,
+     8 s, default against profiled seeds in turns); after the http
+     phase, the server with --autotune_profile <the sweep's file>
+     --self_tune on its WAL (/healthy, the profile's age, the armed
+     tuner and its knobs in /metrics, 32 queries against the oracle,
+     SIGTERM); B1's eager launches and replays of each part from zero;
+     the `tuner` line;
+ 11. the server entry as a process on the card, `python3 -m
      dss_tpu_torch.cmds.server --storage cuda`, booted from a WAL of
      50,000 operational intents and the poll recipe's 4,000 ISAs and
      driven over HTTP with urllib: an ISA's PUT/GET/search/DELETE, an
@@ -85,7 +104,7 @@ Phases (any failure exits non-zero; nothing is caught):
      the `http` line (boot, the boot warm's end, entries and capture
      failures from /metrics, the loop's rate and p50/p99, the route
      mix); it does not run, and says so, where aiohttp is missing;
- 11. the shared-memory serving front, `python3 -m dss_tpu_torch.cmds.server
+ 12. the shared-memory serving front, `python3 -m dss_tpu_torch.cmds.server
      --storage cuda --workers 4`, booted from the http phase's WAL: the
      leader owns the card, its four read workers run `--device cpu`;
      the reference's shm-smoke drill (bench.py:3339-3590) over
@@ -99,7 +118,7 @@ Phases (any failure exits non-zero; nothing is caught):
      clients, the leader's account of the front from /metrics, and
      nvidia-smi's compute apps with each process's /dev/nvidia
      descriptors (the leader alone on the card); the `shm_front` line;
- 12. the mesh route (parallel/{mesh, sharded, replica}; ops/conflict.py's
+ 13. the mesh route (parallel/{mesh, sharded, replica}; ops/conflict.py's
      torch ops, no B1): after the legacy path, ShardedDar over the main
      path's 1M live records on a 1x1 mesh and on a virtual 2x4 mesh of
      the card (eight positions on one H100), four headline batches each,
@@ -119,7 +138,7 @@ Phases (any failure exits non-zero; nothing is caught):
      /aux/v1/replica/<surface> against its store route once synced, 8
      ops and three subscriptions written and read back, SIGTERM exit 0;
      the `mesh` line;
- 13. the DSS Region (region/, cmds/region_server, the store's region
+ 14. the DSS Region (region/, cmds/region_server, the store's region
      mode), after the mesh server, on the http phase's 54,800 records:
      a region log seeded offline through the port's RegionLog (one
      entry a record, the snapshot 800 entries before the head); the
@@ -140,7 +159,7 @@ Phases (any failure exits non-zero; nothing is caught):
      a late joiner from snapshot + tail; nvidia-smi's compute apps (A,
      B, the joiner and the smoke; no region server); SIGTERM of every
      process, exit 0; the `region` line;
- 14. the federation (region/federation.py), after the region phase, on
+ 15. the federation (region/federation.py), after the region phase, on
      the http phase's live state split at its median DAR key into two
      WALs (a record straddling the boundary left out): regions a and b,
      each a DSSStore(storage="cuda") on the card booted from its WAL,
@@ -160,12 +179,12 @@ Phases (any failure exits non-zero; nothing is caught):
      0 local 5xx, 0 lost acknowledged writes, bit-identical to the
      merged oracle, the card's memory.used around the servers; the
      `federation` line;
- 15. the device time of each kernel by device kernel name, the kernels
-     line (four kernels; B1's entry with its graph replays and its
-     store-phase counts), with each kernel's count of comparisons made
+ 16. the device time of each kernel by device kernel name, the kernels
+     line (four kernels; B1's entry with its graph replays, its
+     store-phase and its tuner counts), with each kernel's count of comparisons made
      and of those that disagreed; then the ok line, or exit 1 if any
      comparison disagreed, a kernel of a path never launched, or a
-     serving, store, services or http phase failed (a caller error other than
+     serving, store, tuner, services or http phase failed (a caller error other than
      OverloadedError or DEADLINE_EXCEEDED, an absorbed device loss, no
      resident batch at 32 threads, no graph replay in the bulk bursts,
      a refused write that should have passed, no B1 launch or replay
@@ -178,7 +197,12 @@ Phases (any failure exits non-zero; nothing is caught):
      capture failure, an instance off the card or an unclean exit, or
      in the federation phase no B1 launch on either region's store, a
      ladder that never entered or left FEDERATION_DEGRADED, a local 5xx
-     or a lost acknowledged write in the sigkill leg).
+     or a lost acknowledged write in the sigkill leg, or in the tuner
+     phase no B1 launch or no graph replay in the sweep, no B1 launch
+     in the live loop, a profile that does not load back, a drill with
+     another verdict than the leg's or a knob not back at its value, a
+     cold start pass with an error, or a tuned server without the
+     profile's knobs, its age or an armed tuner).
 Times: `ms` is a kernel's device time per wrapper call with the L2
 flushed (a real batch finds its blocks cold): the kernels, memsets and
 copies that 30 calls launched, summed from torch.profiler, over 30;
@@ -3786,6 +3810,9 @@ def store_phase(dev, smi) -> tuple:
         store, path, dev, orc, seed=90_000)
     log(json.dumps({"mesh_store_drains": MESH_LINE["store_drains"]}))
     failures += bad
+    # the tuner's live loop and drills, before the store closes
+    failures += tuner_live_loop(store, orc, dev, seed=100_000)
+    log(json.dumps({"tuner_live_loop": TUNER_LINE["live_loop"]}))
     twin.close()
     store.close()
     shutil.rmtree(wal_dir, ignore_errors=True)
@@ -5829,6 +5856,533 @@ def federation_phase(smi, state) -> tuple:
             k: v[0] for k, v in counts.items()}}
 
 
+# -- the tuner (scenario/, plan/autotune.py, tune/) --------------------------
+
+TUNER_LINE = {}  # the `tuner` line, filled part by part in its order
+TUNER_TALLY = Tally("tuner")  # the cold start's and the server's answers
+SWEEP_ENTITIES, SWEEP_CELLS = 50_000, 20_000  # autotune()'s full fixture
+SWEEP_ORACLE = 64  # queries of each checked sweep batch against the oracle
+COLD_ENTITIES, COLD_CELLS = 100_000, 40_000  # bench.py autotune_leg's size
+COLD_THREADS, COLD_SECS, COLD_WIDTH = 8, 8.0, 8
+COLD_SAMPLE = 16  # answers per client per pass held against the oracle
+TUNE_WINDOWS = 14  # live-loop windows, at most, to the first commit
+TUNE_BURSTS = 8  # bulk stale bursts of BURST_CALLERS per window
+TUNE_TICK_S = 1e6  # the controller's interval and guard, on a fake clock
+#                    the smoke advances by hand: its thread never ticks
+TUNE_QUERIES = 32  # op queries through the tuned server, against the oracle
+TUNER_DEVICE = "cuda"  # the tuned server's --device
+# the coalescer's seeds when nothing is configured (dar/coalesce.py)
+DEFAULT_SEEDS = {"est_floor_ms": 20.0, "est_item_ms": 0.02,
+                 "est_chunk_ms": 0.3, "est_res_floor_ms": 5.0,
+                 "est_res_lat_ms": 20.0}
+
+
+def b1_counts() -> dict:
+    return {"launches": ff.fused_window_filter.launches,
+            "graph_replays": ff.fused_window_filter.graph_replays}
+
+
+def reset_b1() -> None:
+    ff.fused_window_filter.launches = 0
+    ff.fused_window_filter.graph_replays = 0
+
+
+def fixture_oracle(table) -> Oracle:
+    """The oracle over an autotune fixture's records."""
+    recs = list(table.records.values())
+    return Oracle(recs, np.stack([r.keys for r in recs]))
+
+
+def tuner_sweep(dev) -> tuple:
+    """Part 1: the full autotune sweep on the card (its 50,000 x 20,000
+    fixture, the scenario sweep on), saved, loaded back and printed,
+    with B1's eager launches and graph replays counted from zero; then
+    the sweep's batches (measure_hit_concentration's query_fused and
+    measure_device's 128) on the same seeded fixture through B1 against
+    a CPU twin (the plain version) and a sample against the oracle.
+    -> (the profile's path, the loaded profile, failures)."""
+    import os
+
+    from dss_tpu_torch.plan import autotune as at
+
+    failures = []
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "tuner_smoke")
+    os.makedirs(work, exist_ok=True)
+    reset_b1()
+    t = time.perf_counter()
+    profile = at.autotune(quick=False, device=dev)
+    wall_s = time.perf_counter() - t
+    counts = b1_counts()
+    path = at.save_profile(profile, os.path.join(
+        work, f"{profile['host_class']}.json"))
+    loaded = at.load_profile(path)
+    if loaded != profile:
+        failures.append("tuner sweep: the saved profile did not load back")
+    if set(loaded["knobs"]) != set(at.KNOB_KEYS):
+        failures.append("tuner sweep: the profile lacks knobs")
+    if loaded["host_class"] != at.host_class(device=dev):
+        failures.append(f"tuner sweep: host class {loaded['host_class']}")
+    if counts["launches"] <= 0 or counts["graph_replays"] <= 0:
+        failures.append(f"tuner sweep: B1 {counts}")
+    m = loaded["measurements"]
+    line = {
+        "host_class": loaded["host_class"],
+        "capacity_weight": loaded["capacity_weight"],
+        "capacity_basis": loaded["capacity_basis"],
+        "knobs": loaded["knobs"],
+        "device": m["device"],
+        "resident": m["resident"],
+        "sweep_s": loaded["sweep_s"], "wall_s": wall_s,
+        "fixture": loaded["fixture"],
+        "b1": counts,
+    }
+    # B1's answers in the sweep, on the same fixture and batches
+    tally = TALLY["fused_window_filter"]
+    c0, m0 = tally.compared, tally.mismatches
+    card = at._fixture(SWEEP_ENTITIES, SWEEP_CELLS, device=dev)
+    twin = at._fixture(SWEEP_ENTITIES, SWEEP_CELLS, device="cpu")
+    try:
+        cf, hf = card._state.snap.fast, twin._state.snap.fast
+        ids = card._state.snap.ids
+        orc = fixture_oracle(card)
+        for what, qb in (
+                ("hit concentration", at._query_batch(19, 256, SWEEP_CELLS)),
+                ("device 128", at._query_batch(13 + 128, 128, SWEEP_CELLS))):
+            got = cf.query_fused(*qb, now=at.NOW)
+            tally.check(pair_set(*got) == pair_set(
+                *hf.query_fused(*qb, now=at.NOW)), f"sweep {what}: card "
+                "!= plain version")
+            for i in range(SWEEP_ORACLE):
+                mine = sorted({ids[s] for s in got[1][got[0] == i]})
+                tally.check(mine == orc.ids(*(col[i] for col in qb)),
+                            f"sweep {what}: query {i} != oracle")
+        tally.check(at.measure_hit_concentration(cf, SWEEP_CELLS)
+                    == at.measure_hit_concentration(hf, SWEEP_CELLS),
+                    "sweep hit concentration: card != plain version")
+    finally:
+        card.close()
+        twin.close()
+    line["checked"] = {"compared": tally.compared - c0,
+                       "mismatches": tally.mismatches - m0}
+    TUNER_LINE["sweep"] = line
+    return path, loaded, failures
+
+
+def seeds_from_profile(profile) -> dict:
+    """QueryCoalescer seeds from a profile's knobs (bench.py:2751)."""
+    k = profile["knobs"]
+    return {
+        "est_floor_ms": float(k["DSS_CO_EST_FLOOR_MS"]),
+        "est_item_ms": float(k["DSS_CO_EST_ITEM_MS"]),
+        "est_chunk_ms": float(k["DSS_CO_EST_CHUNK_MS"]),
+        "est_res_floor_ms": float(k["DSS_CO_EST_RES_FLOOR_MS"]),
+        "est_res_lat_ms": float(k["DSS_CO_EST_RES_LAT_MS"]),
+        "res_ring": int(k["DSS_CO_RES_RING"]),
+        "res_inflight": int(k["DSS_CO_RES_INFLIGHT"]),
+    }
+
+
+def cold_pass(table, orc, seeds, early_frac=0.4) -> dict:
+    """bench.py's _cold_start_pass (:2766): a fresh coalescer seeded
+    with `seeds` over the warmed table, COLD_THREADS closed-loop clients
+    for COLD_SECS with the serving SLO, the early window's p99 apart;
+    the first COLD_SAMPLE answers of each client against the oracle."""
+    from dss_tpu_torch import errors
+    from dss_tpu_torch.dar.coalesce import QueryCoalescer
+
+    co = QueryCoalescer(table, slo_ms=SLO_MS, resident=True, **seeds)
+    loop = co.resident_loop()
+    if loop is not None:
+        table.warm_resident(loop.kernel, batch_buckets=(128,),
+                            window_buckets=(4096,))
+    st0 = co.stats()
+    b0 = b1_counts()
+    stop = threading.Event()
+    samples = [[] for _ in range(COLD_THREADS)]
+    checks = [[] for _ in range(COLD_THREADS)]
+    sheds = [0] * COLD_THREADS
+    errs = []
+    t_start = time.perf_counter()
+
+    def client(i):
+        r = np.random.default_rng(7000 + i)
+        try:
+            while not stop.is_set():
+                start = int(r.integers(0, COLD_CELLS - COLD_WIDTH))
+                keys = (start + np.arange(COLD_WIDTH)).astype(np.int32)
+                alo = float(np.float32(r.uniform(0, 3000)))
+                ahi = float(np.float32(alo + 300.0))
+                t0 = NOW + int(r.integers(-2, 2)) * HOUR
+                t_req = time.perf_counter()
+                try:
+                    got = co.query(keys, alo, ahi, t0, t0 + HOUR, now=NOW)
+                except errors.StatusError:
+                    sheds[i] += 1
+                    continue
+                t_done = time.perf_counter()
+                samples[i].append((t_req - t_start, (t_done - t_req) * 1e3))
+                if len(checks[i]) < COLD_SAMPLE:
+                    checks[i].append((keys, alo, ahi, t0, t0 + HOUR, got))
+        except Exception as e:  # noqa: BLE001 — fails the phase below
+            errs.append(repr(e))
+
+    ths = [threading.Thread(target=client, args=(i,))
+           for i in range(COLD_THREADS)]
+    for th in ths:
+        th.start()
+    time.sleep(COLD_SECS)
+    stop.set()
+    for th in ths:
+        th.join()
+    st1 = co.stats()
+    b1 = b1_counts()
+    co.close()
+    for part in checks:
+        for *args, got in part:
+            TUNER_TALLY.check(sorted(got) == orc.ids(*args),
+                              "cold start: answer != oracle")
+    all_s = sorted(x for part in samples for x in part)
+    lat = np.asarray([v for _, v in all_s])
+    early = np.asarray([v for t, v in all_s if t <= early_frac * COLD_SECS])
+    late = np.asarray([v for t, v in all_s if t > early_frac * COLD_SECS])
+
+    def p(a, q):
+        return float(np.percentile(a, q)) if len(a) else None
+
+    mix = {r: st1[f"co_plan_{r}"] - st0[f"co_plan_{r}"]
+           for r in ("hostchunk", "device", "resident", "inline")}
+    return {
+        "samples": int(len(lat)), "sheds": int(sum(sheds)),
+        "errors": errs[:3],
+        "p50_ms": p(lat, 50), "p99_ms": p(lat, 99),
+        "early_p99_ms": p(early, 99), "early_samples": int(len(early)),
+        "late_p99_ms": p(late, 99), "plan_mix": mix,
+        "est_floor_ms_end": st1["co_est_device_floor_ms"],
+        "est_chunk_ms_end": st1["co_est_host_chunk_ms"],
+        "b1": {k: b1[k] - b0[k] for k in b1},
+        "checked": sum(len(c) for c in checks),
+    }
+
+
+def tuner_cold_start(dev, profile) -> list:
+    """Part 2: bench.py autotune_leg's cold start (:2835-2880) at its
+    full size: one warmed 100,000 x 40,000 table on the card, fresh
+    coalescers seeded with the defaults and with the profile's seeds,
+    in turns (default, profiled, profiled, default), since the host
+    varies between runs.  -> failures."""
+    from dss_tpu_torch.plan import autotune as at
+
+    t_all = time.perf_counter()
+    table = at._fixture(COLD_ENTITIES, COLD_CELLS, seed=3, device=dev)
+    failures = []
+    try:
+        orc = fixture_oracle(table)
+        ft = table._state.snap.fast
+        ft.query_fused(*at._query_batch(31, 128, COLD_CELLS), now=NOW)
+        reset_b1()
+        seeds = {"default": {}, "profiled": seeds_from_profile(profile)}
+        passes = []
+        for arm in ("default", "profiled", "profiled", "default"):
+            passes.append(dict(cold_pass(table, orc, seeds[arm]), arm=arm))
+        counts = b1_counts()
+    finally:
+        table.close()
+    for p in passes:
+        if p["errors"] or not p["samples"]:
+            failures.append(f"cold start {p['arm']}: {p['errors']} "
+                            f"({p['samples']} samples)")
+    TUNER_LINE["cold_start"] = {
+        "entities": COLD_ENTITIES, "cells": COLD_CELLS,
+        "threads": COLD_THREADS, "secs": COLD_SECS, "slo_ms": SLO_MS,
+        "seeds": seeds, "passes": passes,
+        "b1": counts, "seconds": time.perf_counter() - t_all,
+    }
+    return failures
+
+
+def tuner_live_loop(store, orc, dev, seed) -> list:
+    """Part 3, on the store phase's store before it closes: the store
+    reseeded to the coalescer's default floor (20 ms) with inline
+    callers off (a lone caller's inline decision would make every
+    window of the recorder's ring a mixed one, which proposes nothing;
+    bench.py's tune world serves drains only), a TuneController
+    attached through attach_tuner over a MetricsRegistry fed each
+    caller's store time as ("search", "store_ms"), on a fake clock the
+    smoke advances one interval per window (bench.py tune_smoke_leg,
+    :5115).  Windows of TUNE_BURSTS bulk stale drains of BURST_CALLERS
+    (every answer against the oracle) with a tick after each, until the
+    first committed proposal or TUNE_WINDOWS windows (the verdict is
+    printed: a fit the shadow or the guard refuses is the loop working);
+    then the leg's
+    three drills with every hot knob pinned in the controller's
+    environment (no organic proposal between them): a seeded FaultPlan
+    at tune.apply (reverted, nothing half-applied), an injected bad
+    estimate (both device floors 8x: shadow-rejected), and a plausible
+    lie (an optimistic cold floor, 0.05 ms) whose guard window runs
+    with every cold dispatch delayed by a seeded FaultPlan, as the
+    leg's world makes the device truly slow (guard-rolled-back, every
+    knob back at its pre-injection value).  B1's counts from zero.
+    -> failures."""
+    from dss_tpu_torch import chaos
+    from dss_tpu_torch import tune
+    from dss_tpu_torch.obs.metrics import MetricsRegistry
+
+    t_all = time.perf_counter()
+    failures = []
+    store.configure_serving(resident=True, slo_ms=SLO_MS, inline=False,
+                            min_batch=BURST_MIN_BATCH, **DEFAULT_SEEDS)
+    co = store.scd._op_index.coalescer
+    metrics = MetricsRegistry()
+    clock = [0.0]
+    env = {}  # the controller's operator environment: pinned for drills
+
+    def actuate(kn):
+        store.configure_serving(**{tune.KNOB_TO_CONFIGURE[k]: v
+                                   for k, v in kn.items()})
+
+    ctl = tune.TuneController(
+        hist_provider=metrics.stage_hist_front, actuator=actuate,
+        current_fn=store.tune_knob_values, interval_s=TUNE_TICK_S,
+        guard_s=TUNE_TICK_S, env=env, clock=lambda: clock[0], device=dev)
+    store.attach_tuner(ctl)
+    reset_b1()
+    lats = []
+
+    def search(it):
+        t = time.perf_counter()
+        got = [x[0] for x in op_query(store, *it, allow_stale=True)]
+        dt = time.perf_counter() - t
+        metrics.observe_stage("search", "store_ms", dt)
+        lats.append(dt * 1e3)
+        return got
+
+    def window(k):
+        del lats[:]
+        bursts = []
+        for b in range(TUNE_BURSTS):
+            q = make_batch(seed + 97 * k + b, BURST_CALLERS, N_CELLS, WIDTH)
+            bursts.append([(q, i) for i in range(BURST_CALLERS)])
+        c0 = b1_counts()
+        res = drain_bursts(store, bursts, search, lambda it: orc.ids(
+            *(col[it[1]] for col in it[0])), "tuner")
+        c1 = b1_counts()
+        if res["client_errors"]:
+            failures.append(f"tuner loop: {res['client_errors']}")
+        return {"p99_ms": float(np.percentile(lats, 99)),
+                "p50_ms": float(np.percentile(lats, 50)),
+                "route_mix": res["route_mix"],
+                "b1": {k: c1[k] - c0[k] for k in c1}}
+
+    def tick():
+        clock[0] += TUNE_TICK_S
+        ev = ctl.tick()
+        out = {k: v for k, v in ev.items() if k != "proposal"}
+        if "proposal" in ev:
+            out.update(knobs=ev["proposal"]["knobs"],
+                       kind=ev["proposal"]["kind"])
+        return out
+
+    walk = []
+    for k in range(TUNE_WINDOWS):
+        w = window(k)
+        ev = tick()
+        walk.append({"window": k, **w, "event": ev,
+                     "ring_mix": ctl.recorder.route_mix(),
+                     "est_floor_ms": store.tune_knob_values()[
+                         "DSS_CO_EST_FLOOR_MS"],
+                     "op_est_floor_ms": co.stats()["co_est_device_floor_ms"]})
+        if ev["event"] == "committed":
+            break
+    committed = any(w["event"]["event"] == "committed" for w in walk)
+    if ctl.stats()["dss_tune_guard_open"]:  # close a guard left open
+        walk.append({"window": len(walk), **window(len(walk)),
+                     "event": tick()})
+    loop_b1 = b1_counts()
+    if loop_b1["launches"] + loop_b1["graph_replays"] <= 0:
+        failures.append("tuner loop: B1 never launched")
+
+    # -- the drills, every hot knob pinned ------------------------------
+    env.update({k: str(v) for k, v in store.tune_knob_values().items()})
+    drills = {"baseline": window(TUNE_WINDOWS + 1)}
+    drills["baseline"]["event"] = tick()
+    if drills["baseline"]["event"]["event"] != "no_proposal":
+        failures.append(f"tuner drill: pinned knobs proposed "
+                        f"{drills['baseline']['event']}")
+    before = store.tune_knob_values()
+    chaos.install_plan(chaos.FaultPlan(
+        [chaos.FaultEvent("tune.apply", "error", count=1)], seed=11))
+    try:
+        ev = ctl.inject({"DSS_CO_EST_FLOOR_MS":
+                         before["DSS_CO_EST_FLOOR_MS"] / 2},
+                        reason="smoke: faulted apply")
+    finally:
+        chaos.clear_plan()
+    drills["faulted_apply"] = {"event": ev["event"],
+                               "knobs_restored":
+                               store.tune_knob_values() == before}
+    if ev["event"] != "apply_failed" or store.tune_knob_values() != before:
+        failures.append(f"tuner drill: faulted apply {ev['event']}")
+    ev = ctl.inject({
+        "DSS_CO_EST_FLOOR_MS": 8 * before["DSS_CO_EST_FLOOR_MS"],
+        "DSS_CO_EST_RES_FLOOR_MS": 8 * before["DSS_CO_EST_RES_FLOOR_MS"]},
+        reason="smoke: bad estimates")
+    drills["bad_estimate"] = {"event": ev["event"],
+                              "shadow": ev.get("shadow"),
+                              "knobs_unchanged":
+                              store.tune_knob_values() == before}
+    if (ev["event"] != "shadow_rejected"
+            or store.tune_knob_values() != before):
+        failures.append(f"tuner drill: bad estimate {ev['event']}")
+    ev = ctl.inject({"DSS_CO_EST_FLOOR_MS": 0.05},
+                    reason="smoke: optimistic cold floor")
+    drills["lie"] = {"event": ev["event"]}
+    if ev["event"] != "applied":
+        failures.append(f"tuner drill: the lie was {ev['event']}")
+    delay_s = max(0.2, 4e-3 * drills["baseline"]["p99_ms"])
+    chaos.install_plan(chaos.FaultPlan(
+        [chaos.FaultEvent("device.dispatch", "delay", count=-1,
+                          delay_s=delay_s)], seed=12))
+    try:
+        drills["guard_window"] = window(TUNE_WINDOWS + 2)
+    finally:
+        chaos.clear_plan()
+    drills["guard_window"]["dispatch_delay_s"] = delay_s
+    ev = tick()
+    drills["guard"] = ev
+    drills["knobs_restored"] = store.tune_knob_values() == before
+    if (ev["event"] != "rollback" or ev.get("reason") != "p99_regression"
+            or not drills["knobs_restored"]):
+        failures.append(f"tuner drill: guard {ev}, knobs restored "
+                        f"{drills['knobs_restored']}")
+    drills["recovered"] = window(TUNE_WINDOWS + 3)
+    if drills["recovered"]["p99_ms"] >= drills["guard_window"]["p99_ms"]:
+        failures.append("tuner drill: p99 did not recover")
+    stats = {k: v for k, v in store.stats().items()
+             if k.startswith("dss_tune_")}
+    if not (stats["dss_tune_proposals_total"] >= 3
+            and stats["dss_tune_rollbacks_total"] >= 1
+            and stats["dss_tune_shadow_rejected_total"] >= 1
+            and stats["dss_tune_apply_failed_total"] == 1):
+        failures.append(f"tuner drill: counters {stats}")
+    TUNER_LINE["live_loop"] = {
+        "windows": walk, "committed": committed, "b1": loop_b1,
+        "bursts_per_window": TUNE_BURSTS, "callers": BURST_CALLERS,
+        "seconds": time.perf_counter() - t_all,
+    }
+    TUNER_LINE["drills"] = drills
+    TUNER_LINE["stats"] = stats
+    return failures
+
+
+def tuner_server(state, profile_path) -> list:
+    """Part 4: the server binary with `--autotune_profile <the sweep's
+    file> --self_tune` on the card, booted from the http phase's WAL
+    (bench.py autotune_smoke_leg, :2947-3105): /healthy, then /metrics
+    with the profile's age, dss_tune_enabled 1, the knob family at the
+    profile's values and the co_plan_* counters, TUNE_QUERIES op
+    queries against the oracle, SIGTERM exit 0.  -> failures."""
+    import os
+    import signal
+    import urllib.request
+
+    from dss_tpu_torch.plan import autotune as at
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    knobs = at.load_profile(profile_path)["knobs"]
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    err_path = os.path.join(state["work"], "tuned_server.log")
+    errf = open(err_path, "wb")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("DSS_CO_", "DSS_RES_", "DSS_SHARD_",
+                                "DSS_SHM_", "DSS_TUNE"))}
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dss_tpu_torch.cmds.server",
+         "--addr", f"127.0.0.1:{port}", "--enable_scd", "--storage", "cuda",
+         "--device", TUNER_DEVICE, "--insecure_no_auth",
+         "--wal_path", state["wal"], "--shutdown_grace", str(HTTP_GRACE_S),
+         "--no_warmup", "--autotune_profile", profile_path, "--self_tune"],
+        cwd=root, stdout=subprocess.DEVNULL, stderr=errf, env=env)
+    line, failures = {}, []
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise RuntimeError(f"tuned server exited at boot: rc "
+                                   f"{proc.returncode}")
+            if time.perf_counter() - t_start > 300:
+                raise RuntimeError("tuned server never became healthy")
+            try:
+                with urllib.request.urlopen(base + "/healthy",
+                                            timeout=1) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                pass
+            time.sleep(0.1)
+        boot_s = time.perf_counter() - t_start
+        orc = StoreOracle(state["cols"], time.time_ns())
+        mism = 0
+        for params, args in svc_aois(74, TUNE_QUERIES,
+                                     state["now"] + HOUR // 2):
+            status, body = http_json(
+                base, "POST", "/dss/v1/operation_references/query", params)
+            good = status == 200 and sorted(
+                o["id"] for o in body["operation_references"]
+            ) == orc.ids(*args)
+            mism += not good
+            TUNER_TALLY.check(good, "tuned server: op query != oracle")
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+            text = r.read().decode()
+        age = sum(metric_values(text, "dss_autotune_profile_age_s").values())
+        enabled = sum(metric_values(text, "dss_tune_enabled").values())
+        active = {name.split('knob="', 1)[1].split('"', 1)[0]: v
+                  for name, v in metric_values(
+                      text, "dss_tune_knob_active").items()}
+        want = {k: float(v) for k, v in knobs.items()
+                if k.startswith("DSS_CO_")}
+        plan = {name: v for name, v in metric_values(text, "").items()
+                if "_co_plan_" in name and v}
+        line = {"boot_s": boot_s, "profile_age_s": age,
+                "tune_enabled": enabled, "knob_active": active,
+                "co_plan": plan, "queries": TUNE_QUERIES,
+                "mismatches": mism}
+        if not age > 0:
+            failures.append(f"tuned server: profile age {age}")
+        if enabled != 1:
+            failures.append(f"tuned server: dss_tune_enabled {enabled}")
+        if active != want:
+            failures.append(f"tuned server: knobs {active} != {want}")
+        if not metric_values(text, "_co_plan_total"):
+            failures.append("tuned server: no co_plan_* counters")
+    finally:
+        t = time.perf_counter()
+        rc = None
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=HTTP_GRACE_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(30)
+                failures.append("tuned server: outlived its grace")
+        else:
+            rc = proc.returncode
+            failures.append(f"tuned server: died (rc {rc})")
+        errf.close()
+        with open(err_path, "rb") as f:
+            log_text = f.read().decode(errors="replace")
+        line.update(sigterm_exit_s=time.perf_counter() - t, exit_code=rc,
+                    seeded_logged="autotune profile" in log_text
+                    and "self-tuning armed" in log_text)
+        if rc != 0 or not line["seeded_logged"]:
+            failures.append(f"tuned server: exit code {rc}: "
+                            f"{log_text[-2000:]}")
+    TUNER_LINE["server"] = line
+    return failures
+
+
 def run(dev, smi) -> tuple:
     """Phases 2-7 on `dev`; -> (the entries of the kernels line, the
     serving phase's failures)."""
@@ -5989,10 +6543,28 @@ def run(dev, smi) -> tuple:
     log(f"seconds before the store: {time.perf_counter() - t_all:.2f}")
     store, bad = store_phase(dev, smi)
     failures += bad
+    log(f"seconds before the tuner: {time.perf_counter() - t_all:.2f}")
+    t = time.perf_counter()
+    profile_path, profile, bad = tuner_sweep(dev)
+    failures += bad
+    log(json.dumps({"tuner_sweep": TUNER_LINE["sweep"]}))
+    failures += tuner_cold_start(dev, profile)
+    log(json.dumps({"tuner_cold_start": TUNER_LINE["cold_start"]}))
+    tuner_s = time.perf_counter() - t + TUNER_LINE["live_loop"]["seconds"]
     log(f"seconds before http: {time.perf_counter() - t_all:.2f}")
     http, bad, http_state = http_phase(smi)
     log(json.dumps(http))
     failures += bad
+    t = time.perf_counter()
+    if http_state is None:
+        failures.append("tuner server: the http phase did not run")
+    else:
+        failures += tuner_server(http_state, profile_path)
+    tuner_s += time.perf_counter() - t
+    TUNER_LINE.update(mismatches=TUNER_TALLY.mismatches,
+                      compared=TUNER_TALLY.compared, seconds=tuner_s,
+                      card=smi)
+    log(json.dumps({"tuner": TUNER_LINE}))
     log(f"seconds before the shm front: {time.perf_counter() - t_all:.2f}")
     region_counts, fed_counts = {}, {}
     if http_state is None:
@@ -6046,6 +6618,12 @@ def run(dev, smi) -> tuple:
     b1.update(push_counts)
     b1.update(region_counts)
     b1.update(fed_counts)
+    parts = ("sweep", "cold_start", "live_loop")
+    b1.update({f"tuner_{k}_{part}": TUNER_LINE[part]["b1"][k]
+               for part in parts for k in ("launches", "graph_replays")})
+    b1.update({f"tuner_{k}": sum(TUNER_LINE[part]["b1"][k]
+                                 for part in parts)
+               for k in ("launches", "graph_replays")})
     return [b1] + legacy, failures
 
 
@@ -6074,13 +6652,14 @@ def main() -> int:
               file=sys.stderr)
         return 1
     if failures:
-        print(f"chip_smoke: a serving, store, services, http, shm front, "
-              f"push, mesh, region or federation phase failed: "
+        print(f"chip_smoke: a serving, store, tuner, services, http, shm "
+              f"front, push, mesh, region or federation phase failed: "
               f"{failures}",
               file=sys.stderr)
         return 1
     tallies = list(TALLY.values()) + [STORE_TALLY, NATIVE_TALLY, PUSH_TALLY,
-                                      MESH_TALLY, REGION_TALLY, FED_TALLY]
+                                      MESH_TALLY, REGION_TALLY, FED_TALLY,
+                                      TUNER_TALLY]
     bad = sum(t.mismatches for t in tallies)
     if bad:
         print(f"chip_smoke: {bad} of "

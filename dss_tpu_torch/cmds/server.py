@@ -26,9 +26,12 @@ class on a (dp, sp) mesh, tailing the WAL or the region log
 `--workers N`
 the leader is the one process that owns the card; its N read workers
 run `--device cpu` (the reference pins them to JAX's CPU the same way),
-so they create no CUDA context.  The flags of later slices of the port
-stay in the parser, and each exits naming its slice when set
-(LATER_SLICE_FLAGS).
+so they create no CUDA context.  `--autotune_profile` seeds the
+serving knobs from a profile measured by plan/autotune.py (on the card
+unless `--device cpu`) before any store reads the environment, and
+`--self_tune` arms the tune controller over the live stage histograms.
+The multihost flags stay in the parser, and each exits naming its
+slice when set (LATER_SLICE_FLAGS).
 """
 
 from __future__ import annotations
@@ -117,21 +120,24 @@ def make_parser() -> argparse.ArgumentParser:
         "copies on a card) into this directory under live traffic "
         "(reference --gcp_prof_service_name analog)",
     )
-    # -- flags of later slices of the port: each exits naming its slice
-    # when set (LATER_SLICE_FLAGS); the reference's env fallbacks count
     p.add_argument(
         "--autotune_profile",
         default=os.environ.get("DSS_AUTOTUNE_PROFILE", ""),
-        help="autotune profile JSON seeding the serving knobs (tuner "
-        "slice).  Env fallback DSS_AUTOTUNE_PROFILE",
+        help="autotune profile JSON (dss_tpu_torch/plan/autotune.py, "
+        "deploy/autotune/<host-class>.json) seeding the serving knobs "
+        "at boot; env > profile > defaults.  Env fallback "
+        "DSS_AUTOTUNE_PROFILE",
     )
     p.add_argument(
         "--self_tune",
         action="store_true",
         default=os.environ.get("DSS_TUNE", "0").lower()
         in ("1", "true", "yes", "on"),
-        help="arm the self-tuning controller (tuner slice).  Env "
-        "fallback DSS_TUNE",
+        help="arm the self-tuning controller (dss_tpu_torch/tune): "
+        "observe the live stage histograms, propose within step "
+        "limits, shadow-replay the recorded decisions, apply under a "
+        "guard window with automatic rollback (DSS_TUNE_* knobs).  "
+        "Env fallback DSS_TUNE",
     )
     p.add_argument(
         "--region_url",
@@ -533,24 +539,21 @@ def _make_authorizer(args):
 
 
 # flag -> (its value when unset, the slice of the port that brings it).
-# The parser's defaults already read the reference's env fallbacks
-# (DSS_TUNE, DSS_AUTOTUNE_PROFILE); the process-spanning mesh is also
-# entered through DSS_JAX_COORDINATOR, as in the reference.
+# The process-spanning mesh is also entered through
+# DSS_JAX_COORDINATOR, as in the reference.
 LATER_SLICE_FLAGS = {
     "jax_coordinator": ("", "multihost"),
     "process_id": (None, "multihost"),
     "num_processes": (None, "multihost"),
     "multihost_dryrun": (0, "multihost"),
-    "self_tune": (False, "tuner"),
-    "autotune_profile": ("", "tuner"),
 }
 
 
 def refuse_later_slices(args) -> None:
     """SystemExit naming the slice of the first flag that a later slice
     of the port brings (the port serves standalone and region mode,
-    federated or not, with or without its read-worker fleet and its
-    single-process mesh)."""
+    federated or not, with or without its read-worker fleet, its
+    single-process mesh and its tuner)."""
     if os.environ.get("DSS_JAX_COORDINATOR"):
         args.jax_coordinator = os.environ["DSS_JAX_COORDINATOR"]
     for flag, (unset, slice_) in LATER_SLICE_FLAGS.items():
@@ -558,7 +561,8 @@ def refuse_later_slices(args) -> None:
             raise SystemExit(
                 f"--{flag} is not ported yet; it comes with the {slice_} "
                 "slice of the PyTorch/CUDA port (standalone, region "
-                "and federated mode and the single-process mesh only)"
+                "and federated mode, the single-process mesh and the "
+                "tuner only)"
             )
 
 
@@ -870,9 +874,52 @@ def build(args) -> web.Application:
 
     app.on_cleanup.append(_close_store)
 
-    # autotune profile provenance: a stable gauge whether or not a
-    # profile was loaded (profiles come with the tuner slice: 0.0)
-    metrics.set_gauge("dss_autotune_profile_age_s", 0.0)
+    # autotune profile provenance (satellite of the self-tuning loop):
+    # stable gauge whether or not a profile was loaded — 0.0 means
+    # "no profile or no timestamp", the alertable case is large
+    metrics.set_gauge(
+        "dss_autotune_profile_age_s",
+        float(getattr(args, "_autotune_profile_age_s", 0.0)),
+    )
+
+    if args.self_tune:
+        from dss_tpu_torch import tune as _tune
+
+        tune_cfg = _tune.env_knobs()
+
+        def _tune_actuator(kn, _store=store):
+            _store.configure_serving(**{
+                _tune.KNOB_TO_CONFIGURE[k]: v for k, v in kn.items()
+            })
+
+        controller = _tune.TuneController(
+            # late-binds the shm whole-front aggregate: main() wires
+            # set_stage_agg after the listen sockets exist
+            hist_provider=metrics.stage_hist_front,
+            actuator=_tune_actuator,
+            current_fn=store.tune_knob_values,
+            interval_s=tune_cfg["interval_s"],
+            guard_s=tune_cfg["guard_s"],
+            min_count=tune_cfg["min_count"],
+            deadband=tune_cfg["deadband"],
+            p99_tol=tune_cfg["p99_tol"],
+            rollback_frac=tune_cfg["rollback_frac"],
+            ring=tune_cfg["ring"],
+            profile_seeded=getattr(
+                args, "_autotune_profile_seeded", ()
+            ),
+            device=args.device,
+        )
+        store.attach_tuner(controller)
+        log.info(
+            "self-tuning armed: interval %.0fs, guard %.0fs, "
+            "min_count %d, deadband %.0f%%, rollback at %.2fx p99 "
+            "(DSS_TUNE_* knobs in OPERATIONS.md; freeze with "
+            "store.tune.freeze() or a DSS_TUNE=0 restart)",
+            tune_cfg["interval_s"], tune_cfg["guard_s"],
+            tune_cfg["min_count"], 100.0 * tune_cfg["deadband"],
+            tune_cfg["rollback_frac"],
+        )
 
     from dss_tpu_torch.obs import trace as _trace
 
@@ -983,6 +1030,55 @@ def _forward_args(args, leader_url: str, worker_index: int = -1):
     return out
 
 
+def load_autotune_profile(args) -> None:
+    """Seed serving knobs from the measured host profile BEFORE any
+    store or coalescer reads the environment (env > profile > defaults;
+    --workers children inherit the seeded environment), warn on a
+    host-class mismatch or an old or unstamped profile, and leave the
+    profile's age and seeded keys on `args` for build() (the
+    dss_autotune_profile_age_s gauge and the tuner's precedence:
+    profile-seeded keys stay proposable).  The host class compared is
+    that of --device."""
+    from dss_tpu_torch.obs.logging import get_logger
+    from dss_tpu_torch.plan import autotune as _autotune
+
+    profile = _autotune.load_profile(args.autotune_profile)
+    applied = _autotune.apply_profile(profile)
+    plog = get_logger("dss.server")
+    plog.info(
+        "autotune profile %s (host class %s): seeded %s",
+        args.autotune_profile,
+        profile.get("host_class", "?"),
+        ", ".join(f"{k}={v}" for k, v in sorted(applied.items()))
+        or "nothing (env overrides everything)",
+    )
+    stale = _autotune.profile_staleness(profile, device=args.device)
+    if not stale["host_class_match"]:
+        plog.warning(
+            "AUTOTUNE PROFILE HOST-CLASS MISMATCH: profile measured on "
+            "%r, this host is %r — the seeded cost models describe a "
+            "DIFFERENT machine; re-run plan/autotune.autotune() here "
+            "(or arm --self_tune to converge live)",
+            stale["profile_host_class"], stale["host_class"],
+        )
+    if not stale["has_timestamp"]:
+        plog.warning(
+            "autotune profile %s has no measured_at timestamp "
+            "(pre-provenance format): age unknown, treating as fresh; "
+            "re-run plan/autotune.autotune() to stamp it",
+            args.autotune_profile,
+        )
+    elif stale["age_s"] > 30 * 86400.0:
+        plog.warning(
+            "autotune profile %s is %.0f days old: the measured cost "
+            "models may no longer describe this host; re-run "
+            "plan/autotune.autotune()",
+            args.autotune_profile, stale["age_s"] / 86400.0,
+        )
+    args._autotune_profile_age_s = stale["age_s"]
+    args._autotune_profile_seeded = tuple(sorted(applied))
+
+
 def main():
     import atexit
     import shutil
@@ -993,6 +1089,9 @@ def main():
 
     args = make_parser().parse_args()
     refuse_later_slices(args)  # before anything boots
+
+    if args.autotune_profile:
+        load_autotune_profile(args)
 
     from dss_tpu_torch.cmds import make_ssl_context
 

@@ -56,32 +56,6 @@ from dss_tpu_torch.models.core import Version, new_ovn_from_time
 MAX_RID_SUBSCRIPTIONS_PER_AREA = 10  # DSS0030
 MAX_SCD_SUBSCRIPTIONS_PER_AREA = 10
 
-# The stable gauge key set of the attachment the port leaves out so far
-# (the reference's tune.empty_stats): a standalone store exports it
-# empty so dashboards never miss a series.  The federation, push and
-# shm families come from federation.empty_stats(), push.empty_stats()
-# and shmring.empty_stats() (or the attached router's, pipeline's and
-# owner's stats).
-_EMPTY_TUNE_STATS = {
-    "dss_tune_enabled": 0,
-    "dss_tune_frozen": 0,
-    "dss_tune_guard_open": 0,
-    "dss_tune_proposals_total": 0,
-    "dss_tune_applied_total": 0,
-    "dss_tune_rollbacks_total": 0,
-    "dss_tune_shadow_rejected_total": 0,
-    "dss_tune_apply_failed_total": 0,
-    "dss_tune_windows_total": 0,
-    "dss_tune_thin_windows_total": 0,
-    "dss_tune_last_p99_ms": 0.0,
-    "dss_tune_guard_p99_ms": 0.0,
-    "dss_tune_recorder_depth": 0,
-    "dss_tune_recorder_allocs_total": 0,
-    "dss_tune_knob_active": {},
-    "dss_tune_knob_proposed": {},
-}
-
-
 def _copy_rec(rec):
     """Shallow defensive copy for search-result assembly: callers may
     mutate the returned object (e.g. the SCD service blanks `ovn` for
@@ -1528,6 +1502,10 @@ class DSSStore:
         # shared-memory serving front (parallel/shmring.py): None
         # until attach_shm_front makes this process the device owner
         self._shm_owner = None
+        # self-tuning controller (tune/controller.py): None until
+        # attach_tuner; stats() exports the stable dss_tune_* key set
+        # either way (DSS_TUNE=0 builds nothing, installs no hook)
+        self.tune = None
         self._replaying = False
         if region_url:
             self.region = RegionCoordinator(
@@ -1820,8 +1798,35 @@ class DSSStore:
         self.push = pipeline
 
     def attach_tuner(self, controller) -> None:
-        errors.later_slice("the self-tuning controller (attach_tuner)",
-                           "tuner")
+        """Arm the self-tuning controller (tune/controller.py): record
+        boot knob values (the rollback floor), install the planner
+        decision-recorder hook, and start the observe/propose/shadow/
+        guard loop.  Exactly one tuner per store — the recorder hook is
+        a process-global seam."""
+        if self.tune is not None:
+            raise RuntimeError("tuner already attached")
+        controller.start()
+        self.tune = controller
+
+    def tune_knob_values(self) -> dict:
+        """Live values of every hot-swappable knob (tune.HOT_KNOBS),
+        read off one representative coalescer's cost model + resident
+        geometry — the tuner's current_fn, and the 'active' side of
+        the Grafana knob panel.  {} on the memory backend (no
+        coalescers: the tuner observes but can never propose)."""
+        co = getattr(self.rid._isa_index, "coalescer", None)
+        if co is None:
+            return {}
+        cost = co._planner.cost
+        return {
+            "DSS_CO_EST_FLOOR_MS": float(cost.est_floor_ms),
+            "DSS_CO_EST_ITEM_MS": float(cost.est_item_ms),
+            "DSS_CO_EST_CHUNK_MS": float(cost.est_chunk_ms),
+            "DSS_CO_EST_RES_FLOOR_MS": float(cost.est_res_floor_ms),
+            "DSS_CO_EST_RES_LAT_MS": float(cost.est_res_lat_ms),
+            "DSS_CO_RES_INFLIGHT": float(co._res_inflight),
+            "DSS_CO_RES_RING": float(co._res_ring),
+        }
 
     def attach_mesh_replica(self, replica, min_batch: int = 64) -> None:
         """Route oversized bounded-staleness search batches from each
@@ -1865,8 +1870,12 @@ class DSSStore:
             use_load(self.range_load)
 
     def close(self):
-        # push first: its delivery workers are joined before the
+        # tuner first: clears the planner decision hook and stops the
+        # loop before the coalescers it actuates start tearing down;
+        # then push, whose delivery workers are joined before the
         # indexes (and their torch state) go away
+        if self.tune is not None:
+            self.tune.close()
         if self.push is not None:
             self.push.close()
         if self._shm_owner is not None:
@@ -1940,11 +1949,15 @@ class DSSStore:
             out.update(self.push.stats())
         else:
             out.update(_pushmod.empty_stats())
-        # tuner family: empty until its slice attaches it
-        out.update(
-            {k: (dict(v) if isinstance(v, dict) else v)
-             for k, v in _EMPTY_TUNE_STATS.items()}
-        )
+        # self-tuning gauges: stable key set whether or not a tuner is
+        # attached (dss_tune_knob_active/_proposed render as labeled
+        # families keyed by knob)
+        from dss_tpu_torch import tune as _tunemod
+
+        if self.tune is not None:
+            out.update(self.tune.stats())
+        else:
+            out.update(_tunemod.empty_stats())
         # trace recorder gauges (obs/trace.py)
         out.update(trace.stats())
         if self.region is not None:

@@ -1,7 +1,8 @@
 """The query-plan layer: one planner over every serving route.
 
-A copy of the reference's `dss_tpu/plan` package (the shm route and
-the offline autotune sweep come with later slices):
+A copy of the reference's `dss_tpu/plan` package (with `shmroute`,
+the shm front's route, and `autotune`, the offline sweep that seeds
+the cost models from measurements on the card):
 
   costs.CostModel   — the online EWMA cost estimates (device floor /
                       per-item / host chunk / resident floor+latency).

@@ -5,9 +5,10 @@ reference test file is compiled anew with its imports pointed at the
 port (`dss_tpu.` -> `dss_tpu_torch.`), and each of its test functions
 is collected here under its own name, once with the regions on
 `storage="memory"` and once on `storage="cuda"` with `device="cpu"`
-(the DAR tables' plain versions, B1's among them).  The two cases that
-import `plan.autotune` wait for the tuner slice (LEFT_FOR_TUNER).  The
-port's copy of the epoch-probe case raises the region client's
+(the DAR tables' plain versions, B1's among them); the two that feed
+`plan.autotune`'s scenario shapes and capacity vector to the map
+planner run on the port's autotune.  The port's copy of the
+epoch-probe case raises the region client's
 `TransportError` where the reference raises a `requests` error.
 
 Then the two packages side by side and mixed:
@@ -77,11 +78,6 @@ from tests.test_torch_region import port_copy
 
 TESTS = Path(__file__).resolve().parent
 STORAGES = ("memory", "cuda")
-# the reference cases that import plan.autotune (the tuner slice)
-LEFT_FOR_TUNER = (
-    "test_scenario_shapes_deterministic_and_city_scale",
-    "test_capacity_vector_refuses_mixed_basis",
-)
 
 PORT_CASES = port_copy("test_federation", extra={
     'raise __import__("requests").exceptions.ConnectionError("down")':
@@ -118,8 +114,7 @@ fed_http = PORT_CASES["fed_http"]
 
 _COPIED = []
 for _k, _fn in list(PORT_CASES.items()):
-    if (_k.startswith("test_") and callable(_fn)
-            and _k not in LEFT_FOR_TUNER):
+    if _k.startswith("test_") and callable(_fn):
         assert _k not in globals(), _k
         globals()[_k] = pytest.mark.usefixtures("storage")(_fn)
         _COPIED.append(_k)
@@ -128,12 +123,8 @@ for _k, _fn in list(PORT_CASES.items()):
 def test_every_reference_case_is_here():
     src = (TESTS / "test_federation.py").read_text()
     want = set(re.findall(r"^def (test_\w+)\(", src, re.M))
-    assert set(LEFT_FOR_TUNER) <= want
-    for name in LEFT_FOR_TUNER:  # what they wait for
-        body = src.split(f"def {name}(")[1].split("\ndef ")[0]
-        assert "dss_tpu.plan.autotune" in body
-    assert want - set(LEFT_FOR_TUNER) == set(_COPIED)
-    assert len(_COPIED) == 20
+    assert want == set(_COPIED)
+    assert len(_COPIED) == 22
 
 
 # -- the two packages --------------------------------------------------------

@@ -15,12 +15,14 @@
   parallel.replica; the region's by name: region, region.client,
   region.log_server, region.mirror, region.coordinator,
   cmds.region_server; the federation's by name: region.federation,
-  cmds.federation_dryrun), chip_smoke and b1_device_time import in a
+  cmds.federation_dryrun; the tuner's by name: scenario,
+  scenario.generator, plan.autotune, tune, tune.observe, tune.propose,
+  tune.shadow, tune.controller), chip_smoke and b1_device_time import in a
   process where `jax`, `requests` (absent on the card's machine; the
   region client rides http.client) and every `dss_tpu` module are
   refused.
-- Tables and stores built without device= on a machine without CUDA
-  raise instead of running on the CPU.
+- Tables, stores and the autotune sweep run without device= on a
+  machine without CUDA raise instead of running on the CPU.
 - convert round trip: reference records and table arrays become port
   state that answers the same.
 """
@@ -49,6 +51,7 @@ from dss_tpu_torch.dar.index import CudaSpatialIndex
 from dss_tpu_torch.dar.snapshot import DarTable
 from dss_tpu_torch.ops.fastpath import FastTable, warmup
 from dss_tpu_torch.parallel.mesh import make_mesh
+from dss_tpu_torch.plan import autotune
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -94,7 +97,10 @@ _PROBE = textwrap.dedent(
                 "parallel.replica", "region", "region.client",
                 "region.log_server", "region.mirror",
                 "region.coordinator", "cmds.region_server",
-                "region.federation", "cmds.federation_dryrun"):
+                "region.federation", "cmds.federation_dryrun",
+                "scenario", "scenario.generator", "plan.autotune",
+                "tune", "tune.observe", "tune.propose", "tune.shadow",
+                "tune.controller"):
         assert "dss_tpu_torch." + mod in names, (mod, names)
     import chip_smoke  # its helpers; main() only runs as a script
     assert callable(chip_smoke.run) and callable(chip_smoke.make_batch)
@@ -133,7 +139,7 @@ def _tiny_table_args():
 
 @pytest.mark.parametrize("make", ["fasttable", "dartable", "index", "snapshot",
                                   "warmup", "store", "region_store",
-                                  "mesh"])
+                                  "mesh", "autotune"])
 def test_default_device_without_a_card_raises(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args, se = _tiny_table_args()
@@ -150,6 +156,8 @@ def test_default_device_without_a_card_raises(monkeypatch, make):
         "region_store": lambda: DSSStore(storage="cuda",
                                          region_url="http://127.0.0.1:1"),
         "mesh": lambda: make_mesh(2, dp=1, sp=2),
+        # the sweep refuses before it builds its fixture
+        "autotune": lambda: autotune.autotune(quick=True),
     }[make]
     with pytest.raises(RuntimeError, match="cuda"):
         build()

@@ -19,7 +19,12 @@ route (ops/conflict.py's torch ops under parallel/sharded.py): a cuda
 ShardedDar on a virtual 2x4 mesh equals the CPU one; a replica
 refreshes in a loop while the GraphCache captures on another thread,
 with 0 capture failures; a reader on its own stream never sees a
-snapshot whose copies have not finished.
+snapshot whose copies have not finished.  The autotune sweep
+(plan/autotune.py) at its full 50,000 x 20,000 fixture:
+measure_device's and measure_hit_concentration's batches through B1
+equal the plain version, and at every depth of measure_resident's
+ladder (2, 4, 8, 16 submits before any collect) each submit replays a
+captured graph whose answer equals eager B1 and the plain version.
 
 Needs a CUDA card (marker `gpu`); skips elsewhere.  This file imports
 neither jax nor the reference package, so it runs on a machine that has
@@ -1155,3 +1160,82 @@ def test_a_reader_never_sees_unfinished_copies(cuda, tmp_path):
     rep.close()
     assert not bad, bad[:5]
     assert len(seen) >= 2, seen
+
+
+# -- the autotune sweep (plan/autotune.py) ------------------------------------
+
+SWEEP_ENTITIES, SWEEP_CELLS = 50_000, 20_000  # autotune()'s full fixture
+
+
+def _pairs(res):
+    qidx, slots = res
+    return sorted(zip(np.asarray(qidx).tolist(), np.asarray(slots).tolist()))
+
+
+@pytest.fixture(scope="module")
+def sweep_tables():
+    """The full sweep's fixture on the card and on the CPU (the same
+    records: _fixture is seeded)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from dss_tpu_torch.plan import autotune as at
+
+    card = at._fixture(SWEEP_ENTITIES, SWEEP_CELLS, device="cuda")
+    host = at._fixture(SWEEP_ENTITIES, SWEEP_CELLS, device="cpu")
+    yield card._state.snap.fast, host._state.snap.fast
+    card.close()
+    host.close()
+
+
+@pytest.mark.gpu
+def test_sweep_batches_through_b1_equal_the_plain_version(sweep_tables):
+    """measure_hit_concentration's query_fused batch and both of
+    measure_device's batch sizes launch B1 eagerly, with the plain
+    version's answers; the hit concentration comes out equal."""
+    from dss_tpu_torch.plan import autotune as at
+
+    card, host = sweep_tables
+    launches = ff.fused_window_filter.launches
+    batches = [at._query_batch(19, 256, SWEEP_CELLS)] + [
+        at._query_batch(13 + n, n, SWEEP_CELLS) for n in (128, 1024)]
+    for qb in batches:
+        got = card.query_fused(*qb, now=at.NOW)
+        assert len(got[0]) > 0
+        assert _pairs(got) == _pairs(host.query_fused(*qb, now=at.NOW))
+        got = card.collect(card.submit(*qb, now=at.NOW))
+        assert _pairs(got) == _pairs(host.collect(host.submit(*qb,
+                                                              now=at.NOW)))
+    assert ff.fused_window_filter.launches - launches == 2 * len(batches)
+    assert at.measure_hit_concentration(card, SWEEP_CELLS) == (
+        at.measure_hit_concentration(host, SWEEP_CELLS))
+
+
+@pytest.mark.gpu
+def test_resident_ladder_replays_equal_eager_b1(sweep_tables):
+    """measure_resident's ladder on the card: at every depth (2, 4, 8,
+    16) the batches submitted before any collect each replay a captured
+    graph of the one reserved entry, and each answer equals eager B1
+    and the plain version."""
+    from dss_tpu_torch.ops.resident import ResidentKernel
+    from dss_tpu_torch.plan import autotune as at
+
+    card, host = sweep_tables
+    depths = (2, 4, 8, 16)
+    qb = at._query_batch(17, 128, SWEEP_CELLS)
+    wb = max(256, card._pack_windows(qb[0])[0].shape[1])
+    kern = ResidentKernel(autocompile=False, instances=max(depths))
+    kern.warm(card, batch_buckets=(pow2_bucket(128, lo=16),),
+              window_buckets=(wb,))
+    for d in depths:
+        shifted = [(qb[0], qb[1], qb[2], qb[3] + i, qb[4] + i)
+                   for i in range(d)]
+        replays = ff.fused_window_filter.graph_replays
+        pend = [card.submit(*q, now=at.NOW, kernel=kern) for q in shifted]
+        assert ff.fused_window_filter.graph_replays - replays == d
+        got = [card.collect(p) for p in pend]
+        for q, g in zip(shifted, got):
+            assert len(g[0]) > 0
+            assert _pairs(g) == _pairs(card.query_fused(*q, now=at.NOW))
+            assert _pairs(g) == _pairs(host.query_fused(*q, now=at.NOW))
+    assert kern.misses == 0 and kern.busy == 0
+    assert kern.hits == sum(depths)

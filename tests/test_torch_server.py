@@ -23,9 +23,12 @@ positions) serves every `/aux/v1/replica/<surface>` equal to the
 store's own route once the replica has tailed the WAL; a mesh larger
 than its positions exits.
 
-The flags of later slices exit naming their slice, and `--device` left
-at its default (`cuda`) raises on a machine without a card.  Every wait
-has its own time limit.
+The multihost flags exit naming their slice, and `--device` left at its
+default (`cuda`) raises on a machine without a card, `--self_tune`
+included.  `--device cpu --autotune_profile <the shipped CPU profile>
+--self_tune` boots, logs the knobs the profile seeded and exports them
+(and the armed tuner) in /metrics.  Every wait has its own time
+limit.
 """
 
 from __future__ import annotations
@@ -272,8 +275,6 @@ def test_later_slice_flags_name_their_slice(monkeypatch):
         "--jax_coordinator h:1": "multihost", "--process_id 0": "multihost",
         "--num_processes 2": "multihost",
         "--multihost_dryrun 2": "multihost",
-        "--self_tune": "tuner",
-        "--autotune_profile p.json": "tuner",
     }
     assert {f"--{k}" for k in p_server.LATER_SLICE_FLAGS} == {
         c.split()[0] for c in cases
@@ -287,6 +288,11 @@ def test_later_slice_flags_name_their_slice(monkeypatch):
     for argv, slice_ in cases.items():
         with pytest.raises(SystemExit, match=f"the {slice_} slice"):
             p_server.refuse_later_slices(parser.parse_args(argv.split()))
+    # the tuner's flags are this package's own now
+    tuned = parser.parse_args(
+        "--self_tune --autotune_profile p.json".split())
+    p_server.refuse_later_slices(tuned)
+    assert tuned.self_tune and tuned.autotune_profile == "p.json"
     # the single-process mesh's flags are this package's own now
     p_server.refuse_later_slices(parser.parse_args(
         "--sharded_replica 1,2 --virtual_devices 2 "
@@ -318,7 +324,8 @@ def test_later_slice_flags_name_their_slice(monkeypatch):
 
 def test_the_binary_refuses_later_slices_and_a_missing_card():
     """As processes: a later-slice flag exits 1 naming its slice before
-    anything boots; `--device` left at `cuda` raises without a card."""
+    anything boots; `--device` left at `cuda` raises without a card,
+    and `--self_tune` now gets past the arguments to that card."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")
     env = {k: v for k, v in os.environ.items()
@@ -339,11 +346,56 @@ def test_the_binary_refuses_later_slices_and_a_missing_card():
             if p.poll() is None:
                 p.kill()
         out[k] = (p.returncode, p.stderr.read().decode(errors="replace"))
-    assert out["tuner"][0] == 1 and "the tuner slice" in out["tuner"][1]
+    assert out["tuner"][0] != 0
+    assert "not ported yet" not in out["tuner"][1]
+    assert "torch.cuda.is_available() is False" in out["tuner"][1]
     assert out["multihost"][0] == 1
     assert "the multihost slice" in out["multihost"][1]
     assert out["card"][0] != 0
     assert "torch.cuda.is_available() is False" in out["card"][1]
+
+
+def test_autotune_profile_and_self_tune_boot_on_the_cpu(tmp_path):
+    """`--device cpu --autotune_profile deploy/autotune/cpu-cpu-c2.json
+    --self_tune`: the profile seeds every knob the environment leaves
+    unset (logged), /metrics carries them as the armed tuner's active
+    knobs beside the profile's age, and SIGTERM exits 0."""
+    import json
+
+    profile = REPO / "deploy" / "autotune" / "cpu-cpu-c2.json"
+    knobs = json.loads(profile.read_text())["knobs"]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("DSS_CO_", "DSS_RES_", "DSS_SHARD_",
+                                "DSS_SHM_", "DSS_TUNE"))
+           and k not in ("DSS_PUSH", "DSS_FED_MAP", "DSS_AUTOTUNE_PROFILE")}
+    port = free_port()
+    p = _popen("dss_tpu_torch.cmds.server", "--addr", f"127.0.0.1:{port}",
+               "--storage", "cuda", "--device", "cpu", "--insecure_no_auth",
+               "--enable_scd", "--no_warmup",
+               "--wal_path", str(tmp_path / "dss.wal"),
+               "--autotune_profile", str(profile), "--self_tune", env=env)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        _wait_http(base + "/healthy", p, "tuned server")
+        text = requests.get(base + "/metrics", timeout=10).text
+    finally:
+        rc, dt = _stop(p)
+    err = p.stderr.read().decode(errors="replace")
+    assert rc == 0 and dt < GRACE_S, (rc, dt, err[-3000:])
+    seeded = re.search(r"autotune profile .* \(host class cpu-cpu-c2\): "
+                       r'seeded ([^"]*)', err)
+    assert seeded, err[-3000:]
+    assert seeded.group(1).split(", ") == [
+        f"{k}={v}" for k, v in sorted(knobs.items())]
+    assert "self-tuning armed" in err
+    assert "Traceback" not in err
+    assert _metric(text, "dss_tune_enabled") == 1.0
+    assert _metric(text, "dss_autotune_profile_age_s") == 0.0  # unstamped
+    active = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r'^dss_tune_knob_active\{knob="(\w+)"\} (\S+)$', text, re.M)}
+    want = {k: float(v) for k, v in knobs.items()
+            if k.startswith("DSS_CO_")}
+    assert active == want
 
 
 # -- the read-worker fleet (--workers) -----------------------------------------

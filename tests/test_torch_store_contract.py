@@ -463,8 +463,9 @@ def test_later_slices_raise():
     s = PStore(storage="memory")
     try:
         assert s.region is None and not s.rid._capture_undo
-        with pytest.raises(NotImplementedError, match="tuner slice"):
-            s.attach_tuner(None)
+        # the tuner slice is ported: a memory store has no coalescer,
+        # so its knob view is empty (the tuner observes, never proposes)
+        assert s.tune is None and s.tune_knob_values() == {}
         # the mesh slice is ported: a memory store has no coalescer to
         # take a delegate, and the replica adopts the store's load map
         # (tests/test_torch_replica.py drives a cuda store's offload)
@@ -480,7 +481,8 @@ def test_later_slices_raise():
         s.close()
     # the federation slice is ported (tests/test_torch_federation.py):
     # attaching a router wraps rid/scd and fills the dss_fed_* gauges
-    # as the reference's store does
+    # as the reference's store does (both routers on one fixed
+    # monotonic clock, so the mirrors' lag compares exactly)
     from dss_tpu.region import federation as r_fed
     from dss_tpu_torch.region import federation as p_fed
 
@@ -497,6 +499,7 @@ def test_later_slices_raise():
             router = fed.FederationRouter(
                 fed.FederationMap(entries, np.array([1000], np.int32), "a"),
                 {"b": fed.FederationPeer("b", lambda *a: {})},
+                clock=lambda: 100.0,
             )
             st.attach_federation(router)
             router.close()
@@ -533,3 +536,48 @@ def test_device_loss_recovery_rewarms_through_the_ladder():
         assert s.health.mode_name() == "healthy"
     finally:
         s.close()
+
+
+def _controller(tune, store, **kw):
+    return tune.TuneController(
+        hist_provider=lambda: {}, actuator=lambda kn: None,
+        current_fn=store.tune_knob_values, **kw)
+
+
+def test_attach_tuner_once_with_the_reference_knobs_and_stats():
+    """attach_tuner arms one controller per store and refuses a second;
+    tune_knob_values() on a cuda store (device="cpu") equals the
+    reference's on its tpu store, and stats()' dss_tune_* keys, types
+    and (with nothing observed) values equal the reference's."""
+    from dss_tpu import tune as r_tune
+    from dss_tpu.plan import set_decision_hook as r_hook
+    from dss_tpu_torch import tune as p_tune
+    from dss_tpu_torch.plan import set_decision_hook as p_hook
+
+    ref, _ = make_store(REF, "cuda")
+    port, _ = make_store(PORT, "cuda")
+    try:
+        assert port.tune_knob_values() == ref.tune_knob_values()
+        assert set(port.tune_knob_values()) == set(p_tune.HOT_KNOBS)
+        r_ctl = _controller(r_tune, ref)
+        p_ctl = _controller(p_tune, port, device="cpu")
+        ref.attach_tuner(r_ctl)
+        port.attach_tuner(p_ctl)
+        assert port.tune is p_ctl
+        with pytest.raises(RuntimeError, match="tuner already attached"):
+            port.attach_tuner(_controller(p_tune, port, device="cpu"))
+        assert port.tune is p_ctl
+        r = {k: v for k, v in ref.stats().items() if k.startswith("dss_tune_")}
+        p = {k: v for k, v in port.stats().items()
+             if k.startswith("dss_tune_")}
+        assert p == r and p["dss_tune_enabled"] == 1
+        assert {k: type(v) for k, v in p.items()} == {
+            k: type(v) for k, v in r.items()}
+        assert set(p) == set(p_tune.empty_stats())
+    finally:
+        ref.close()
+        port.close()
+        r_hook(None)
+        p_hook(None)
+    # close() closed the controllers: their loops stopped
+    assert p_ctl._stop.is_set() and r_ctl._stop.is_set()
