@@ -45,7 +45,7 @@ Phases (any failure exits non-zero; nothing is caught):
      then the reference's bulk stale drain (bench.py:1157-1186), 16
      bursts of 128 bounded-staleness callers, every answer held against
      the twin, one `bulk_burst` line;
-  8. the store: a WAL of 200k SCD operational intents (8 contiguous
+  8. the store: a WAL of 100k SCD operational intents (8 contiguous
      level-13 cells each, 10-600 m bands, 1-5 h windows), the RID poll
      recipe's 4,000 ISAs over 512 areas, and a few hundred RID
      subscriptions, SCD subscriptions and constraints, written with
@@ -179,7 +179,27 @@ Phases (any failure exits non-zero; nothing is caught):
      0 local 5xx, 0 lost acknowledged writes, bit-identical to the
      merged oracle, the card's memory.used around the servers; the
      `federation` line;
- 16. the device time of each kernel by device kernel name, the kernels
+ 16. multihost (parallel/multihost.py, cmds/multihost_dryrun), after the
+     federation, on the card: the dryrun's legs (run_dryrun with two
+     positions a process on the card: one process, two processes
+     bit-identical to it, peer loss, a third process joining and
+     leaving, capacity weights; placements {0: [0, 1], 1: [2, 3]} and
+     after the join {.., 2: [4, 5]}); the serving leg: two processes on a
+     global 1x4 mesh (two positions each on the card, gloo on
+     host-staged shards) over copies of the http phase's WAL answer 16
+     batches of 64 searches per entity class, each answer held against
+     a single-process 1x4 ShardedReplica on the card (MULTIHOST_TALLY),
+     then the follower is SIGKILLed mid-serve and the leader must report
+     dss_multihost_degraded 1 and answer equal from its host map (8
+     searches a class: each scans every record in Python) and from a
+     local mesh; then two server processes `--storage cuda
+     --sharded_replica 1,4 --jax_coordinator ... --multihost_dryrun 2`
+     over the same WAL (/healthy, the replica surface against the store
+     route, the dss_multihost_* gauges, SIGTERM exit 0); the `multihost`
+     line (verdicts, placements, batch p50/p99 two processes against
+     one, the cross-process bytes and ms per batch, the kill to
+     degraded, each process's card memory);
+ 17. the device time of each kernel by device kernel name, the kernels
      line (four kernels; B1's entry with its graph replays, its
      store-phase and its tuner counts), with each kernel's count of comparisons made
      and of those that disagreed; then the ok line, or exit 1 if any
@@ -202,7 +222,10 @@ Phases (any failure exits non-zero; nothing is caught):
      in the live loop, a profile that does not load back, a drill with
      another verdict than the leg's or a knob not back at its value, a
      cold start pass with an error, or a tuned server without the
-     profile's knobs, its age or an armed tuner).
+     profile's knobs, its age or an armed tuner, or in the multihost
+     phase a dryrun leg not ok, another placement, a serving batch
+     without a cross-process gather, a leader that never degraded, or
+     an unclean exit of a worker or server).
 Times: `ms` is a kernel's device time per wrapper call with the L2
 flushed (a real batch finds its blocks cold): the kernels, memsets and
 copies that 30 calls launched, summed from torch.profiler, over 30;
@@ -282,8 +305,10 @@ SERVING_SAMPLE = 4096  # answers per leg held against the CPU twin
 # on the host, at 1,800-2,800 records/s on the H100's hosts, and at 1M
 # the whole smoke took 1,471 s, past its 1,200 s limit; at 500k it took
 # 923 s once the native and push phases came, at 300k up to 890 s once
-# the mesh came, so the region phase's room comes from here (PERF.md §4).
-STORE_OPS = 200_000
+# the mesh came, so the region phase's room came from here (200k), and
+# the multihost phase's (100k): at 200k the smoke took 1,116 s of
+# phases with it (PERF.md §4).
+STORE_OPS = 100_000
 STORE_SUBS = 300  # SCD subscriptions; as many RID subscriptions
 STORE_CSTS = 200
 POLL_ISAS, POLL_AREAS, POLL_CELLS = 4000, 512, 64
@@ -3229,7 +3254,7 @@ def shm_front_phase(smi, state, workers0) -> tuple:
 def replay_profile(wal, n_records, dev, smi) -> dict:
     """An in-process boot of DSSStore(storage="cuda") from `wal` under
     cProfile: the boot's seconds and the top 12 functions by cumulative
-    time, for the replay that cuts the store phase to 200k.  -> the
+    time, for the replay that cuts the store phase to 100k.  -> the
     `store_replay_profile` line."""
     import cProfile
     import os
@@ -4261,6 +4286,12 @@ def mesh_store_drains(store, wal_path, dev, orc, seed) -> tuple:
             "seconds": time.perf_counter() - t_all}, failures
 
 
+def area_of(vol) -> str:
+    """The area query string of an SCD volume's outline."""
+    return ",".join(f"{v['lat']},{v['lng']}" for v in
+                    vol["volume"]["outline_polygon"]["vertices"])
+
+
 def mesh_server(smi, state) -> tuple:
     """Part 3, as a process: the server binary with `--sharded_replica
     1,2 --virtual_devices 2` on the card, booted from the http phase's
@@ -4302,10 +4333,6 @@ def mesh_server(smi, state) -> tuple:
         if status != want:
             raise RuntimeError(f"{what}: HTTP {status} {body}")
         return body
-
-    def area_of(vol):
-        return ",".join(f"{v['lat']},{v['lng']}" for v in
-                        vol["volume"]["outline_polygon"]["vertices"])
 
     def replica(surface, key, area, vol=None):
         qs = {"area": area}
@@ -6383,6 +6410,497 @@ def tuner_server(state, profile_path) -> list:
     return failures
 
 
+# -- multihost (parallel/multihost.py, cmds/multihost_dryrun) ---------------
+
+MULTIHOST_TALLY = Tally("multihost")  # every answer of the serving leg
+MH_CLASSES = ("ops", "isas", "rid_subs", "scd_subs", "constraints")
+MH_BATCHES = 16  # batches of MH_BATCH searches per entity class
+MH_BATCH = 64  # the coalescer's mesh offload chunk
+MH_AFTER = 4  # batches per class on the local mesh after the kill
+MH_HOST = 8  # searches per class from the host map after the kill (each
+#              scans every record of its class in Python)
+MH_POSITIONS = 2  # mesh positions per process on the card
+MH_DEADLINE_S = 180.0  # any one wait of the phase
+MH_DEVICE = "cuda"  # every process's --device
+
+
+def mh_queries(rep, seed=31) -> dict:
+    """MH_BATCHES x MH_BATCH searches per entity class, each the cells
+    of a seeded live record of that class, so every search finds at
+    least its record -> {class: [[keys per query] per batch]}."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for cls in MH_CLASSES:
+        recs = list(rep._records[cls].values())
+        picks = rng.integers(0, len(recs), MH_BATCHES * MH_BATCH)
+        keys = [np.unique(recs[int(i)].keys).astype(np.int32).tolist()
+                for i in picks]
+        out[cls] = [keys[b * MH_BATCH:(b + 1) * MH_BATCH]
+                    for b in range(MH_BATCHES)]
+    return out
+
+
+def mh_search(rep, keys, now, cls):
+    """One batch of unfiltered searches (every altitude and time)."""
+    from dss_tpu_torch.ops.conflict import NO_TIME_HI, NO_TIME_LO
+
+    b = len(keys)
+    return rep.query_batch(
+        [np.asarray(k, np.int32) for k in keys],
+        np.full(b, -np.inf, np.float32), np.full(b, np.inf, np.float32),
+        np.full(b, NO_TIME_LO, np.int64), np.full(b, NO_TIME_HI, np.int64),
+        now=now, cls=cls)
+
+
+def mh_serve_worker(argv) -> int:
+    """One process of the serving leg (spawned by mh_serving_leg):
+    `process_id port|0 wal queries.json workdir device`.  Both join a 1 x
+    (2 MH_POSITIONS) global mesh on the card through
+    parallel/multihost.py and tail their own copy of the WAL.  The
+    follower replays the leader's stream (its `report` command writes
+    its card memory) until killed.  The leader folds, answers every
+    class's batches (timed; the seam's bytes and ms from zero), asks
+    for the report, writes serving.json, then keeps answering until the
+    mesh degrades under the follower's SIGKILL, answers MH_HOST
+    searches per class from its host map, re-homes on a local mesh of
+    the card and answers MH_AFTER batches per class there; final.json
+    holds it all."""
+    import os
+
+    from dss_tpu_torch.parallel import multihost as mh
+    from dss_tpu_torch.parallel.mesh import make_global_mesh
+
+    pid, port, wal, qpath, work, device = argv
+    pid = int(pid)
+
+    def dump(name, obj):
+        tmp = os.path.join(work, name + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(obj, f)
+        os.replace(tmp, os.path.join(work, name))
+
+    t0 = time.perf_counter()
+    rt = mh.initialize(
+        mh.MultihostConfig(f"127.0.0.1:{port}", pid, 2,
+                           dryrun_devices=MH_POSITIONS, device=device),
+        on_bound=(lambda p: dump("port.json", p)) if pid == 0 else None)
+    join_s = time.perf_counter() - t0
+    rep = mh.MultihostReplica(rt, make_global_mesh(dp=1), wal_path=wal,
+                              warm_batches=(1, 32, 64))
+    def memory():
+        if device != "cuda":
+            return {}
+        return {"reserved_mib": torch.cuda.memory_reserved() / 2**20,
+                "allocated_mib": torch.cuda.memory_allocated() / 2**20}
+
+    if pid:
+        rep.extra_commands["report"] = lambda head: dump(
+            "follower.json", memory())
+        try:
+            rep.run_follower()
+            rc = 0
+        except mh.MultihostDegradedError:
+            rc = 3
+        rep.close()
+        rt.close()
+        return rc
+    with open(qpath) as f:
+        q = json.load(f)
+    now = q["now"]
+    degraded_at = []
+    rt.on_degraded(lambda: degraded_at.append(time.time()))
+    t = time.perf_counter()
+    rep.sync()
+    fold_s = time.perf_counter() - t
+    seam0 = dict(rt.seam.stats())
+    answers, lat = {}, []
+    for cls in MH_CLASSES:
+        for b, keys in enumerate(q["queries"][cls]):
+            t = time.perf_counter()
+            answers[f"{cls}/{b}"] = mh_search(rep, keys, now, cls)
+            lat.append(time.perf_counter() - t)
+    seam = {k: v - seam0[k] for k, v in rt.seam.stats().items()}
+    rep.broadcast_control("report")
+    stats = {k: v for k, v in rep.stats().items()
+             if k.startswith("dss_multihost_")
+             or k in ("dss_shard_members", "replica_rebuilds")}
+    dump("serving.json", {"join_s": join_s, "fold_s": fold_s,
+                          "batch_s": lat, "seam": seam, "stats": stats,
+                          "memory": memory(), "answers": answers})
+    # the parent kills the follower now: answer until the mesh degrades
+    during, i = {}, 0
+    deadline = time.monotonic() + MH_DEADLINE_S
+    while not rt.degraded and time.monotonic() < deadline:
+        cls, b = MH_CLASSES[i % len(MH_CLASSES)], i % MH_BATCHES
+        during[f"{cls}/{b}/{i}"] = mh_search(rep, q["queries"][cls][b],
+                                             now, cls)
+        i += 1
+    after = {}
+    for cls in MH_CLASSES:
+        after[f"host/{cls}/0"] = mh_search(
+            rep, q["queries"][cls][0][:MH_HOST], now, cls)
+    t = time.perf_counter()
+    rep.sync()  # re-home on a local mesh of the card
+    rehome_s = time.perf_counter() - t
+    for cls in MH_CLASSES:
+        for b in range(MH_AFTER):
+            after[f"local/{cls}/{b}"] = mh_search(
+                rep, q["queries"][cls][b], now, cls)
+    stats = {k: v for k, v in rep.stats().items()
+             if k.startswith("dss_multihost_") or k == "dss_shard_members"}
+    dump("final.json", {"degraded_at": degraded_at[:1],
+                        "degraded_reason": rt.degraded_reason,
+                        "during": during, "after": after,
+                        "rehome_s": rehome_s, "stats": stats,
+                        "mesh": dict(rep.mesh.shape)})
+    rep.close()
+    rt.close()
+    return 0
+
+
+def mh_serving_leg(work, state, smi) -> tuple:
+    """The serving leg: a single-process 1x4 ShardedReplica on the
+    card over the http phase's WAL answers MH_BATCHES batches of
+    MH_BATCH searches per class (timed); then two mh_serve_worker
+    processes (2 positions each on the card, a global 1x4 mesh) over
+    copies of the same WAL answer the same searches, the follower is
+    SIGKILLed while the leader serves, and every answer of the leader
+    (mesh, during the kill, host map, local mesh) is held against the
+    single process's, in MULTIHOST_TALLY.  -> (its line, failures)."""
+    import os
+    import shutil
+    import signal
+
+    from dss_tpu_torch.parallel.mesh import make_mesh, virtual_devices
+    from dss_tpu_torch.parallel.replica import ShardedReplica
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(work)
+    line, failures = {}, []
+    now = state["now"]
+    wals = []
+    for name in ("single", "p0", "p1"):
+        wals.append(os.path.join(work, f"{name}.wal"))
+        shutil.copyfile(state["wal"], wals[-1])
+    t = time.perf_counter()
+    mesh = make_mesh(4, dp=1, sp=4, devices=virtual_devices(MH_DEVICE, 4))
+    single = ShardedReplica(mesh, wal_path=wals[0], warm_batches=(1, 32, 64))
+    single.sync()
+    line["single_fold_s"] = time.perf_counter() - t
+    qs = mh_queries(single)
+    want, lat = {}, []
+    for cls in MH_CLASSES:
+        for b, keys in enumerate(qs[cls]):
+            t = time.perf_counter()
+            want[(cls, b)] = mh_search(single, keys, now, cls)
+            lat.append(time.perf_counter() - t)
+    line["records"] = {c: len(single._records[c]) for c in MH_CLASSES}
+    line["hits_per_search"] = sum(
+        len(r) for v in want.values() for r in v) / (len(want) * MH_BATCH)
+    line["single_batch"] = lat_ms(lat)
+    single.close()
+    del single, mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    qpath = os.path.join(work, "queries.json")
+    with open(qpath, "w") as f:
+        json.dump({"now": now, "queries": qs}, f)
+    used0 = card_used_mib()
+    code = ("import sys, chip_smoke; "
+            "sys.exit(chip_smoke.mh_serve_worker(sys.argv[1:]))")
+    logs = [open(os.path.join(work, f"worker{i}.log"), "wb")
+            for i in range(2)]
+    procs = []
+
+    def spawn(i, port):
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code, str(i), str(port), wals[i + 1],
+             qpath, work, MH_DEVICE], cwd=root, stdout=logs[i],
+            stderr=logs[i]))
+
+    def wait_for(name, what, alive=None):
+        path = os.path.join(work, name)
+        deadline = time.monotonic() + MH_DEADLINE_S
+        while not os.path.exists(path):
+            if any(p.poll() is not None for p in (alive or procs)):
+                raise RuntimeError(f"a worker exited before {what}: "
+                                   f"{[p.returncode for p in procs]}")
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"never {what}")
+            time.sleep(0.02)
+        with open(path) as f:
+            return json.load(f)
+
+    def tail(i):
+        logs[i].flush()
+        with open(logs[i].name, "rb") as f:
+            return f.read()[-2000:].decode(errors="replace")
+
+    def hold(got, key, what):
+        if not got:
+            MULTIHOST_TALLY.check(False, f"multihost {what} {key}: none")
+        for j, ids in enumerate(got):
+            MULTIHOST_TALLY.check(ids == want[key][j],
+                                  f"multihost {what} {key} query {j}")
+
+    t_leg = time.perf_counter()
+    try:
+        spawn(0, 0)
+        spawn(1, wait_for("port.json", "bound its store"))
+        serving = wait_for("serving.json", "served its batches")
+        used1 = card_used_mib()
+        follower = wait_for("follower.json", "reported its memory")
+        time.sleep(0.2)  # the leader is answering again
+        t_kill = time.time()
+        procs[1].send_signal(signal.SIGKILL)
+        procs[1].wait(30)
+        final = wait_for("final.json", "finished after the kill",
+                         alive=procs[:1])
+        rc0 = procs[0].wait(MH_DEADLINE_S)
+        for key, rows in serving["answers"].items():
+            cls, b = key.split("/")
+            hold(rows, (cls, int(b)), "mesh")
+        for key, rows in final["during"].items():
+            cls, b, _ = key.split("/")
+            hold(rows, (cls, int(b)), "during the kill")
+        for key, rows in final["after"].items():
+            phase, cls, b = key.split("/")
+            hold(rows, (cls, int(b)), phase)
+        n = len(serving["batch_s"])
+        seam = serving["seam"]
+        gathers = max(seam["dss_multihost_gathers"], 1)
+        line.update({
+            "wal_records": state["n_records"], "processes": 2,
+            "positions_per_process": MH_POSITIONS, "mesh": "1x4",
+            "batches": n, "batch": MH_BATCH,
+            "join_s": serving["join_s"], "fold_s": serving["fold_s"],
+            "two_process_batch": lat_ms(serving["batch_s"]),
+            "cross_process_per_batch": {
+                "gathers": seam["dss_multihost_gathers"] / n,
+                "sent_bytes": seam["dss_multihost_gather_sent_bytes"] / n,
+                "received_bytes":
+                    seam["dss_multihost_gather_received_bytes"] / n,
+                "local_ms": seam["dss_multihost_gather_local_ms"] / n,
+                "gather_ms": seam["dss_multihost_gather_ms"] / n,
+            },
+            "gather_ms_per_collective":
+                seam["dss_multihost_gather_ms"] / gathers,
+            "stats": serving["stats"],
+            "refresh_bytes_per_refresh": serving["stats"][
+                "dss_multihost_refresh_bytes"] / max(
+                serving["stats"]["replica_rebuilds"], 1),
+            "card_memory": {
+                "memory_used_mib_before": used0,
+                "memory_used_mib_serving": used1,
+                "memory_used_delta_mib": (None if None in (used0, used1)
+                                          else used1 - used0),
+                "leader_torch": serving["memory"],
+                "follower_torch": follower,
+            },
+            "batches_during_kill": len(final["during"]),
+            "kill_to_degraded_s": (final["degraded_at"][0] - t_kill
+                                   if final["degraded_at"] else None),
+            "degraded_reason": final["degraded_reason"],
+            "rehome_s": final["rehome_s"], "mesh_after": final["mesh"],
+            "stats_after": final["stats"],
+            "follower_rc": procs[1].returncode, "leader_rc": rc0,
+        })
+        if rc0 != 0:
+            failures.append(f"multihost serving: leader rc {rc0}: "
+                            f"{tail(0)}")
+        if final["stats"].get("dss_multihost_degraded") != 1:
+            failures.append("multihost serving: the leader never "
+                            "reported dss_multihost_degraded 1")
+        if serving["stats"].get("dss_multihost_degraded") != 0:
+            failures.append("multihost serving: degraded before the kill")
+        if seam["dss_multihost_gathers"] < n:
+            failures.append("multihost serving: batches without a "
+                            "cross-process gather")
+    except Exception as e:  # noqa: BLE001 — reported as the leg's failure
+        failures.append(f"multihost serving: {type(e).__name__}: {e}: "
+                        f"{tail(0)} {tail(1) if len(procs) > 1 else ''}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+        for f in logs:
+            f.close()
+    line["seconds"] = time.perf_counter() - t_leg
+    line["card"] = smi
+    return line, failures
+
+
+def mh_server_leg(work, state, smi) -> tuple:
+    """Two server processes, `python -m dss_tpu_torch.cmds.server
+    --storage cuda --sharded_replica 1,4 --jax_coordinator ...
+    --process_id i --num_processes 2 --multihost_dryrun 2`, each booted
+    from a copy of the http phase's WAL: /healthy on both, the leader's
+    /aux/v1/replica/operations held to its store route for 8 of the
+    http phase's op queries (a request that waits out the server's
+    deadline behind a lockstep fold is counted and asked again), the
+    dss_multihost_* gauges on the leader's /metrics, then SIGTERM of the
+    leader and of the follower, exit 0 each.  -> (its line,
+    failures)."""
+    import os
+    import shutil
+    import urllib.request
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(work)
+    line, failures = {}, []
+    coord = f"127.0.0.1:{free_port()}"
+    procs = []
+    t0 = time.perf_counter()
+    for i in range(2):
+        wal = os.path.join(work, f"p{i}.wal")
+        shutil.copyfile(state["wal"], wal)
+        port = free_port()
+        procs.append(RegionProc(f"mh_server{i}", [
+            "dss_tpu_torch.cmds.server", "--addr", f"127.0.0.1:{port}",
+            "--enable_scd", "--storage", "cuda", "--device", MH_DEVICE,
+            "--insecure_no_auth", "--wal_path", wal,
+            "--shutdown_grace", str(HTTP_GRACE_S), "--no_warmup",
+            "--sharded_replica", "1,4", "--replica_refresh_interval",
+            str(MESH_REFRESH_S), "--jax_coordinator", coord,
+            "--process_id", str(i), "--num_processes", "2",
+            "--multihost_dryrun", str(MH_POSITIONS)], port, work, root))
+    try:
+        for p in procs:
+            p.wait_healthy(limit=MH_DEADLINE_S)
+        line["healthy_s"] = [p.healthy_s for p in procs]
+        leader = procs[0].base
+
+        def replica_ops(vol):
+            import urllib.parse
+
+            qs = urllib.parse.urlencode({
+                "area": area_of(vol),
+                "altitude_lo": vol["volume"]["altitude_lower"]["value"],
+                "altitude_hi": vol["volume"]["altitude_upper"]["value"],
+                "earliest_time": vol["time_start"]["value"],
+                "latest_time": vol["time_end"]["value"]})
+            for _ in range(3):
+                status, body = http_json(
+                    leader, "GET", "/aux/v1/replica/operations?" + qs)
+                if status != 504:
+                    break
+                # the request waited out its deadline behind a lockstep
+                # fold (a boundary move's major rebuild holds the mesh
+                # lock on every process): counted, then asked again
+                line["deadline_504s"] = line.get("deadline_504s", 0) + 1
+            if status != 200:
+                raise RuntimeError(f"replica surface: HTTP {status} {body}")
+            return sorted(body["operation_ids"]), body["replica"]
+
+        aois = state["aois"][:8]
+        deadline = time.monotonic() + MH_DEADLINE_S
+        while True:
+            _, st = replica_ops(aois[0][0]["area_of_interest"])
+            if (st["replica_applied_records"] >= state["n_records"]
+                    and st["replica_ops_snapshot_records"] > 0):
+                break
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"the mesh never folded: {st}")
+            time.sleep(0.1)
+        line["first_fold_s"] = time.perf_counter() - t0
+        mism = 0
+        for params, _ in aois:
+            status, body = http_json(
+                leader, "POST", "/dss/v1/operation_references/query",
+                params)
+            if status != 200:
+                raise RuntimeError(f"op query: HTTP {status} {body}")
+            want = sorted(o["id"] for o in body["operation_references"])
+            got, st = replica_ops(params["area_of_interest"])
+            MULTIHOST_TALLY.check(got == want, "multihost server: "
+                                  "replica surface != store route")
+            mism += got != want
+        with urllib.request.urlopen(leader + "/metrics", timeout=30) as r:
+            metrics = r.read().decode()
+        gauges = metric_values(metrics, "")
+        line.update({
+            "searches": len(aois), "mismatches": mism,
+            "boundary_moves": st.get("dss_shard_boundary_moves"),
+            "multihost_gauges": {k: v for k, v in gauges.items()
+                                 if k.startswith("dss_multihost_")},
+            "shard_members": st.get("dss_shard_members"),
+        })
+        if st.get("dss_shard_members") != 2:
+            failures.append(f"multihost server: {st.get('dss_shard_members')}"
+                            " shard members")
+        if not any(k.startswith("dss_multihost_commands")
+                   for k in gauges):
+            failures.append("multihost server: no dss_multihost_* gauges")
+    except Exception as e:  # noqa: BLE001 — reported as the leg's failure
+        failures.append(f"multihost server: {type(e).__name__}: {e}: "
+                        f"{procs[0].tail()} {procs[1].tail()}")
+    finally:
+        line["exit_codes"] = [p.stop(grace=HTTP_GRACE_S + 10)
+                              for p in procs]
+    if line["exit_codes"] != [0, 0]:
+        failures.append(f"multihost server: exit codes "
+                        f"{line['exit_codes']}: {procs[0].tail()} "
+                        f"{procs[1].tail()}")
+    line["seconds"] = time.perf_counter() - t0
+    line["card"] = smi
+    return line, failures
+
+
+def multihost_phase(smi, state) -> tuple:
+    """The process-spanning mesh on the card: the reference's dryrun
+    legs (cmds/multihost_dryrun.run_dryrun on MH_DEVICE: one process,
+    two, peer loss, elastic join/leave, capacity), the serving leg over
+    the http phase's WAL, and the multihost server.  -> (the
+    `multihost` line, failures)."""
+    import os
+    import shutil
+
+    from dss_tpu_torch.cmds.multihost_dryrun import run_dryrun
+
+    work = os.path.join(state["work"], "multihost")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    line, failures = {"card": smi}, []
+    t = time.perf_counter()
+    v = run_dryrun(os.path.join(work, "dryrun"), num_processes=2,
+                   devices_per_process=MH_POSITIONS, device=MH_DEVICE,
+                   timeout_s=MH_DEADLINE_S)
+    el, multi, pl = (v.get("elastic", {}), v.get("multi", {}),
+                     v.get("peerloss", {}))
+    line["dryrun"] = {
+        k: v.get(k) for k in ("ok", "bit_identical", "peerloss_ok",
+                              "elastic_ok", "capacity_ok", "stage")}
+    line["dryrun"].update({
+        "placement": multi.get("placement"),
+        "join_placement": el.get("join", {}).get("placement"),
+        "refresh_s": multi.get("refresh_s"),
+        "query_qps": multi.get("query_qps"),
+        "degraded_after_s": pl.get("degraded_after_s"),
+        "stats": {k: x for k, x in multi.get("stats", {}).items()
+                  if k.startswith("dss_multihost_")},
+        "seconds": time.perf_counter() - t,
+    })
+    for k in ("ok", "bit_identical", "peerloss_ok", "elastic_ok"):
+        if not v.get(k):
+            failures.append(f"multihost dryrun: {k} false: "
+                            f"{json.dumps(v, default=str)[-3000:]}")
+    if multi.get("placement") != {"0": [0, 1], "1": [2, 3]}:
+        failures.append(f"multihost dryrun placement {multi.get('placement')}")
+    if el.get("join", {}).get("placement") != {
+            "0": [0, 1], "1": [2, 3], "2": [4, 5]}:
+        failures.append(f"multihost dryrun join placement {el.get('join')}")
+    line["serving"], bad = mh_serving_leg(os.path.join(work, "serving"),
+                                          state, smi)
+    failures += bad
+    line["server"], bad = mh_server_leg(os.path.join(work, "server"),
+                                        state, smi)
+    failures += bad
+    line["mismatches"] = MULTIHOST_TALLY.mismatches
+    line["compared"] = MULTIHOST_TALLY.compared
+    return {"multihost": line}, failures
+
+
 def run(dev, smi) -> tuple:
     """Phases 2-7 on `dev`; -> (the entries of the kernels line, the
     serving phase's failures)."""
@@ -6598,6 +7116,13 @@ def run(dev, smi) -> tuple:
             fed_line["federation"]["seconds"] = time.perf_counter() - t
             log(json.dumps(fed_line))
             failures += bad
+            log(f"seconds before multihost: "
+                f"{time.perf_counter() - t_all:.2f}")
+            t = time.perf_counter()
+            mh_line, bad = multihost_phase(smi, http_state)
+            mh_line["multihost"]["seconds"] = time.perf_counter() - t
+            log(json.dumps(mh_line))
+            failures += bad
         finally:
             import shutil
 
@@ -6653,13 +7178,13 @@ def main() -> int:
         return 1
     if failures:
         print(f"chip_smoke: a serving, store, tuner, services, http, shm "
-              f"front, push, mesh, region or federation phase failed: "
-              f"{failures}",
+              f"front, push, mesh, region, federation or multihost phase "
+              f"failed: {failures}",
               file=sys.stderr)
         return 1
     tallies = list(TALLY.values()) + [STORE_TALLY, NATIVE_TALLY, PUSH_TALLY,
                                       MESH_TALLY, REGION_TALLY, FED_TALLY,
-                                      TUNER_TALLY]
+                                      TUNER_TALLY, MULTIHOST_TALLY]
     bad = sum(t.mismatches for t in tallies)
     if bad:
         print(f"chip_smoke: {bad} of "

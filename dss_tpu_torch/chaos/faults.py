@@ -43,6 +43,7 @@ Registered sites (grep for the literal to find the seam):
   region.client.request           region/client.py (region log hop)
   region.mirror.replicate         region/mirror.py (async: primary ->
                                   mirror pushes, mirror heartbeats)
+  multihost.barrier / .refresh    parallel/multihost.py
 
 Only the injected DeviceLostError counts as a device loss
 (is_device_loss): a real CUDA error raised by a kernel wrapper is

@@ -30,8 +30,15 @@ so they create no CUDA context.  `--autotune_profile` seeds the
 serving knobs from a profile measured by plan/autotune.py (on the card
 unless `--device cpu`) before any store reads the environment, and
 `--self_tune` arms the tune controller over the live stage histograms.
-The multihost flags stay in the parser, and each exits naming its
-slice when set (LATER_SLICE_FLAGS).
+`--jax_coordinator host:port --process_id I --num_processes N` (or
+their DSS_* env fallbacks) join this process to a process-spanning
+mesh (parallel/multihost.py: a TCPStore served by process 0 and a gloo
+group): `--sharded_replica dp,sp` then names the GLOBAL shape, process
+0 serves it and paces the lockstep folds, and the others replay its
+command stream.  Each process's positions are its cards of `--device`,
+or `--multihost_dryrun N` positions on `--device` (so several
+processes share one card, or run on the CPU).  As in the reference,
+the mesh is refused with `--workers` and `--worker_reader`.
 """
 
 from __future__ import annotations
@@ -213,19 +220,35 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--jax_coordinator",
         default="",
-        help="process 0's coordination address: join a process-"
-        "spanning mesh (multihost slice).  Env fallback "
-        "DSS_JAX_COORDINATOR",
+        help="host:port of process 0's coordination store: joins this "
+        "server to a PROCESS-SPANNING mesh (parallel/multihost.py; the "
+        "reference's flag name).  Env fallback DSS_JAX_COORDINATOR.  "
+        "Requires --process_id + --num_processes on every process",
     )
-    p.add_argument("--process_id", type=int, default=None,
-                   help="index in the multi-host mesh (multihost slice; "
-                   "env DSS_PROCESS_ID)")
-    p.add_argument("--num_processes", type=int, default=None,
-                   help="processes in the multi-host mesh (multihost "
-                   "slice; env DSS_NUM_PROCESSES)")
-    p.add_argument("--multihost_dryrun", type=int, default=0,
-                   help="the multi-host path on the CPU (multihost "
-                   "slice; env DSS_MULTIHOST_DRYRUN)")
+    p.add_argument(
+        "--process_id",
+        type=int,
+        default=None,
+        help="this process's index in the multi-host mesh (0 = "
+        "leader: serves mesh queries and paces refreshes; >0 = "
+        "follower compute peer).  Env fallback DSS_PROCESS_ID",
+    )
+    p.add_argument(
+        "--num_processes",
+        type=int,
+        default=None,
+        help="total processes in the multi-host mesh.  Env fallback "
+        "DSS_NUM_PROCESSES",
+    )
+    p.add_argument(
+        "--multihost_dryrun",
+        type=int,
+        default=0,
+        help="give this process N multi-host mesh positions on "
+        "--device (several processes share one card, or run on the "
+        "CPU); 0 = one position per card.  Env fallback "
+        "DSS_MULTIHOST_DRYRUN",
+    )
     p.add_argument(
         "--sharded_replica",
         default="",
@@ -538,32 +561,34 @@ def _make_authorizer(args):
     )
 
 
-# flag -> (its value when unset, the slice of the port that brings it).
-# The process-spanning mesh is also entered through
-# DSS_JAX_COORDINATOR, as in the reference.
-LATER_SLICE_FLAGS = {
-    "jax_coordinator": ("", "multihost"),
-    "process_id": (None, "multihost"),
-    "num_processes": (None, "multihost"),
-    "multihost_dryrun": (0, "multihost"),
-}
+def multihost_config(args):
+    """The process-spanning mesh's config from the four flags and their
+    DSS_* env fallbacks (None: single-process); SystemExit where the
+    mesh cannot be joined: without --process_id/--num_processes, or
+    beside --workers or --worker_reader (one process per host)."""
+    from dss_tpu_torch.parallel.multihost import MultihostConfig
 
-
-def refuse_later_slices(args) -> None:
-    """SystemExit naming the slice of the first flag that a later slice
-    of the port brings (the port serves standalone and region mode,
-    federated or not, with or without its read-worker fleet, its
-    single-process mesh and its tuner)."""
-    if os.environ.get("DSS_JAX_COORDINATOR"):
-        args.jax_coordinator = os.environ["DSS_JAX_COORDINATOR"]
-    for flag, (unset, slice_) in LATER_SLICE_FLAGS.items():
-        if getattr(args, flag) != unset:
+    try:
+        cfg = MultihostConfig.from_flags(
+            args.jax_coordinator,
+            args.process_id,
+            args.num_processes,
+            args.multihost_dryrun,
+            device=args.device,
+        )
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if cfg is not None:
+        if args.workers > 0:
             raise SystemExit(
-                f"--{flag} is not ported yet; it comes with the {slice_} "
-                "slice of the PyTorch/CUDA port (standalone, region "
-                "and federated mode, the single-process mesh and the "
-                "tuner only)"
+                "--workers and --jax_coordinator are mutually "
+                "exclusive (one process per host in a multi-host mesh)"
             )
+        if args.worker_reader:
+            raise SystemExit(
+                "--worker_reader cannot join a multi-host mesh"
+            )
+    return cfg
 
 
 def mesh_devices(args) -> list:
@@ -591,11 +616,14 @@ def region_token(args) -> str:
     return token
 
 
-def make_replica(args, store, log):
+def make_replica(args, store, log, mh_runtime=None):
     """`--sharded_replica dp,sp`: a ShardedReplica of every entity class
     tailing `--wal_path` or the region log of `--region_url` on a (dp,
     sp) mesh, refreshing in the background and attached to the store's
-    coalescers; None without the flag."""
+    coalescers; None without the flag.  In a joined multi-host runtime
+    (`mh_runtime`) the mesh is the GLOBAL dp x sp one and the replica a
+    MultihostReplica: the leader paces and serves it, a follower
+    replays the leader's command stream on a thread."""
     if not args.sharded_replica:
         return None
     from dss_tpu_torch.parallel.mesh import make_mesh
@@ -622,6 +650,44 @@ def make_replica(args, store, log):
             "--sharded_replica needs --wal_path or --region_url "
             "(a log to tail)"
         )
+    # every bucket a mesh-offloaded chunk can land in (chunks are
+    # <= 64; remainders bucket to 16/32): the first offload after a
+    # swap finds its kernels loaded
+    warm = (1, 32, 64)
+    wal_path = None if region_client else args.wal_path
+    if mh_runtime is not None:
+        from dss_tpu_torch.parallel.mesh import make_global_mesh
+        from dss_tpu_torch.parallel.multihost import MultihostReplica
+
+        try:
+            placement = make_global_mesh(dp=dp, sp=sp)
+        except ValueError as e:
+            raise SystemExit(f"--sharded_replica {dp},{sp}: {e}")
+        replica = MultihostReplica(
+            mh_runtime, placement, wal_path=wal_path,
+            region_client=region_client, warm_batches=warm,
+        )
+        if args.no_shard_rebalance:
+            replica._inner.rebalance_ratio = 0.0
+        if mh_runtime.is_leader:
+            replica.start(args.replica_refresh_interval)
+            store.attach_mesh_replica(replica)
+        else:
+            # compute peer: replay the leader's command stream; its
+            # own HTTP reads answer exactly from the host map
+            threading.Thread(
+                target=replica.run_follower,
+                name="multihost-follower",
+                daemon=True,
+            ).start()
+        log.info(
+            "multi-host sharded replica: process %d/%d, global %dx%d "
+            "mesh, placement %s (%s)",
+            mh_runtime.process_id, mh_runtime.num_processes, dp, sp,
+            placement.describe(),
+            "region log" if args.region_url else "wal",
+        )
+        return replica
     devs = mesh_devices(args)
     if len(devs) < dp * sp:
         raise SystemExit(
@@ -630,12 +696,9 @@ def make_replica(args, store, log):
             "--device)"
         )
     mesh = make_mesh(dp * sp, dp=dp, sp=sp, devices=devs)
-    # every bucket a mesh-offloaded chunk can land in (chunks are
-    # <= 64; remainders bucket to 16/32): the first offload after a
-    # swap finds its kernels loaded
     replica = ShardedReplica(
-        mesh, wal_path=None if region_client else args.wal_path,
-        region_client=region_client, warm_batches=(1, 32, 64),
+        mesh, wal_path=wal_path, region_client=region_client,
+        warm_batches=warm,
     )
     if args.no_shard_rebalance:
         replica.rebalance_ratio = 0.0
@@ -654,7 +717,6 @@ def build(args) -> web.Application:
     from dss_tpu_torch.obs.logging import configure_logging, get_logger
     from dss_tpu_torch.obs.metrics import MetricsRegistry
 
-    refuse_later_slices(args)
     if args.worker_reader:
         return build_worker(args)
     if args.federation_map and args.workers > 0:
@@ -799,7 +861,18 @@ def build(args) -> web.Application:
     )
     metrics.set_info("dss_build_info", build_info())
 
-    replica = make_replica(args, store, log)
+    mh_runtime = getattr(args, "_mh_runtime", None)
+    if mh_runtime is not None:
+        # peer loss climbs the degradation ladder: the mesh route is
+        # already refused via replica freshness, this makes the mode
+        # explicit stack-wide (/status, X-DSS-Freshness, the
+        # dss_degraded_mode gauge)
+        mh_runtime.on_degraded(
+            lambda: store.health.enter(
+                "mesh_degraded", mh_runtime.degraded_reason
+            )
+        )
+    replica = make_replica(args, store, log, mh_runtime)
 
     push = None
     if args.push:
@@ -819,6 +892,8 @@ def build(args) -> web.Application:
         out = store.stats()
         if replica is not None:
             out.update(replica.stats())
+        elif mh_runtime is not None:
+            out.update(mh_runtime.stats())
         return out
 
     app = build_app(
@@ -860,6 +935,8 @@ def build(args) -> web.Application:
                 fed_router.close()
             if replica is not None:
                 replica.close()
+            if mh_runtime is not None:
+                mh_runtime.close()
             if warm_thread is not None:
                 warm_thread.join(args.shutdown_grace)
             store.close()
@@ -1088,7 +1165,8 @@ def main():
     import tempfile
 
     args = make_parser().parse_args()
-    refuse_later_slices(args)  # before anything boots
+    # the multi-host mesh is refused or joined before anything boots
+    mh_cfg = multihost_config(args)
 
     if args.autotune_profile:
         load_autotune_profile(args)
@@ -1096,6 +1174,11 @@ def main():
     from dss_tpu_torch.cmds import make_ssl_context
 
     ssl_ctx = make_ssl_context(args.tls_cert, args.tls_key)
+
+    if mh_cfg is not None:
+        from dss_tpu_torch.parallel import multihost
+
+        args._mh_runtime = multihost.initialize(mh_cfg)
 
     if args.worker_reader:
         _watch_parent()

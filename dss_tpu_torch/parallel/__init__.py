@@ -11,7 +11,10 @@ local torch devices, where
 
 The EntityTable (attribute columns) is replicated — it is small
 relative to postings and every shard needs random access to it.  One
-device may fill several positions.
+device may fill several positions.  A mesh from `make_global_mesh`
+spans the processes joined by `multihost.initialize` (its placement is
+a `MeshPlacement`); `multihost.MultihostReplica` holds them in
+lockstep.
 
 The shared-memory front (`shmring`): N request workers share one
 device-owner process over an mmap'd region (`ShmRegion`).

@@ -1280,9 +1280,7 @@ class ShardedReplica:
             "dss_shard_results_cap": int(
                 self._build_shard_results() or 0
             ),
-            # processes holding the mesh: one, in this package (the
-            # process-spanning mesh comes with the multihost slice)
-            "dss_shard_members": 1,
+            "dss_shard_members": len(self.mesh.processes()),
         }
 
     def stats(self) -> dict:

@@ -21,11 +21,18 @@ over "sp" is a `torch.stack` on the row's first device, and its `psum`
 over "dp" a sum.  The EntityTable is replicated, one copy per distinct
 device.  Outputs are bit-identical to the reference's for every mesh
 shape and boundary split (tests/test_torch_sharded.py).
+
+On a mesh that spans processes (parallel/multihost.py) each process
+holds and answers only its own shard columns, and the "sp" all_gather
+crosses processes: the local shard results are staged to the host in
+one copy and gathered over the mesh's torch.distributed group (gloo);
+every process then merges the whole answer (tests/test_torch_multihost.py).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -48,7 +55,7 @@ from dss_tpu_torch.ops.conflict import (
     entity_table,
     query_spec,
 )
-from dss_tpu_torch.parallel.mesh import Mesh
+from dss_tpu_torch.parallel.mesh import Mesh, mesh_spans_processes
 
 
 def shard_postings(
@@ -302,6 +309,90 @@ def _local_query(
     return _compact_unique(ent, hit, shard_results)
 
 
+def _row_shards(post_key, post_ent, ents, q, now, owner, mesh, d, qloc,
+                *, cap, shard_results, with_owner):
+    """dp row `d`'s sp columns on this process -> {column: (slots
+    [Qloc, sr], n_unique [Qloc])}, each on the device that ran it."""
+    rows = slice(d * qloc, (d + 1) * qloc)
+    out = {}
+    for dev, shards in mesh.row_groups(d):
+        qq = QuerySpec(*(f[rows].to(dev) for f in q))
+        slots_s, n_uni = _local_query(
+            Postings(post_key.rows(dev, shards),
+                     post_ent.rows(dev, shards)),
+            ents[dev],
+            qq,
+            now[rows].to(dev),
+            owner[rows].to(dev) if with_owner else None,
+            cap=cap,
+            shard_results=shard_results,
+            with_owner=with_owner,
+        )
+        for j, s in enumerate(shards):
+            out[s] = (slots_s[j], n_uni[j])
+    return out
+
+
+def _merge_row(slots, n_uni, *, shard_results, max_results):
+    """The merge of one dp row's gathered shards (slots [n_sp, Qloc,
+    sr], n_unique [n_sp, Qloc]) -> (slots [Qloc, max_results],
+    overflowed [Qloc], shard_hits [n_sp] int32): the SQL DISTINCT
+    across ranges, in sp column order."""
+    qloc = slots.shape[1]
+    merged = slots.permute(1, 0, 2).reshape(qloc, -1)
+    out, n_unique = _compact_unique(
+        merged, merged != int(INT32_MAX), max_results
+    )
+    ovf = (n_uni > shard_results).any(dim=0) | (n_unique > max_results)
+    return out, ovf, n_uni.sum(dim=1).to(torch.int32)
+
+
+def _gather_columns(mesh: Mesh, local, qloc: int, sr: int, t0: float):
+    """The reference's "sp" all_gather across processes: this
+    process's columns of every dp row, staged to the host in ONE
+    explicit copy, gathered from every process of the mesh over its
+    group (gloo), laid out in sp column order.  -> [dp, n_sp, Qloc,
+    sr + 1] int32 on this process's first device: each shard's slots,
+    its unique-hit count in the last lane.  A process owns whole
+    columns (make_global_mesh's column-blocked layout), so the
+    reference's "dp" psum of the hits is local to each process."""
+    import torch.distributed as dist
+
+    dp, n_sp = mesh.shape["dp"], mesh.shape["sp"]
+    procs = mesh.processes()
+    cols = {p: [j for j in range(n_sp) if int(mesh.owner[0, j]) == p]
+            for p in procs}
+    width = max(len(c) for c in cols.values())
+    dev0 = mesh.distinct_devices()[0]
+    block = torch.full((dp, width, qloc, sr + 1), int(INT32_MAX),
+                       dtype=torch.int32, device=dev0)
+    for d in range(dp):
+        for k, s in enumerate(cols[mesh.process_index]):
+            slots, n_uni = local[d][s]
+            block[d, k, :, :sr] = slots.to(dev0)
+            block[d, k, :, sr] = n_uni.to(dev0, torch.int32)
+    host = block.cpu()  # the one device->host copy of this collective
+    t1 = time.perf_counter()
+    out = torch.empty((len(procs) * dp,) + tuple(host.shape[1:]),
+                      dtype=torch.int32)
+    # all_gather_single is the newer name of all_gather_into_tensor
+    gather = getattr(dist, "all_gather_single", None) or (
+        dist.all_gather_into_tensor)
+    gather(out, host, group=mesh.group)
+    t2 = time.perf_counter()
+    out = out.reshape(len(procs), dp, width, qloc, sr + 1)
+    full = torch.cat(
+        [out[i, :, : len(cols[p])] for i, p in enumerate(procs)], dim=1
+    )
+    seam = mesh.seam
+    seam.gathers += 1
+    seam.sent_bytes += host.numel() * host.element_size()
+    seam.received_bytes += out.numel() * out.element_size()
+    seam.local_ms += (t1 - t0) * 1e3
+    seam.gather_ms += (t2 - t1) * 1e3
+    return full.to(dev0)
+
+
 def sharded_conflict_query_batch(
     post_key: ShardRows,  # [n_sp, Ps] int32, rows sorted, pad INT32_MAX
     post_ent: ShardRows,  # [n_sp, Ps] int32
@@ -315,56 +406,65 @@ def sharded_conflict_query_batch(
     shard_results: int,
     max_results: int,
     with_owner: bool = False,
+    replicate_out: bool = False,
 ):
     """Batched sharded query.  Returns (slots [Q, max_results] padded
     with INT32_MAX, overflowed [Q] bool, shard_hits [n_sp] int32 —
     per-shard unique candidate hits summed over the batch, the
-    measured per-shard work the skew-aware rebalancer consumes), on the
-    mesh's first device."""
+    measured per-shard work the skew-aware rebalancer consumes), whole,
+    on this process's first device of the mesh.
+
+    On a mesh that spans processes every process of it makes this call
+    in lockstep with the same inputs; each answers its own shards, and
+    the gathered shards are merged on every process, so each holds the
+    whole answer (the reference's replicate_out=True, which such a
+    mesh requires).  The merged values are bit-identical to the
+    single-process path: the gather only changes where the shards were
+    answered, never the merge."""
     dp, n_sp = mesh.shape["dp"], mesh.shape["sp"]
+    spans = mesh_spans_processes(mesh)
+    if spans and not replicate_out:
+        raise ValueError(
+            "a mesh that spans processes answers with replicate_out=True"
+        )
     nq = q.keys.shape[0]
     if nq % dp:
         raise ValueError(f"batch {nq} is not a multiple of dp={dp}")
     qloc = nq // dp
     if any(dev.type == "cuda" for dev in mesh.distinct_devices()):
         sharded_conflict_query_batch.launches += 1
+    t0 = time.perf_counter()
     now = torch.as_tensor(now, dtype=torch.int64)
     if with_owner:
         owner = torch.as_tensor(owner, dtype=torch.int32)
-    out_dev = mesh.devices[0, 0]
+    local = [
+        _row_shards(post_key, post_ent, ents, q, now, owner, mesh, d, qloc,
+                    cap=cap, shard_results=shard_results,
+                    with_owner=with_owner)
+        for d in range(dp)
+    ]
+    merge = {"shard_results": shard_results, "max_results": max_results}
     outs, ovfs, hits = [], [], []
-    for d in range(dp):
-        rows = slice(d * qloc, (d + 1) * qloc)
-        first = mesh.devices[d, 0]
-        slots_by_shard: List[Optional[torch.Tensor]] = [None] * n_sp
-        nuni_by_shard: List[Optional[torch.Tensor]] = [None] * n_sp
-        for dev, shards in mesh.row_groups(d):
-            qq = QuerySpec(*(f[rows].to(dev) for f in q))
-            slots_s, n_uni = _local_query(
-                Postings(post_key.rows(dev, shards),
-                         post_ent.rows(dev, shards)),
-                ents[dev],
-                qq,
-                now[rows].to(dev),
-                owner[rows].to(dev) if with_owner else None,
-                cap=cap,
-                shard_results=shard_results,
-                with_owner=with_owner,
-            )
-            for j, s in enumerate(shards):
-                slots_by_shard[s] = slots_s[j].to(first)
-                nuni_by_shard[s] = n_uni[j].to(first)
-        # the reference's all_gather over "sp": [n_sp, Qloc, sr]
-        gathered = torch.stack(slots_by_shard)
-        n_uni = torch.stack(nuni_by_shard)  # [n_sp, Qloc]
-        hits.append(n_uni.sum(dim=1).to(torch.int32).to(out_dev))
-        merged = gathered.permute(1, 0, 2).reshape(qloc, -1)
-        out, n_unique = _compact_unique(
-            merged, merged != int(INT32_MAX), max_results
-        )
-        ovf = (n_uni > shard_results).any(dim=0) | (n_unique > max_results)
-        outs.append(out.to(out_dev))
-        ovfs.append(ovf.to(out_dev))
+    if spans:
+        full = _gather_columns(mesh, local, qloc, shard_results, t0)
+        for d in range(dp):
+            out, ovf, h = _merge_row(full[d, :, :, :shard_results],
+                                     full[d, :, :, shard_results], **merge)
+            outs.append(out)
+            ovfs.append(ovf)
+            hits.append(h)
+    else:
+        out_dev = mesh.devices[0, 0]
+        for d in range(dp):
+            first = mesh.devices[d, 0]
+            # the reference's all_gather over "sp": [n_sp, Qloc, sr]
+            out, ovf, h = _merge_row(
+                torch.stack([local[d][s][0].to(first) for s in range(n_sp)]),
+                torch.stack([local[d][s][1].to(first) for s in range(n_sp)]),
+                **merge)
+            outs.append(out.to(out_dev))
+            ovfs.append(ovf.to(out_dev))
+            hits.append(h.to(out_dev))
     # the reference's psum over "dp"
     shard_hits = torch.stack(hits).sum(dim=0, dtype=torch.int32)
     return torch.cat(outs), torch.cat(ovfs), shard_hits
@@ -395,6 +495,9 @@ class ShardedDar:
         self.mesh = mesh
         self.n_sp = mesh.shape["sp"]
         self.dp = mesh.shape["dp"]
+        # process-spanning mesh: each process materializes only its
+        # own shard rows, and query outputs replicate to every process
+        self.multihost = mesh_spans_processes(mesh)
         self.max_results = max_results
         self.shard_results = shard_results or max_results
         self.records = {slot: r for slot, r in enumerate(records)}
@@ -421,10 +524,14 @@ class ShardedDar:
             boundaries=self.boundaries,
         )
         # host->device bytes this snapshot materializes (refresh
-        # traffic accounting, per mesh as in the reference)
+        # traffic accounting): this process's shard rows and the
+        # replicated entity columns (per host on a process-spanning
+        # mesh; the whole mesh's on one process, as in the reference)
+        held = sorted({s for (_, s), dev in np.ndenumerate(mesh.devices)
+                       if dev is not None})
         self.nbytes = int(
-            skey.nbytes
-            + sent.nbytes
+            skey[held].nbytes
+            + sent[held].nbytes
             + sum(
                 np.asarray(a).nbytes
                 for a in (
@@ -498,6 +605,7 @@ class ShardedDar:
             cap=self.cap,
             shard_results=self.shard_results,
             max_results=self.max_results,
+            replicate_out=self.multihost,
         )
         slots = slots.cpu().numpy()[:qn]
         ovf = ovf.cpu().numpy()[:qn]

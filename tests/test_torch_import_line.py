@@ -17,7 +17,8 @@
   cmds.region_server; the federation's by name: region.federation,
   cmds.federation_dryrun; the tuner's by name: scenario,
   scenario.generator, plan.autotune, tune, tune.observe, tune.propose,
-  tune.shadow, tune.controller), chip_smoke and b1_device_time import in a
+  tune.shadow, tune.controller; multihost's by name: parallel.multihost,
+  cmds.multihost_dryrun), chip_smoke and b1_device_time import in a
   process where `jax`, `requests` (absent on the card's machine; the
   region client rides http.client) and every `dss_tpu` module are
   refused.
@@ -100,7 +101,8 @@ _PROBE = textwrap.dedent(
                 "region.federation", "cmds.federation_dryrun",
                 "scenario", "scenario.generator", "plan.autotune",
                 "tune", "tune.observe", "tune.propose", "tune.shadow",
-                "tune.controller"):
+                "tune.controller", "parallel.multihost",
+                "cmds.multihost_dryrun"):
         assert "dss_tpu_torch." + mod in names, (mod, names)
     import chip_smoke  # its helpers; main() only runs as a script
     assert callable(chip_smoke.run) and callable(chip_smoke.make_batch)

@@ -25,6 +25,9 @@ measure_device's and measure_hit_concentration's batches through B1
 equal the plain version, and at every depth of measure_resident's
 ladder (2, 4, 8, 16 submits before any collect) each submit replays a
 captured graph whose answer equals eager B1 and the plain version.
+Multihost (parallel/multihost.py): two processes sharing the card on a
+global 1x4 mesh answer as one process's 1x4 mesh does, and the survivor
+of a killed peer degrades with equal answers.
 
 Needs a CUDA card (marker `gpu`); skips elsewhere.  This file imports
 neither jax nor the reference package, so it runs on a machine that has
@@ -1239,3 +1242,22 @@ def test_resident_ladder_replays_equal_eager_b1(sweep_tables):
             assert _pairs(g) == _pairs(host.query_fused(*q, now=at.NOW))
     assert kern.misses == 0 and kern.busy == 0
     assert kern.hits == sum(depths)
+
+
+@pytest.mark.gpu
+def test_two_process_mesh_on_the_card_equals_one_process(cuda, tmp_path):
+    """The multihost dryrun's first legs on the card: two processes
+    with two positions each on it form a global 1x4 mesh (gloo on
+    host-staged shards) whose answers equal one process's 1x4 mesh on
+    the card; the survivor of a killed follower degrades and answers
+    equal, from its host map and then from a local mesh on the card."""
+    from dss_tpu_torch.cmds.multihost_dryrun import run_dryrun
+
+    v = run_dryrun(str(tmp_path), num_processes=2, devices_per_process=2,
+                   reps=1, timeout_s=240, elastic=False, capacity=False,
+                   device="cuda")
+    assert v["ok"] and v["bit_identical"] and v["peerloss_ok"], v
+    assert v["multi"]["placement"] == {"0": [0, 1], "1": [2, 3]}
+    assert v["multi"]["device"] == "cuda"
+    assert v["multi"]["stats"]["dss_multihost_gathers"] > 0
+    assert v["peerloss"]["stats"]["dss_multihost_degraded"] == 1

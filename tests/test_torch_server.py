@@ -23,9 +23,12 @@ positions) serves every `/aux/v1/replica/<surface>` equal to the
 store's own route once the replica has tailed the WAL; a mesh larger
 than its positions exits.
 
-The multihost flags exit naming their slice, and `--device` left at its
-default (`cuda`) raises on a machine without a card, `--self_tune`
-included.  `--device cpu --autotune_profile <the shipped CPU profile>
+The multihost flags and their env fallbacks make the runtime's config
+and are refused beside `--workers` and `--worker_reader` as the
+reference refuses them; two processes (`--multihost_dryrun 2 --device
+cpu`) join one global 1x4 mesh whose leader answers as a single-process
+1x4 server does.  `--device` left at its default (`cuda`) raises on a
+machine without a card, `--self_tune` included.  `--device cpu --autotune_profile <the shipped CPU profile>
 --self_tune` boots, logs the knobs the profile seeded and exports them
 (and the armed tuner) in /metrics.  Every wait has its own time
 limit.
@@ -267,49 +270,39 @@ def test_port_server_boots_from_a_reference_wal_and_serves(
     assert "Traceback" not in err
 
 
-def test_later_slice_flags_name_their_slice(monkeypatch):
+_MH_ENV = ("DSS_JAX_COORDINATOR", "DSS_PROCESS_ID", "DSS_NUM_PROCESSES",
+           "DSS_MULTIHOST_DRYRUN")
+
+
+def test_multihost_flags_and_env_parse_and_refuse_workers(monkeypatch):
+    """The four multihost flags and their DSS_* fallbacks make the
+    runtime's config; without a process id, or beside --workers or
+    --worker_reader, the binary exits before anything boots with the
+    reference's words."""
+    from dss_tpu_torch.parallel.multihost import MultihostConfig
+
     for flag in ("DSS_FED_MAP", "DSS_PUSH", "DSS_TUNE",
-                 "DSS_AUTOTUNE_PROFILE", "DSS_JAX_COORDINATOR"):
+                 "DSS_AUTOTUNE_PROFILE") + _MH_ENV:
         monkeypatch.delenv(flag, raising=False)
-    cases = {
-        "--jax_coordinator h:1": "multihost", "--process_id 0": "multihost",
-        "--num_processes 2": "multihost",
-        "--multihost_dryrun 2": "multihost",
-    }
-    assert {f"--{k}" for k in p_server.LATER_SLICE_FLAGS} == {
-        c.split()[0] for c in cases
-    }
     parser = p_server.make_parser()
-    p_server.refuse_later_slices(parser.parse_args([]))
-    # the shm front's flags are this package's own now
-    p_server.refuse_later_slices(parser.parse_args(
-        "--workers 2 --worker_reader --shm_region /x".split()
-    ))
-    for argv, slice_ in cases.items():
-        with pytest.raises(SystemExit, match=f"the {slice_} slice"):
-            p_server.refuse_later_slices(parser.parse_args(argv.split()))
-    # the tuner's flags are this package's own now
-    tuned = parser.parse_args(
-        "--self_tune --autotune_profile p.json".split())
-    p_server.refuse_later_slices(tuned)
-    assert tuned.self_tune and tuned.autotune_profile == "p.json"
-    # the single-process mesh's flags are this package's own now
-    p_server.refuse_later_slices(parser.parse_args(
-        "--sharded_replica 1,2 --virtual_devices 2 "
-        "--replica_refresh_interval 0.1 --no_shard_rebalance".split()
-    ))
-    # and so are the region's (test_region_url_boots_from_a_region_log)
-    p_server.refuse_later_slices(parser.parse_args(
-        "--region_url http://a,http://b --region_token_file t "
-        "--region_poll_interval 0.1 --region_snapshot_every 64 "
-        "--instance_id dss-a".split()
-    ))
-    # and so are the federation's (tests/test_torch_federation.py);
-    # as in the reference, a federated region is refused with read
-    # workers, before the store boots, and by a worker reader
-    fed = parser.parse_args("--federation_map m.json --federation_region a"
-                            .split())
-    p_server.refuse_later_slices(fed)
+    assert p_server.multihost_config(parser.parse_args([])) is None
+    cfg = p_server.multihost_config(parser.parse_args(
+        "--jax_coordinator 127.0.0.1:9 --process_id 1 --num_processes 2 "
+        "--multihost_dryrun 2 --device cpu".split()))
+    assert cfg == MultihostConfig("127.0.0.1:9", 1, 2, dryrun_devices=2,
+                                  device="cpu")
+    for k, v in zip(_MH_ENV, ("10.0.0.1:1234", "3", "8", "4")):
+        monkeypatch.setenv(k, v)
+    cfg = p_server.multihost_config(parser.parse_args([]))
+    assert cfg == MultihostConfig("10.0.0.1:1234", 3, 8, dryrun_devices=4,
+                                  device="cuda")
+    monkeypatch.delenv("DSS_PROCESS_ID")
+    with pytest.raises(SystemExit, match="needs process_id"):
+        p_server.multihost_config(parser.parse_args([]))
+    for k in _MH_ENV:
+        monkeypatch.delenv(k, raising=False)
+    # the federation keeps its own refusals: with read workers before
+    # the store boots, and by a worker reader
     with pytest.raises(SystemExit, match="--workers > 0 is not supported"):
         p_server.build(parser.parse_args(
             "--federation_map m.json --workers 2".split()))
@@ -317,13 +310,127 @@ def test_later_slice_flags_name_their_slice(monkeypatch):
         p_server.build(parser.parse_args(
             "--worker_reader --wal_path w --leader_url http://l "
             "--federation_map m.json".split()))
-    monkeypatch.setenv("DSS_JAX_COORDINATOR", "h:1")
-    with pytest.raises(SystemExit, match="the multihost slice"):
-        p_server.refuse_later_slices(parser.parse_args([]))
+    # as processes, beside the reference's binary: the same exit code
+    # and words for each refused combination
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DSS_PUSH", "DSS_TUNE", "DSS_FED_MAP") + _MH_ENV}
+    mh = ["--jax_coordinator", "127.0.0.1:9", "--process_id", "0",
+          "--num_processes", "2"]
+    for extra, words in (
+        (["--workers", "2"], "--workers and --jax_coordinator are "
+         "mutually exclusive"),
+        (["--worker_reader"], "--worker_reader cannot join a multi-host "
+         "mesh"),
+    ):
+        procs = {m: _popen(m, *mh, *extra, env=env)
+                 for m in ("dss_tpu.cmds.server",
+                           "dss_tpu_torch.cmds.server")}
+        for m, proc in procs.items():
+            try:
+                proc.wait(timeout=BOOT_S)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+            err = proc.stderr.read().decode(errors="replace")
+            assert proc.returncode == 1 and words in err, (m, err[-2000:])
+
+
+def test_two_server_processes_join_one_mesh(certs, oauth, tmp_path):
+    """Two port servers (`--device cpu --multihost_dryrun 2`, process 0
+    and 1 of one runtime) hold a global 1x4 mesh over copies of one WAL:
+    the leader's /healthy answers, and its replica surfaces answer the
+    ids of a single-process `--sharded_replica 1,4 --virtual_devices 4`
+    server over the same WAL, through the cross-process gather; the
+    leader stops first, the follower's stream ends, both exit 0."""
+    wal = tmp_path / "dss.wal"
+    single, base = _server(
+        "dss_tpu_torch.cmds.server", certs, wal, "--storage", "cuda",
+        "--device", "cpu", "--sharded_replica", "1,4",
+        "--virtual_devices", "4", "--replica_refresh_interval", "0.1",
+        "--no_warmup", env=_port_env(),
+    )
+    lat = 44.1
+    area = bb.area_str(lat=lat)
+    surfaces = {
+        "identification_service_areas": ("service_area_ids",
+                                          oauth.hdr(bb.RID_SCOPE,
+                                                    sub="uss2")),
+        "subscriptions": ("subscription_ids",
+                          oauth.hdr(bb.RID_SCOPE, sub="uss2")),
+        "operations": ("operation_ids", oauth.hdr(bb.SCD_SCOPE, sub="uss1")),
+        "scd_subscriptions": ("subscription_ids",
+                              oauth.hdr(bb.SCD_SCOPE, sub="uss1")),
+        "constraints": ("constraint_ids",
+                        oauth.hdr(bb.SCD_SCOPE, sub="uss1")),
+    }
+
+    def answers(b):
+        return {s: _replica_ids(b, s, k, h, area)[0]
+                for s, (k, h) in surfaces.items()}
+
+    def settle(b, done):
+        deadline = time.monotonic() + BOOT_S
+        got = answers(b)
+        while not done(got) and time.monotonic() < deadline:
+            time.sleep(0.2)
+            got = answers(b)
+        return got
+
+    try:
+        _write_state(base, oauth)
+        want = settle(base, lambda g: [len(v) for v in g.values()]
+                      == [2, 1, 2, 1, 1])
+        assert [len(v) for v in want.values()] == [2, 1, 2, 1, 1]
+    finally:
+        rc, _ = _stop(single)
+    assert rc == 0
+    coord = f"127.0.0.1:{free_port()}"
+    ports = [free_port(), free_port()]
+    procs = []
+    for i in range(2):
+        copy = tmp_path / f"p{i}.wal"
+        copy.write_bytes(wal.read_bytes())
+        procs.append(_popen(
+            "dss_tpu_torch.cmds.server", "--addr", f"127.0.0.1:{ports[i]}",
+            "--enable_scd", "--wal_path", str(copy),
+            "--public_key_files", str(certs / "oauth.pem"),
+            "--accepted_jwt_audiences", AUD,
+            "--shutdown_grace", str(GRACE_S - 2), "--storage", "cuda",
+            "--device", "cpu", "--no_warmup", "--sharded_replica", "1,4",
+            "--replica_refresh_interval", "0.1",
+            "--jax_coordinator", coord, "--process_id", str(i),
+            "--num_processes", "2", "--multihost_dryrun", "2",
+            # two processes share the host's cores
+            env=dict(_port_env(), OMP_NUM_THREADS="1")))
+    bases = [f"http://127.0.0.1:{p}" for p in ports]
+    rcs = [None, None]
+    try:
+        for b, proc in zip(bases, procs):
+            _wait_http(f"{b}/healthy", proc, "multihost server")
+        got = settle(bases[0], lambda g: g == want)
+        assert got == want
+        _, stats = _replica_ids(bases[0], "operations", "operation_ids",
+                                oauth.hdr(bb.SCD_SCOPE, sub="uss1"), area)
+        assert stats["dss_shard_members"] == 2
+        assert stats["dss_multihost_processes"] == 2
+        assert stats["dss_multihost_degraded"] == 0
+        assert stats["dss_multihost_gathers"] > 0
+        m = requests.get(bases[0] + "/metrics", timeout=10).text
+        assert "dss_multihost_commands" in m
+        # the follower answers its own reads from its host map
+        assert answers(bases[1]) == want
+    finally:
+        for i in (0, 1):
+            rcs[i], _ = _stop(procs[i], grace=GRACE_S + 5)
+    errs = [p.stderr.read().decode(errors="replace") for p in procs]
+    assert rcs == [0, 0], (rcs, errs[0][-3000:], errs[1][-3000:])
+    assert "multi-host sharded replica: process 0/2, global 1x4 mesh, " \
+        "placement p0:sp[0, 1] p1:sp[2, 3]" in errs[0]
+    assert "Traceback" not in errs[0] + errs[1]
 
 
 def test_the_binary_refuses_later_slices_and_a_missing_card():
-    """As processes: a later-slice flag exits 1 naming its slice before
+    """As processes: a coordinator without a process id exits 1 before
     anything boots; `--device` left at `cuda` raises without a card,
     and `--self_tune` now gets past the arguments to that card."""
     if torch.cuda.is_available():
@@ -350,7 +457,8 @@ def test_the_binary_refuses_later_slices_and_a_missing_card():
     assert "not ported yet" not in out["tuner"][1]
     assert "torch.cuda.is_available() is False" in out["tuner"][1]
     assert out["multihost"][0] == 1
-    assert "the multihost slice" in out["multihost"][1]
+    assert "multi-host mode needs process_id + num_processes" in (
+        out["multihost"][1])
     assert out["card"][0] != 0
     assert "torch.cuda.is_available() is False" in out["card"][1]
 

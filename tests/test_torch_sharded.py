@@ -295,9 +295,12 @@ def test_make_mesh_factors_and_virtual_positions():
         p_make_mesh(8, dp=3, sp=3, devices=["cpu"] * 8)
     with pytest.raises(ValueError, match="positions given"):
         p_make_mesh(4, dp=1, sp=4, devices=["cpu"] * 2)
-    for fn in (pmesh.make_global_mesh, pmesh.MeshPlacement):
-        with pytest.raises(NotImplementedError, match="multihost slice"):
-            fn()
+    # the process-spanning placement over one process's positions is
+    # this row-major mesh, owned by process 0
+    pl = pmesh.make_global_mesh(devices=pmesh.virtual_devices("cpu", 8))
+    assert isinstance(pl, pmesh.MeshPlacement)
+    assert pl.mesh.shape == m.shape and (pl.owner == 0).all()
+    assert pl.mesh.row_groups(1) == m.row_groups(1)
 
 
 def test_cuda_mesh_without_a_card_raises():
