@@ -118,26 +118,37 @@ Phases (any failure exits non-zero; nothing is caught):
      clients, the leader's account of the front from /metrics, and
      nvidia-smi's compute apps with each process's /dev/nvidia
      descriptors (the leader alone on the card); the `shm_front` line;
- 13. the mesh route (parallel/{mesh, sharded, replica}; ops/conflict.py's
-     torch ops, no B1): after the legacy path, ShardedDar over the main
-     path's 1M live records on a 1x1 mesh and on a virtual 2x4 mesh of
-     the card (eight positions on one H100), four headline batches each,
-     held to each other slot for slot, to B1's answers as id sets and to
-     oracle.search on 256 queries; build s, MiB, batch p50, device time
-     by op beside the bound, overflow fallbacks, shard_hits; the
+ 13. the mesh route (parallel/{mesh, sharded, replica} over K1
+     `mesh_query` and K2 `mesh_merge`, csrc/mesh_query.cu; no B1): after
+     the legacy path, K1 and K2 against their plain versions on the card
+     over a fixed list of edge cases (mesh_cases(): P = 0 and all-pad
+     keys, n_unique at R-1, R and R+1, a slot in several cells and in
+     base and delta, the owner filter on and off, now past t_end, the
+     count mode, K*cap and n_sp*sr past a block's shared memory), on
+     outputs handed back dirty and over 40 launches back to back; then
+     ShardedDar over the main path's 1M live records on a 1x1 mesh and
+     on a virtual 2x4 mesh of the card (eight positions on one H100),
+     four headline batches each with the launch counts from zero, held
+     to each other slot for slot, to B1's answers as id sets and to
+     oracle.search on 256 queries, and every batch's dp rows through K1
+     and K2 and through their plain versions on the same tensors; build
+     s, MiB, batch p50, device time by op beside the bound (the real
+     candidates of the batch, the padded formula beside it), overflow
+     fallbacks, shard_hits; K1's and K2's own times at both meshes; the
      module's conflict_query_batch and max_count_per_cell on the same
      tensors; then the reference's skew leg (bench.py:2424-2600: 3,000
      cold and 120 hot records, 64 areas, 250 serial queries per Zipf
      alpha 0, 0.8, 1.2, a virtual 1x8 mesh, shard_results 48) with
-     rebalancing off and on, answers equal; in the store phase, a
+     rebalancing off and on, answers equal, and its 64 areas at once
+     through K1 and K2 against their plain versions; in the store phase, a
      replica on a virtual 1x2 mesh tailing the store's WAL attached to
      its coalescers, and 16 bulk stale drains of 128 that must ride it
      (mesh_offloads) with the local path's answers; after the shm
      front, the server binary with `--sharded_replica 1,2
      --virtual_devices 2` on the http phase's WAL: every
      /aux/v1/replica/<surface> against its store route once synced, 8
-     ops and three subscriptions written and read back, SIGTERM exit 0;
-     the `mesh` line;
+     ops and three subscriptions written and read back, K1's and K2's
+     launches from its /metrics, SIGTERM exit 0; the `mesh` line;
  14. the DSS Region (region/, cmds/region_server, the store's region
      mode), after the mesh server, on the http phase's 54,800 records:
      a region log seeded offline through the port's RegionLog (one
@@ -198,10 +209,13 @@ Phases (any failure exits non-zero; nothing is caught):
      route, the dss_multihost_* gauges, SIGTERM exit 0); the `multihost`
      line (verdicts, placements, batch p50/p99 two processes against
      one, the cross-process bytes and ms per batch, the kill to
-     degraded, each process's card memory);
+     degraded, each process's card memory, K1's and K2's launches in the
+     single process, each worker and the leader server);
  17. the device time of each kernel by device kernel name, the kernels
-     line (four kernels; B1's entry with its graph replays, its
-     store-phase and its tuner counts), with each kernel's count of comparisons made
+     line (six kernels; B1's entry with its graph replays, its
+     store-phase and its tuner counts; K1's and K2's with their launches
+     in each leg: mesh, skew, store drains, server, multihost), with each
+     kernel's count of comparisons made
      and of those that disagreed; then the ok line, or exit 1 if any
      comparison disagreed, a kernel of a path never launched, or a
      serving, store, tuner, services or http phase failed (a caller error other than
@@ -210,8 +224,8 @@ Phases (any failure exits non-zero; nothing is caught):
      a refused write that should have passed, no B1 launch or replay
      in the store phase or through the services, a graph capture that
      failed, any error, non-2xx answer or unclean exit of the server or
-     of the shm front, a mesh torch op that never ran on the card, a
-     B1 launch on the mesh route, no mesh offload in the drains, no
+     of the shm front, a mesh function, K1 or K2 that never ran on the
+     card, a B1 launch on the mesh route, no mesh offload in the drains, no
      boundary move at the hottest Zipf alpha, or in the region phase a
      lost acknowledged write, no B1 launch on the region store, a
      capture failure, an instance off the card or an unclean exit, or
@@ -262,6 +276,8 @@ from dss_tpu_torch.geo import s2cell
 from dss_tpu_torch.ops import cuda_build
 from dss_tpu_torch.ops import fastpath_cuda as fc
 from dss_tpu_torch.ops import fused_filter as ff
+from dss_tpu_torch.ops import mesh_cuda as mc
+from dss_tpu_torch.ops.conflict import NO_TIME_HI, NO_TIME_LO
 from dss_tpu_torch.ops.fastpath import FastTable, pow2_bucket
 
 HOUR = 3_600_000_000_000
@@ -363,7 +379,13 @@ KERNELS = {
                                 "dss_tpu/ops/fastpath_pallas.py:251"),
     "fused_filter_gridless": ("dss_tpu_torch/csrc/fused_filter.cu",
                               "dss_tpu/ops/fastpath_pallas.py:300"),
+    # the mesh route's XLA device program (not Pallas): K1 and K2
+    "mesh_query": ("dss_tpu_torch/csrc/mesh_query.cu",
+                   "dss_tpu/ops/conflict.py:78"),
+    "mesh_merge": ("dss_tpu_torch/csrc/mesh_query.cu",
+                   "dss_tpu/parallel/sharded.py:368"),
 }
+MESH_KERNELS = ("mesh_query", "mesh_merge")
 
 
 def log(msg: str) -> None:
@@ -3869,7 +3891,9 @@ def op_family(name: str) -> str:
     """The torch op behind a device kernel's name (the profiler's), for
     the mesh route's device time by op."""
     n = name.lower()
-    for key, fam in (("memcpy htod", "copy_h2d"), ("memcpy dtoh", "copy_d2h"),
+    for key, fam in (("mesh_query_kernel", "k1_mesh_query"),
+                     ("mesh_merge_kernel", "k2_mesh_merge"),
+                     ("memcpy htod", "copy_h2d"), ("memcpy dtoh", "copy_d2h"),
                      ("memcpy dtod", "copy_d2d"), ("memset", "memset"),
                      ("searchsorted", "searchsorted"), ("sort", "sort"),
                      ("radix", "sort"), ("scan", "cumsum"),
@@ -3895,18 +3919,420 @@ def by_op(by_name) -> dict:
     return out
 
 
-def mesh_bound_ms(q, k, cap, n_postings, sp, sr) -> tuple:
-    """The least time the card could take for one batch of the mesh
-    route: the bytes it must read at the card's memory rate.  The
-    searched postings (int32 keys), the [Q, K, cap] candidate gather
-    (int32 slots), the attribute reads per candidate (alt_lo, alt_hi
-    f32, t_start, t_end i64, active bool: 25 B), the sort's pass over
-    [Q, K*cap] and over the merged [Q, sp*shard_results] (int32).  K is
-    the query's real cells (WIDTH), not the padded key bucket.  ->
-    (ms, bytes)."""
+def mesh_bound_padded(q, k, cap, n_postings, sp, sr) -> tuple:
+    """The earlier bound of a mesh batch, kept to compare rows: the
+    searched postings (int32 keys), q*k*cap candidates, padding
+    included, each with an int32 slot, 25 B of columns and an int32
+    sort pass, and the merge's pass over [Q, sp*shard_results] int32.
+    -> (ms, bytes)."""
     cand = q * k * cap
     nbytes = 4 * n_postings + cand * (4 + 25 + 4) + 4 * q * sp * sr
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+SECTOR = 32  # bytes of one L2 / DRAM sector on the card
+
+
+def search_sectors(row, keys, cap) -> int:
+    """The distinct 32 B sectors of the sorted int32 `row` (pads
+    included, as it lies on the card) that finding each key's run
+    touches: the probes of a binary search for its first posting, then
+    those of one for the run's end within the next min(left, cap)
+    keys."""
+    n = len(row)
+    if n == 0 or cap <= 0 or len(keys) == 0:
+        return 0
+    probes = []
+    lo = np.zeros(len(keys), np.int64)
+    hi = np.full(len(keys), n, np.int64)
+    while (lo < hi).any():
+        act = lo < hi
+        mid = lo + ((hi - lo) >> 1)
+        probes.append(mid[act])
+        less = row[np.minimum(mid, n - 1)] < keys
+        lo = np.where(act & less, mid + 1, lo)
+        hi = np.where(act & ~less, mid, hi)
+    first = lo
+    lo = np.zeros(len(keys), np.int64)
+    hi = np.minimum(n - first, cap)
+    while (lo < hi).any():
+        act = lo < hi
+        mid = lo + ((hi - lo) >> 1)
+        at = np.minimum(first + mid, n - 1)
+        probes.append(at[act])
+        le = row[at] <= keys
+        lo = np.where(act & le, mid + 1, lo)
+        hi = np.where(act & ~le, mid, hi)
+    return len(np.unique(np.concatenate(probes) * 4 // SECTOR))
+
+
+def k1_bound(pk_rows, pe_rows, keys, cap, r, count=False, delta=None,
+             delta_cap=0) -> dict:
+    """K1's least time for one call, from the host postings: each input
+    read once and each output written once at the card's memory rate.
+    The 32 B key sectors that each query cell's search must touch in
+    each row (`search_sectors`), the postings that the cells' runs
+    reach, min(run, cap) each (int32 slots), 25 B of columns (alt_lo,
+    alt_hi f32, t_start, t_end i64, active u8) for each distinct slot
+    they name, the queries (keys [Q, K] int32, 32 B of bounds, now and
+    owner each), and the output (slots [S, Q, r] and counts int32, or
+    the counts alone in count mode).  Every query is searched in every
+    row, as a dp row's queries are in each of its shards.  The earlier
+    formula, which read every live key of every row once, stands beside
+    it (`*_all_keys`) so that rows can be compared.
+    -> {ms, bytes, candidates, ms_all_keys, bytes_all_keys}."""
+    keys = np.asarray(keys)
+    live_keys = keys[keys >= 0]
+    rows = [(pk_rows, pe_rows, cap)]
+    if delta is not None:
+        rows.append((delta[0], delta[1], delta_cap))
+    n_keys, sectors, n_post, cand, slots = 0, 0, 0, 0, []
+    for pks, pes, c in rows:
+        for pk, pe in zip(np.asarray(pks), np.asarray(pes)):
+            sectors += search_sectors(pk, live_keys, c)
+            m = pk != int(mc.INT32_MAX)
+            pk, pe = pk[m], pe[m]
+            n_keys += len(pk)
+            lo = np.searchsorted(pk, live_keys, side="left")
+            n = np.minimum(np.searchsorted(pk, live_keys, side="right") - lo,
+                           c)
+            cand += int(n.sum())
+            edge = np.zeros(len(pk) + 1, np.int64)
+            np.add.at(edge, lo, 1)
+            np.add.at(edge, lo + n, -1)
+            reached = np.cumsum(edge[:-1]) > 0
+            n_post += int(reached.sum())
+            slots.append(pe[reached])
+    n_slots = len(np.unique(np.concatenate(slots))) if slots else 0
+    s, (q, k) = len(pk_rows), keys.shape
+    out = 4 * s * q * (1 if count else r + 1)
+    rest = 4 * n_post + 25 * n_slots + 4 * q * k + 32 * q + out
+    nbytes, old = SECTOR * sectors + rest, 4 * n_keys + rest
+    return {"ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+            "candidates": cand, "ms_all_keys": old / HBM_BYTES_PER_S * 1e3,
+            "bytes_all_keys": old}
+
+
+def k2_bound(n_uni, sr, r, width) -> dict:
+    """K2's least time for one dp row, from K1's counts `n_uni`
+    [n_sp, Q]: it reads those counts and the min(n_uni, sr) live values
+    of each shard list (int32; the rest of a list is padding it never
+    reads), and writes every one of the r columns of each query's row
+    (int32, pads included), a flag and a count a query, and the n_sp + 1
+    sums.  The earlier formula, which read every slot of the lists and
+    wrote only the batch's `width` columns of a row, stands beside it
+    (`*_padded_lists`).  -> {ms, bytes, ms_padded_lists,
+    bytes_padded_lists}."""
+    n_uni = np.asarray(n_uni, np.int64)
+    n_sp, q = n_uni.shape
+    live = int(np.minimum(np.maximum(n_uni, 0), sr).sum())
+    nbytes = 4 * n_sp * q + 4 * live + 4 * q * r + 5 * q + 4 * (n_sp + 1)
+    old = 4 * n_sp * q * (sr + 1) + 4 * q * width + 5 * q
+    return {"ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+            "ms_padded_lists": old / HBM_BYTES_PER_S * 1e3,
+            "bytes_padded_lists": old}
+
+
+MESH_ERR = dict.fromkeys(MESH_KERNELS, 0)  # largest |kernel - plain|
+
+
+def mesh_check(name, got, want, what) -> None:
+    """A mesh kernel's outputs against its plain version's, on the
+    kernel's tally and the mesh line's; the largest absolute difference
+    of any output goes to MESH_ERR."""
+    if any(t.is_cuda for t in got):
+        torch.cuda.synchronize()
+    err, same = 0, len(got) == len(want)
+    for g, w in zip(got, want):
+        same = same and g.shape == w.shape and g.dtype == w.dtype
+        if g.shape == w.shape and g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+        same = same and torch.equal(g, w)
+    MESH_ERR[name] = max(MESH_ERR[name], err)
+    TALLY[name].check(same, f"{what}: max abs err {err}")
+    MESH_TALLY.check(same, f"{name} {what}: kernel != plain")
+
+
+def mesh_counts() -> dict:
+    return {"mesh_query": mc.mesh_query.launches,
+            "mesh_merge": mc.mesh_merge.launches}
+
+
+def reset_mesh() -> None:
+    mc.mesh_query.launches = 0
+    mc.mesh_merge.launches = 0
+
+
+def mesh_pair(k1_args, k1_kw, k2_kw, what) -> None:
+    """K1, and then K2 on K1's lists, each against its plain version on
+    the same tensors, tallied."""
+    got = mc.mesh_query(*k1_args, **k1_kw)
+    want = mc.mesh_query_torch(*k1_args, **k1_kw)
+    if k1_kw["count"]:
+        mesh_check("mesh_query", (got,), (want,), what)
+        return
+    mesh_check("mesh_query", got, want, what)
+    mesh_check("mesh_merge", mc.mesh_merge(*got, **k2_kw),
+               mc.mesh_merge_torch(*got, **k2_kw), what)
+
+
+def mesh_kernel_checks(dev) -> None:
+    """K1 and K2 against their plain versions on the card over
+    mesh_cases(), then on outputs the allocator hands back full of -1
+    (the kernels write every pad themselves), then 40 launches over the
+    cases with no sync between them."""
+    cases = [(n, mesh_case_args(c, dev)) for n, c in mesh_cases()]
+    for name, (args, kw, mkw) in cases:
+        mesh_pair(args, kw, mkw, f"case {name}")
+    args, kw, mkw = dict(cases)["owner_off"]
+    want = mc.mesh_query_torch(*args, **kw)
+    want2 = mc.mesh_merge_torch(*want, **mkw)
+    torch.cuda.synchronize()
+    q = args[5].keys.shape[0]
+    for name, shape in (("mesh_query", (1, q, kw["max_results"])),
+                        ("mesh_merge", (q, mkw["max_results"]))):
+        dirty = torch.full(shape, -1, dtype=torch.int32, device=dev)
+        ptr = dirty.data_ptr()
+        del dirty
+        if name == "mesh_query":
+            got, ref = mc.mesh_query(*args, **kw), want
+        else:
+            got, ref = mc.mesh_merge(*want, **mkw), want2
+        torch.cuda.synchronize()
+        handed_back = got[0].data_ptr() == ptr
+        TALLY[name].check(handed_back, "dirty output: the -1 block was "
+                          "not handed back, so it tested nothing")
+        MESH_TALLY.check(handed_back, f"{name} dirty output not handed back")
+        mesh_check(name, got, ref, "dirty output")
+    small = [(n, a) for n, a in cases if "past" not in n]
+    plain = {n: (mc.mesh_query_torch(*a, **kw_),) if kw_["count"] else
+             mc.mesh_query_torch(*a, **kw_) for n, (a, kw_, _) in small}
+    outs = []
+    for i in range(40):
+        n, (a, kw_, _) = small[i % len(small)]
+        got = mc.mesh_query(*a, **kw_)
+        outs.append((n, (got,) if kw_["count"] else got))
+    for i, (n, got) in enumerate(outs):
+        mesh_check("mesh_query", got, plain[n], f"back-to-back launch {i}")
+
+
+def dar_row_args(dar, q, d, now=NOW) -> list:
+    """K1's arguments for dp row `d` of ShardedDar `dar` on batch `q`,
+    as sharded_conflict_query_batch builds them (keys padded to the
+    reference's bucket of 16) -> [(device, columns, args, kw)], one a
+    device group of the row."""
+    from dss_tpu_torch.ops import conflict as oc
+    from dss_tpu_torch.parallel import sharded as ps
+
+    keys = q[0]
+    kw = 16
+    while kw < keys.shape[1]:
+        kw *= 2
+    keys = np.pad(keys, ((0, 0), (0, kw - keys.shape[1])),
+                  constant_values=-1)
+    qloc = len(keys) // dar.dp
+    rows = slice(d * qloc, (d + 1) * qloc)
+    out = []
+    for dev, shards in dar.mesh.row_groups(d):
+        spec = oc.query_spec(keys[rows], *(a[rows] for a in q[1:]), dev)
+        args = (dar.post_key.rows(dev, shards), dar.post_ent.rows(dev, shards),
+                None, None, oc._u8(dar.ents[dev]), spec,
+                torch.full((qloc,), now, dtype=torch.int64, device=dev), None)
+        out.append((dev, list(shards), args,
+                    {"cap": dar.cap, "delta_cap": 0,
+                     "max_results": dar.shard_results}))
+    return out
+
+
+def dar_kernel_checks(dar, q, what, now=NOW) -> list:
+    """Every dp row of `dar` on batch `q` through K1 and K2 and through
+    their plain versions on the same card tensors, slot for slot,
+    tallied.  -> [(row's K1 columns, K2 kwargs)] for the timings."""
+    from dss_tpu_torch.parallel import sharded as ps
+
+    mkw = {"shard_results": dar.shard_results,
+           "max_results": dar.max_results}
+    rows = []
+    for d in range(dar.dp):
+        groups = []
+        for dev, shards, args, kw in dar_row_args(dar, q, d, now):
+            got = mc.mesh_query(*args, **kw)
+            mesh_check("mesh_query", got, mc.mesh_query_torch(*args, **kw),
+                       f"{what} row {d}")
+            groups.append((dev, shards, *got))
+        cols = ps._row_columns(groups, dar.n_sp, dar.mesh.devices[d, 0])
+        mesh_check("mesh_merge", mc.mesh_merge(*cols, **mkw),
+                   mc.mesh_merge_torch(*cols, **mkw), f"{what} row {d}")
+        rows.append((cols, mkw))
+    return rows
+
+
+def mesh_case(recs, queries, *, n_sp=1, delta=None, r=16, merge_r=None,
+              cap=None, delta_cap=8, count=False, owner=None, now=NOW,
+              dead=9, base=True):
+    """One case of the mesh kernels as numpy inputs: Records -> the
+    entity columns (every `dead`-th slot dead; 0: none), their postings
+    split over n_sp shards (the equal-count split; none without
+    `base`), `delta` (slots whose postings also form the delta rows,
+    S = 1 only), `queries` (keys [Q, K] and the bounds), `owner` [Q] or
+    None, `now` (scalar or [Q]); K1 compacts to r, K2 merges the n_sp
+    shard lists to merge_r."""
+    from dss_tpu_torch.parallel.sharded import shard_postings
+
+    p = pack_records(recs, pad_postings=False)
+
+    active = p.active.copy()
+    if dead:
+        active[::dead] = False
+    pk, pe = shard_postings(p.post_key, p.post_ent, n_sp, p.capacity)
+    if p.n_postings == 0 or not base:
+        pk, pe = pk[:, :0], pe[:, :0]
+    dk = de = None
+    if delta is not None:
+        take = np.isin(p.post_ent, np.asarray(delta, np.int32))
+        dk, de = p.post_key[take][None], p.post_ent[take][None]
+    keys, alo, ahi, t0, t1 = queries
+    nq = len(keys)
+    return {
+        "records": recs, "n_sp": n_sp,
+        "pk": pk, "pe": pe, "dk": dk, "de": de,
+        "ents": (p.alt_lo, p.alt_hi, p.t_start, p.t_end,
+                 active.astype(np.uint8), p.owner),
+        "keys": np.ascontiguousarray(keys, np.int32),
+        "qalo": np.asarray(alo, np.float32),
+        "qahi": np.asarray(ahi, np.float32),
+        "qt0": np.asarray(t0, np.int64), "qt1": np.asarray(t1, np.int64),
+        "now": np.broadcast_to(np.asarray(now, np.int64), (nq,)).copy(),
+        "owner": None if owner is None else np.asarray(owner, np.int32),
+        "cap": p.base_cap if cap is None else cap, "delta_cap": delta_cap,
+        "r": r, "merge_r": r if merge_r is None else merge_r, "count": count,
+    }
+
+
+MESH_CASE_NAMES = (
+    "random_k16_sp1_owner", "random_k32_sp2_sr_lt_mr", "random_k16_sp8",
+    "random_k32_sp8_owner", "p0_all_pad_keys", "p0_delta_only",
+    "k1_n_unique_r-1", "k1_n_unique_r", "k1_n_unique_r+1",
+    "k2_n_unique_r-1", "k2_n_unique_r", "k2_n_unique_r+1",
+    "slot_in_cells_and_delta", "now_past_t_end", "owner_off", "count_mode",
+    "k1_past_shared_memory", "k2_past_shared_memory",
+)
+
+
+def mesh_cases() -> list:
+    """The mesh kernels' fixed edge cases (numpy, from seeds) ->
+    [(name, case)]: random tables at K 16 and 32 on 1, 2 and 8 shards
+    (shard_results below max_results on 2), owner filter on and off;
+    P = 0 with all-pad keys, and P = 0 with a delta; n_unique at R-1, R
+    and R+1 for K1 and for K2; one slot in several query cells and in
+    both base and delta; `now` past t_end for some queries; the count
+    mode; K*cap past one block's shared memory (K1) and n_sp*sr past it
+    (K2)."""
+    rng = np.random.default_rng(77)
+    recs = []
+    for i in range(400):
+        keys = np.unique(rng.integers(0, 300, int(rng.integers(1, 7))))
+        alo = float(np.float32(rng.uniform(0, 3000)))
+        ahi = float(np.float32(alo + rng.uniform(10, 900)))
+        if i % 13 == 0:
+            alo = -np.inf
+        t0 = NOW + int(rng.integers(-5, 5)) * HOUR
+        recs.append(Record(f"r{i}", keys.astype(np.int32), alo, ahi, t0,
+                           t0 + int(rng.integers(1, 7)) * HOUR,
+                           int(rng.integers(0, 5))))
+
+    def queries(seed, nq, k, key_space=300, open_bounds=False):
+        r = np.random.default_rng(seed)
+        keys = np.full((nq, k), -1, np.int32)
+        for i in range(nq):
+            u = np.unique(r.integers(0, key_space, int(r.integers(1, k))))
+            keys[i, : len(u)] = u
+        alo = r.uniform(0, 3000, nq).astype(np.float32)
+        ahi = (alo + 900).astype(np.float32)
+        t0 = (NOW + r.integers(-3, 3, nq) * HOUR).astype(np.int64)
+        t1 = t0 + 2 * HOUR
+        if open_bounds:
+            alo[:], ahi[:], t0[:], t1[:] = -np.inf, np.inf, NO_TIME_LO, \
+                NO_TIME_HI
+        alo[::5], ahi[::5] = -np.inf, np.inf
+        t0[::4], t1[::4] = NO_TIME_LO, NO_TIME_HI
+        return keys, alo, ahi, t0, t1
+
+    def owners(seed, nq):
+        return np.random.default_rng(seed).integers(0, 5, nq)
+
+    def same(n, key_of, alo=0.0, ahi=100.0):
+        return [Record(f"s{i}", np.asarray(key_of(i), np.int32), alo, ahi,
+                       NOW - HOUR, NOW + HOUR, 1) for i in range(n)]
+
+    def one_query(keys, k=16, nq=1):
+        rows = np.full((nq, k), -1, np.int32)
+        rows[:, : len(keys)] = keys
+        return (rows, np.full(nq, -np.inf, np.float32),
+                np.full(nq, np.inf, np.float32), np.full(nq, NO_TIME_LO),
+                np.full(nq, NO_TIME_HI))
+
+    later = np.full(24, NOW, np.int64)
+    later[::3] = NOW + 6 * HOUR  # past every t_end of those queries' hits
+    line = same(16, lambda i: [5 + i])  # 16 slots, one per key 5..20
+    hot = same(600, lambda i: [9])  # one cell of 600 slots: cap 1024
+    cells = same(12, lambda i: [3, 4, 5])  # every slot in three cells
+    wide = [Record(f"w{i}", np.asarray([i], np.int32), 0.0, 100.0,
+                   NOW - HOUR, NOW + HOUR, 1) for i in range(8 * 300)]
+    wq = one_query(np.arange(0, 8 * 300, 150, dtype=np.int32))
+    return [
+        ("random_k16_sp1_owner", mesh_case(
+            recs, queries(1, 24, 16), owner=owners(2, 24), r=32)),
+        ("random_k32_sp2_sr_lt_mr", mesh_case(
+            recs, queries(3, 24, 32), n_sp=2, r=4, merge_r=16)),
+        ("random_k16_sp8", mesh_case(recs, queries(4, 24, 16), n_sp=8,
+                                     r=16, merge_r=64)),
+        ("random_k32_sp8_owner", mesh_case(
+            recs, queries(5, 24, 32), n_sp=8, owner=owners(6, 24), r=8,
+            merge_r=8)),
+        ("p0_all_pad_keys", mesh_case([], one_query([], nq=4), delta=[],
+                                      r=8)),
+        ("p0_delta_only", mesh_case(
+            recs, queries(7, 24, 16), delta=list(range(0, 400, 3)),
+            base=False, r=16)),
+        *((f"k1_n_unique_{tag}", mesh_case(
+            line, one_query(range(5, 21)), r=r, dead=0))
+          for tag, r in (("r-1", 17), ("r", 16), ("r+1", 15))),
+        *((f"k2_n_unique_{tag}", mesh_case(
+            line, one_query(range(5, 21)), n_sp=2, r=16, merge_r=r, dead=0))
+          for tag, r in (("r-1", 17), ("r", 16), ("r+1", 15))),
+        ("slot_in_cells_and_delta", mesh_case(
+            cells, one_query([3, 4, 5, 6]), delta=[0, 2, 5, 11], r=32)),
+        ("now_past_t_end", mesh_case(
+            recs, queries(8, 24, 16), now=later, r=32)),
+        ("owner_off", mesh_case(recs, queries(1, 24, 16), r=32)),
+        ("count_mode", mesh_case(
+            recs, queries(9, 16, 16, open_bounds=True),
+            delta=list(range(0, 400, 5)), owner=owners(10, 16), count=True)),
+        ("k1_past_shared_memory", mesh_case(
+            hot + recs, queries(11, 8, 16, key_space=40), r=64)),
+        ("k2_past_shared_memory", mesh_case(
+            wide, wq, n_sp=8, r=8192, merge_r=16, cap=8)),
+    ]
+
+
+def mesh_case_args(c, dev):
+    """A case's K1 and K2 arguments on `dev` -> (K1 args, K1 kwargs,
+    K2 kwargs)."""
+    from dss_tpu_torch.ops import conflict as oc
+
+    def t(a):
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a)).to(dev)
+
+    ents = oc.EntityTable(*(t(a) for a in c["ents"]))
+    q = oc.QuerySpec(*(t(c[k]) for k in ("keys", "qalo", "qahi", "qt0",
+                                         "qt1")))
+    args = (t(c["pk"]), t(c["pe"]), t(c["dk"]), t(c["de"]), ents, q,
+            t(c["now"]), t(c["owner"]))
+    kw = {"cap": c["cap"], "delta_cap": c["delta_cap"],
+          "max_results": c["r"], "count": c["count"]}
+    return args, kw, {"shard_results": c["r"], "max_results": c["merge_r"]}
 
 
 def live_records(recs, orc) -> list:
@@ -3924,13 +4350,19 @@ def mesh_scale(dev, idx, recs, orc, flush, smi, b1_ms) -> dict:
     oracle.search; the build, the card's MiB, the batch p50, device
     time by op beside the bound, overflow fallbacks and shard_hits;
     then ops/conflict.py's conflict_query_batch and max_count_per_cell
-    on the 1x1 mesh's tensors.  The torch-op functions' launch counts
-    are set to 0 just before and read after the headline batches."""
+    on the 1x1 mesh's tensors.  Before it, K1 and K2 against their plain
+    versions over mesh_cases(); after the headline batches, every batch
+    of both meshes through K1 and K2 and through their plain versions
+    on the same card tensors, and K1's and K2's times at the 1x1 and
+    2x4 headline beside their bounds.  The functions' and the kernels'
+    launch counts are set to 0 just before and read after the headline
+    batches."""
     from dss_tpu_torch.ops import conflict as oc
     from dss_tpu_torch.parallel import sharded as ps
     from dss_tpu_torch.parallel.mesh import make_mesh, virtual_devices
 
     t_all = time.perf_counter()
+    mesh_kernel_checks(dev)
     live = live_records(recs, orc)
     batches = [make_batch(500 + i, BATCH, N_CELLS, WIDTH)
                for i in range(MESH_BATCHES)]
@@ -3939,6 +4371,7 @@ def mesh_scale(dev, idx, recs, orc, flush, smi, b1_ms) -> dict:
     oc.conflict_query_batch.launches = 0
     oc.max_count_per_cell.launches = 0
     ps.sharded_conflict_query_batch.launches = 0
+    reset_mesh()
     for dp, sp in MESH_SHAPES:
         name = f"{dp}x{sp}"
         torch.cuda.synchronize()
@@ -3968,6 +4401,7 @@ def mesh_scale(dev, idx, recs, orc, flush, smi, b1_ms) -> dict:
         "sharded_conflict_query_batch":
             ps.sharded_conflict_query_batch.launches,
         "b1": ff.fused_window_filter.launches - b1_before,
+        **mesh_counts(),
     }
     a, b = answers["1x1"], answers["2x4"]
     for k, q in enumerate(batches):
@@ -3982,18 +4416,72 @@ def mesh_scale(dev, idx, recs, orc, flush, smi, b1_ms) -> dict:
                 MESH_TALLY.check(
                     ids == orc.ids(*(col[i] for col in q)),
                     f"mesh != oracle at query {i}")
+    keys16 = np.full((BATCH, 16), -1, np.int32)
+    keys16[:, :WIDTH] = batches[0][0]
+    kern = {}
     for name, dar in dars.items():
+        for k, q in enumerate(batches):
+            rows = dar_kernel_checks(dar, q, f"mesh {name} batch {k}")
         ms, by_name, src = device_ms(
             lambda: dar.query_batch(*batches[0], now=NOW), flush, n=10)
         DEVICE_BY_NAME[f"mesh_{name}"] = {"cold": by_name}
-        b_ms, nbytes = mesh_bound_ms(BATCH, WIDTH, dar.cap,
-                                     out[name]["postings"], dar.n_sp,
-                                     dar.shard_results)
+        rows = dar_kernel_checks(dar, batches[0], f"mesh {name} timed")
+        pk_rows = np.concatenate([t.cpu().numpy() for _, t in
+                                  dar.post_key.parts.values()])
+        pe_rows = np.concatenate([t.cpu().numpy() for _, t in
+                                  dar.post_ent.parts.values()])
+        b1 = k1_bound(pk_rows, pe_rows, keys16, dar.cap, dar.shard_results)
+        widths = [int(mc.mesh_merge(*cols, **mkw)[3][-1])
+                  for cols, mkw in rows]
+        b2 = [k2_bound(cols[1].cpu().numpy(), dar.shard_results,
+                       dar.max_results, w)
+              for (cols, _), w in zip(rows, widths)]
+        b_ms = b1["ms"] + sum(b["ms"] for b in b2)
+        b_ms_earlier = b1["ms_all_keys"] + sum(
+            b["ms_padded_lists"] for b in b2)
+        old_ms, old_bytes = mesh_bound_padded(
+            BATCH, WIDTH, dar.cap, out[name]["postings"], dar.n_sp,
+            dar.shard_results)
         out[name].update(
             device_ms=ms, ms_source=src, device_ms_by_op=by_op(by_name),
             device_kernels_per_batch=sum(k for _, k in by_name.values()),
-            bound_ms=b_ms, bound_bytes=nbytes, share_of_bound=b_ms / ms,
+            bound_ms=b_ms,
+            bound_bytes=b1["bytes"] + sum(b["bytes"] for b in b2),
+            share_of_bound=b_ms / ms, candidates=b1["candidates"],
+            widths=widths, bound_ms_padded_formula=old_ms,
+            bound_bytes_padded_formula=old_bytes,
+            bound_ms_earlier_formula=b_ms_earlier,
+            share_of_bound_earlier_formula=b_ms_earlier / ms,
             vs_b1=ms / b1_ms)
+        # K1 and K2 alone at this mesh's headline, dp row 0
+        _, _, args, kw = dar_row_args(dar, batches[0], 0)[0]
+        cols, mkw = rows[0]
+        rb1 = k1_bound(args[0].cpu().numpy(), args[1].cpu().numpy(),
+                       keys16[: BATCH // dar.dp], dar.cap,
+                       dar.shard_results)
+        tag = "" if name == "1x1" else f"_{name}"
+        t1 = timings(f"mesh_query{tag}",
+                     lambda: mc.mesh_query(*args, **kw),
+                     lambda: mc.mesh_query_torch(*args, **kw), flush)
+        t2 = timings(f"mesh_merge{tag}",
+                     lambda: mc.mesh_merge(*cols, **mkw),
+                     lambda: mc.mesh_merge_torch(*cols, **mkw), flush)
+        kern[name] = {
+            "mesh_query": {**t1, "bound_ms": rb1["ms"],
+                           "bound_bytes": rb1["bytes"],
+                           "candidates": rb1["candidates"],
+                           "share_of_bound": rb1["ms"] / t1["ms"],
+                           "bound_ms_all_keys": rb1["ms_all_keys"],
+                           "share_of_bound_all_keys":
+                               rb1["ms_all_keys"] / t1["ms"]},
+            "mesh_merge": {**t2, "bound_ms": b2[0]["ms"],
+                           "bound_bytes": b2[0]["bytes"],
+                           "width": widths[0],
+                           "share_of_bound": b2[0]["ms"] / t2["ms"],
+                           "bound_ms_padded_lists": b2[0]["ms_padded_lists"],
+                           "share_of_bound_padded_lists":
+                               b2[0]["ms_padded_lists"] / t2["ms"]},
+            "dp_rows": dar.dp, "shards_per_launch": dar.n_sp}
     # ops/conflict.py's two other functions on the 1x1 mesh's tensors
     d11 = dars["1x1"]
     rows, pk = d11.post_key.parts[dev]
@@ -4035,20 +4523,30 @@ def mesh_scale(dev, idx, recs, orc, flush, smi, b1_ms) -> dict:
                      "max_count_per_cell != oracle")
     launches["max_count_per_cell"] = oc.max_count_per_cell.launches
     fns = {}
-    for name, fn, q, k in (("conflict_query_batch", cqb, BATCH, WIDTH),
-                           ("max_count_per_cell", mcc, 1, WIDTH)):
+    host_rows = (pk.cpu().numpy(), d11.post_ent.parts[dev][1].cpu().numpy())
+    host_delta = tuple(t.cpu().numpy()[None] for t in delta)
+    for name, fn, keys, count in (
+            ("conflict_query_batch", cqb, keys16, False),
+            ("max_count_per_cell", mcc, keys_row[None], True)):
         ms, by_name, src = device_ms(fn, flush, n=10)
         DEVICE_BY_NAME[name] = {"cold": by_name}
-        b_ms, nbytes = mesh_bound_ms(q, k, d11.cap, out["1x1"]["postings"],
-                                     1, MESH_MAX_RESULTS if q > 1 else 0)
+        b = k1_bound(*host_rows, keys, d11.cap, MESH_MAX_RESULTS,
+                     count=count, delta=host_delta, delta_cap=8)
+        old_ms, old_bytes = mesh_bound_padded(
+            len(keys), WIDTH, d11.cap, out["1x1"]["postings"], 1,
+            0 if count else MESH_MAX_RESULTS)
         fns[name] = {"device_ms": ms, "ms_source": src,
-                     "device_ms_by_op": by_op(by_name), "bound_ms": b_ms,
-                     "bound_bytes": nbytes, "share_of_bound": b_ms / ms}
+                     "device_ms_by_op": by_op(by_name), "bound_ms": b["ms"],
+                     "bound_bytes": b["bytes"],
+                     "share_of_bound": b["ms"] / ms,
+                     "bound_ms_padded_formula": old_ms,
+                     "bound_bytes_padded_formula": old_bytes,
+                     "bound_ms_all_keys": b["ms_all_keys"]}
     del dars, d11, base, ents, delta, spec
     gc.collect()
     return {"records": len(live), "batch": BATCH, "batches": MESH_BATCHES,
             "oracle_sample": MESH_ORACLE, "meshes": out,
-            "functions": fns, "launches": launches,
+            "functions": fns, "kernels": kern, "launches": launches,
             "b1_ms_same_data": b1_ms, "seconds": time.perf_counter() - t_all,
             "note": "a virtual position is not a second card: the 2x4 "
                     "mesh runs its 8 positions on one H100", "card": smi}
@@ -4121,6 +4619,7 @@ def mesh_skew(dev, smi) -> dict:
 
     t_all = time.perf_counter()
     ps.sharded_conflict_query_batch.launches = 0
+    reset_mesh()
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "build", "mesh_skew")
     shutil.rmtree(work, ignore_errors=True)
@@ -4191,31 +4690,72 @@ def mesh_skew(dev, smi) -> dict:
                        "shard_results_effective":
                            rep.shard_results_effective},
             }
+        kernel_launches = mesh_counts()
+        # every area at once through K1 and K2 against their plain
+        # versions, on the replica's own tensors
+        snap = rep._snapshots["isas"]
+        keys = np.full((len(areas), max(map(len, areas))), -1, np.int32)
+        for i, a in enumerate(areas):
+            keys[i, : len(a)] = a
+        q = (keys, *(np.repeat(x, len(areas)) for x in one))
+        for dar in (snap.base, snap.delta):
+            if dar is not None:
+                dar_kernel_checks(dar, q, "skew", now=0)
     finally:
         rep.close()
         shutil.rmtree(work, ignore_errors=True)
     return {"cold": SKEW_COLD, "hot": SKEW_HOT, "areas": SKEW_AREAS,
             "queries_per_pass": SKEW_QUERIES, "mesh": "1x8 virtual",
             "sharded_launches": ps.sharded_conflict_query_batch.launches,
+            "kernel_launches": kernel_launches,
             "max_results": 256, "shard_results": 48,
             "per_alpha": per_alpha, "seconds": time.perf_counter() - t_all,
             "card": smi}
 
 
 def mesh_failures(line) -> list:
-    """The mesh parts' own checks: the route launched its torch ops on
-    the card, never B1, and the skew leg's rebalancing moved."""
+    """The mesh parts' own checks: the route ran on the card through K1
+    and K2, never B1, and the skew leg's rebalancing moved."""
     out = []
     launches = line["scale"]["launches"]
     if launches["b1"]:
         out.append(f"mesh: B1 launched {launches['b1']} times")
     for name in ("sharded_conflict_query_batch", "conflict_query_batch",
-                 "max_count_per_cell"):
+                 "max_count_per_cell") + MESH_KERNELS:
         if launches[name] <= 0:
             out.append(f"mesh: {name} never ran on the card")
     hot = line["skew"]["per_alpha"][str(SKEW_ALPHAS[-1])]["on"]
     if hot["boundary_moves"] <= 0:
         out.append("mesh skew: no boundary move at the hottest alpha")
+    return out
+
+
+def mesh_kernel_entries() -> list:
+    """K1's and K2's entries of the kernels line: times at the 1x1
+    headline (the 2x4's beside them), launches on the main path (the
+    headline batches) and in every leg."""
+    scale = MESH_LINE["scale"]
+    legs = {"mesh": scale["launches"],
+            "skew": MESH_LINE["skew"]["kernel_launches"],
+            "store_drains": MESH_LINE.get("store_drains", {}).get(
+                "kernel_launches", {}),
+            "server": MESH_LINE.get("server", {}).get("kernel_launches", {}),
+            "multihost": MESH_LINE.get("multihost_kernel_launches", {})}
+    out = []
+    for name in MESH_KERNELS:
+        t = scale["kernels"]["1x1"][name]
+        e = entry(name, legs["mesh"][name], MESH_ERR[name],
+                  {k: t[k] for k in ("ms", "warm_ms", "call_ms", "plain_ms",
+                                     "plain_call_ms", "ms_source")},
+                  t["bound_ms"])
+        e["launches_by_leg"] = {leg: v.get(name, 0)
+                                for leg, v in legs.items()}
+        bounds = [k for k in t if k.startswith(("bound_ms_", "share_of"))]
+        e.update((k, t[k]) for k in bounds)
+        e["at_2x4"] = {k: scale["kernels"]["2x4"][name][k]
+                       for k in ("ms", "warm_ms", "call_ms", "plain_ms",
+                                 "bound_ms", *bounds)}
+        out.append(e)
     return out
 
 
@@ -4265,10 +4805,12 @@ def mesh_store_drains(store, wal_path, dev, orc, seed) -> tuple:
             failures.append("mesh drains: the replica is not fresh")
         off0 = store.stats()["dss_dar_op_mesh_offloads"]
         ps.sharded_conflict_query_batch.launches = 0
+        reset_mesh()
         burst = drain_bursts(store, bursts, lambda it: ids(it[0]),
                              lambda it: it[1], "mesh drains")
         offloads = store.stats()["dss_dar_op_mesh_offloads"] - off0
         launches = ps.sharded_conflict_query_batch.launches
+        kernel_launches = mesh_counts()
     finally:
         rep.close()
     for index, _ in store._class_indexes():
@@ -4282,6 +4824,7 @@ def mesh_store_drains(store, wal_path, dev, orc, seed) -> tuple:
             "replica_records": st["replica_applied_records"],
             "replica_major_rebuilds": st["replica_major_rebuilds"],
             "mesh_offloads": offloads, "sharded_launches": launches,
+            "kernel_launches": kernel_launches,
             "burst": burst,
             "seconds": time.perf_counter() - t_all}, failures
 
@@ -4510,6 +5053,9 @@ def mesh_server(smi, state) -> tuple:
                         or not k.endswith(("_dirty", "_generation"))},
             "http_mesh_offloads": int(sum(metric_values(
                 metrics, "_mesh_offloads").values())),
+            "kernel_launches": {name: int(sum(metric_values(
+                metrics, f"_{name}_launches").values()))
+                for name in MESH_KERNELS},
         }
     finally:
         t = time.perf_counter()
@@ -6442,7 +6988,6 @@ def mh_queries(rep, seed=31) -> dict:
 
 def mh_search(rep, keys, now, cls):
     """One batch of unfiltered searches (every altitude and time)."""
-    from dss_tpu_torch.ops.conflict import NO_TIME_HI, NO_TIME_LO
 
     b = len(keys)
     return rep.query_batch(
@@ -6489,9 +7034,10 @@ def mh_serve_worker(argv) -> int:
                               warm_batches=(1, 32, 64))
     def memory():
         if device != "cuda":
-            return {}
+            return {"kernels": mesh_counts()}
         return {"reserved_mib": torch.cuda.memory_reserved() / 2**20,
-                "allocated_mib": torch.cuda.memory_allocated() / 2**20}
+                "allocated_mib": torch.cuda.memory_allocated() / 2**20,
+                "kernels": mesh_counts()}
 
     if pid:
         rep.extra_commands["report"] = lambda head: dump(
@@ -6552,7 +7098,8 @@ def mh_serve_worker(argv) -> int:
                         "degraded_reason": rt.degraded_reason,
                         "during": during, "after": after,
                         "rehome_s": rehome_s, "stats": stats,
-                        "mesh": dict(rep.mesh.shape)})
+                        "mesh": dict(rep.mesh.shape),
+                        "kernels": mesh_counts()})
     rep.close()
     rt.close()
     return 0
@@ -6583,6 +7130,7 @@ def mh_serving_leg(work, state, smi) -> tuple:
         wals.append(os.path.join(work, f"{name}.wal"))
         shutil.copyfile(state["wal"], wals[-1])
     t = time.perf_counter()
+    k0 = mesh_counts()
     mesh = make_mesh(4, dp=1, sp=4, devices=virtual_devices(MH_DEVICE, 4))
     single = ShardedReplica(mesh, wal_path=wals[0], warm_batches=(1, 32, 64))
     single.sync()
@@ -6598,6 +7146,8 @@ def mh_serving_leg(work, state, smi) -> tuple:
     line["hits_per_search"] = sum(
         len(r) for v in want.values() for r in v) / (len(want) * MH_BATCH)
     line["single_batch"] = lat_ms(lat)
+    line["kernel_launches"] = {"single_process": {
+        k: v - k0[k] for k, v in mesh_counts().items()}}
     single.close()
     del single, mesh
     gc.collect()
@@ -6705,6 +7255,8 @@ def mh_serving_leg(work, state, smi) -> tuple:
             "stats_after": final["stats"],
             "follower_rc": procs[1].returncode, "leader_rc": rc0,
         })
+        line["kernel_launches"].update(leader=final["kernels"],
+                                       follower=follower["kernels"])
         if rc0 != 0:
             failures.append(f"multihost serving: leader rc {rc0}: "
                             f"{tail(0)}")
@@ -6825,6 +7377,9 @@ def mh_server_leg(work, state, smi) -> tuple:
             "multihost_gauges": {k: v for k, v in gauges.items()
                                  if k.startswith("dss_multihost_")},
             "shard_members": st.get("dss_shard_members"),
+            "kernel_launches": {name: int(sum(metric_values(
+                metrics, f"_{name}_launches").values()))
+                for name in MESH_KERNELS},
         })
         if st.get("dss_shard_members") != 2:
             failures.append(f"multihost server: {st.get('dss_shard_members')}"
@@ -6898,6 +7453,11 @@ def multihost_phase(smi, state) -> tuple:
     failures += bad
     line["mismatches"] = MULTIHOST_TALLY.mismatches
     line["compared"] = MULTIHOST_TALLY.compared
+    parts = (list(line["serving"].get("kernel_launches", {}).values())
+             + [line["server"].get("kernel_launches", {})])
+    line["kernel_launches"] = {name: sum(p.get(name, 0) for p in parts)
+                               for name in MESH_KERNELS}
+    MESH_LINE["multihost_kernel_launches"] = line["kernel_launches"]
     return {"multihost": line}, failures
 
 
@@ -7149,7 +7709,7 @@ def run(dev, smi) -> tuple:
     b1.update({f"tuner_{k}": sum(TUNER_LINE[part]["b1"][k]
                                  for part in parts)
                for k in ("launches", "graph_replays")})
-    return [b1] + legacy, failures
+    return [b1] + legacy + mesh_kernel_entries(), failures
 
 
 def main() -> int:
@@ -7182,9 +7742,10 @@ def main() -> int:
               f"failed: {failures}",
               file=sys.stderr)
         return 1
-    tallies = list(TALLY.values()) + [STORE_TALLY, NATIVE_TALLY, PUSH_TALLY,
-                                      MESH_TALLY, REGION_TALLY, FED_TALLY,
-                                      TUNER_TALLY, MULTIHOST_TALLY]
+    # K1's and K2's comparisons are on MESH_TALLY as well
+    tallies = [t for name, t in TALLY.items() if name not in MESH_KERNELS]
+    tallies += [STORE_TALLY, NATIVE_TALLY, PUSH_TALLY, MESH_TALLY,
+                REGION_TALLY, FED_TALLY, TUNER_TALLY, MULTIHOST_TALLY]
     bad = sum(t.mismatches for t in tallies)
     if bad:
         print(f"chip_smoke: {bad} of "

@@ -894,6 +894,10 @@ def build(args) -> web.Application:
             out.update(replica.stats())
         elif mh_runtime is not None:
             out.update(mh_runtime.stats())
+        if replica is not None or mh_runtime is not None:
+            from dss_tpu_torch.ops.mesh_cuda import launch_stats
+
+            out.update(launch_stats())
         return out
 
     app = build_app(

@@ -9,18 +9,23 @@ node proxies to the right range):
     cell-key ranges (equal postings counts, or a load-weighted
     boundary map);
   - each position runs the single-device candidate gather + 4D test
-    (`ops/conflict.py`) against its range and compacts its hits to a
-    fixed width;
-  - per-shard results are merged — the SQL DISTINCT across ranges;
+    against its range and compacts its hits to a fixed width (K1,
+    `ops/mesh_cuda.mesh_query`);
+  - per-shard results are merged — the SQL DISTINCT across ranges (K2,
+    `ops/mesh_cuda.mesh_merge`);
   - the query batch itself is split over "dp".
 
 The reference's `shard_map` is a loop over the mesh here: each dp row
 runs its sp shards grouped by device (the shards of one device stacked
-[n, Ps] and answered in one batched pass), the reference's `all_gather`
-over "sp" is a `torch.stack` on the row's first device, and its `psum`
-over "dp" a sum.  The EntityTable is replicated, one copy per distinct
+[n, Ps] and answered in one launch of K1), the reference's
+`all_gather` over "sp" is a `torch.stack` on the row's first device
+(none when one device holds the whole row), K2 merges the row there,
+and the reference's `psum` over "dp" is a sum.
+`ShardedDar.query_batch` downloads only the columns that some query of
+the batch kept.  The EntityTable is replicated, one copy per distinct
 device.  Outputs are bit-identical to the reference's for every mesh
-shape and boundary split (tests/test_torch_sharded.py).
+shape and boundary split (tests/test_torch_sharded.py,
+tests/test_torch_mesh_kernels.py).
 
 On a mesh that spans processes (parallel/multihost.py) each process
 holds and answers only its own shard columns, and the "sp" all_gather
@@ -48,13 +53,11 @@ from dss_tpu_torch.ops.conflict import (
     EntityTable,
     Postings,
     QuerySpec,
-    _attr_test,
-    _bcast,
-    _candidates,
-    _compact_unique,
+    _u8,
     entity_table,
     query_spec,
 )
+from dss_tpu_torch.ops.mesh_cuda import mesh_merge, mesh_query
 from dss_tpu_torch.parallel.mesh import Mesh, mesh_spans_processes
 
 
@@ -295,26 +298,23 @@ def _local_query(
     shard_results: int,
     with_owner: bool,
 ):
-    """One device's shards: candidates from each local postings range,
-    4D test, compact to shard_results.  Returns (slots [S, Q, sr],
-    n_unique [S, Q])."""
-    ent, valid = _candidates(post, ents, q.keys, cap)
-    s, nq = ent.shape[0], ent.shape[1]
-    ent = ent.reshape(s, nq, -1)
-    valid = valid.reshape(s, nq, -1)
-    hit = valid & _attr_test(
-        ents, ent, _bcast(q), now.unsqueeze(-1),
-        owner.unsqueeze(-1) if with_owner else None,
+    """One device's shards on K1: candidates from each local postings
+    range, 4D test, compact to shard_results.  Returns (slots [S, Q,
+    sr], n_unique [S, Q] int32)."""
+    return mesh_query(
+        post.post_key, post.post_ent, None, None, _u8(ents), q, now,
+        owner if with_owner else None,
+        cap=cap, delta_cap=0, max_results=shard_results,
     )
-    return _compact_unique(ent, hit, shard_results)
 
 
 def _row_shards(post_key, post_ent, ents, q, now, owner, mesh, d, qloc,
                 *, cap, shard_results, with_owner):
-    """dp row `d`'s sp columns on this process -> {column: (slots
-    [Qloc, sr], n_unique [Qloc])}, each on the device that ran it."""
+    """dp row `d`'s sp columns on this process -> [(device, columns,
+    slots [S, Qloc, sr], n_unique [S, Qloc])], one entry per device
+    group of the row."""
     rows = slice(d * qloc, (d + 1) * qloc)
-    out = {}
+    out = []
     for dev, shards in mesh.row_groups(d):
         qq = QuerySpec(*(f[rows].to(dev) for f in q))
         slots_s, n_uni = _local_query(
@@ -328,23 +328,38 @@ def _row_shards(post_key, post_ent, ents, q, now, owner, mesh, d, qloc,
             shard_results=shard_results,
             with_owner=with_owner,
         )
-        for j, s in enumerate(shards):
-            out[s] = (slots_s[j], n_uni[j])
+        out.append((dev, list(shards), slots_s, n_uni))
     return out
 
 
+def _by_column(groups) -> dict:
+    """{column: (slots [Qloc, sr], n_unique [Qloc])} of a row's groups."""
+    return {s: (slots[j], n_uni[j]) for _, shards, slots, n_uni in groups
+            for j, s in enumerate(shards)}
+
+
+def _row_columns(groups, n_sp: int, dev):
+    """The reference's all_gather over "sp": a row's shard results as
+    ([n_sp, Qloc, sr], [n_sp, Qloc]) on `dev`.  One group that holds
+    every column in order on `dev` is taken as it is, with no copy."""
+    if len(groups) == 1:
+        gdev, shards, slots, n_uni = groups[0]
+        if gdev == dev and shards == list(range(n_sp)):
+            return slots, n_uni
+    cols = _by_column(groups)
+    return (torch.stack([cols[s][0].to(dev) for s in range(n_sp)]),
+            torch.stack([cols[s][1].to(dev) for s in range(n_sp)]))
+
+
 def _merge_row(slots, n_uni, *, shard_results, max_results):
-    """The merge of one dp row's gathered shards (slots [n_sp, Qloc,
-    sr], n_unique [n_sp, Qloc]) -> (slots [Qloc, max_results],
-    overflowed [Qloc], shard_hits [n_sp] int32): the SQL DISTINCT
-    across ranges, in sp column order."""
-    qloc = slots.shape[1]
-    merged = slots.permute(1, 0, 2).reshape(qloc, -1)
-    out, n_unique = _compact_unique(
-        merged, merged != int(INT32_MAX), max_results
-    )
-    ovf = (n_uni > shard_results).any(dim=0) | (n_unique > max_results)
-    return out, ovf, n_uni.sum(dim=1).to(torch.int32)
+    """The merge of one dp row's gathered shards on K2 (slots [n_sp,
+    Qloc, sr], n_unique [n_sp, Qloc]) -> (slots [Qloc, max_results],
+    overflowed [Qloc], kept [Qloc], acc [n_sp + 1] int32: shard_hits,
+    then the row's widest kept count): the SQL DISTINCT across ranges,
+    in sp column order."""
+    return mesh_merge(slots.contiguous(),
+                      n_uni.to(torch.int32).contiguous(),
+                      shard_results=shard_results, max_results=max_results)
 
 
 def _gather_columns(mesh: Mesh, local, qloc: int, sr: int, t0: float):
@@ -367,8 +382,9 @@ def _gather_columns(mesh: Mesh, local, qloc: int, sr: int, t0: float):
     block = torch.full((dp, width, qloc, sr + 1), int(INT32_MAX),
                        dtype=torch.int32, device=dev0)
     for d in range(dp):
+        row = _by_column(local[d])
         for k, s in enumerate(cols[mesh.process_index]):
-            slots, n_uni = local[d][s]
+            slots, n_uni = row[s]
             block[d, k, :, :sr] = slots.to(dev0)
             block[d, k, :, sr] = n_uni.to(dev0, torch.int32)
     host = block.cpu()  # the one device->host copy of this collective
@@ -421,6 +437,18 @@ def sharded_conflict_query_batch(
     mesh requires).  The merged values are bit-identical to the
     single-process path: the gather only changes where the shards were
     answered, never the merge."""
+    slots, ovf, acc = _sharded_query(
+        post_key, post_ent, ents, q, now, owner, mesh=mesh, cap=cap,
+        shard_results=shard_results, max_results=max_results,
+        with_owner=with_owner, replicate_out=replicate_out)
+    return slots, ovf, acc[: mesh.shape["sp"]]
+
+
+def _sharded_query(post_key, post_ent, ents, q, now, owner, *, mesh, cap,
+                   shard_results, max_results, with_owner, replicate_out):
+    """sharded_conflict_query_batch's body -> (slots, overflowed, acc
+    int32 [n_sp + 1]: shard_hits, then the widest kept row of the
+    batch, so that a caller downloads only the used columns)."""
     dp, n_sp = mesh.shape["dp"], mesh.shape["sp"]
     spans = mesh_spans_processes(mesh)
     if spans and not replicate_out:
@@ -444,30 +472,31 @@ def sharded_conflict_query_batch(
         for d in range(dp)
     ]
     merge = {"shard_results": shard_results, "max_results": max_results}
-    outs, ovfs, hits = [], [], []
+    outs, ovfs, accs = [], [], []
     if spans:
         full = _gather_columns(mesh, local, qloc, shard_results, t0)
         for d in range(dp):
-            out, ovf, h = _merge_row(full[d, :, :, :shard_results],
-                                     full[d, :, :, shard_results], **merge)
+            out, ovf, _, acc = _merge_row(full[d, :, :, :shard_results],
+                                          full[d, :, :, shard_results],
+                                          **merge)
             outs.append(out)
             ovfs.append(ovf)
-            hits.append(h)
+            accs.append(acc)
     else:
         out_dev = mesh.devices[0, 0]
         for d in range(dp):
-            first = mesh.devices[d, 0]
-            # the reference's all_gather over "sp": [n_sp, Qloc, sr]
-            out, ovf, h = _merge_row(
-                torch.stack([local[d][s][0].to(first) for s in range(n_sp)]),
-                torch.stack([local[d][s][1].to(first) for s in range(n_sp)]),
-                **merge)
+            out, ovf, _, acc = _merge_row(
+                *_row_columns(local[d], n_sp, mesh.devices[d, 0]), **merge)
             outs.append(out.to(out_dev))
             ovfs.append(ovf.to(out_dev))
-            hits.append(h.to(out_dev))
-    # the reference's psum over "dp"
-    shard_hits = torch.stack(hits).sum(dim=0, dtype=torch.int32)
-    return torch.cat(outs), torch.cat(ovfs), shard_hits
+            accs.append(acc.to(out_dev))
+    if dp == 1:
+        return outs[0], ovfs[0], accs[0]
+    # the reference's psum over "dp"; the widest row of any dp row
+    acc = torch.stack(accs)
+    acc = torch.cat([acc[:, :n_sp].sum(dim=0, dtype=torch.int32),
+                     acc[:, n_sp:].amax(dim=0)])
+    return torch.cat(outs), torch.cat(ovfs), acc
 
 
 sharded_conflict_query_batch.launches = 0  # calls on a card
@@ -595,22 +624,27 @@ class ShardedDar:
             )
         # pageable host tensors; each dp row's slice goes to its devices
         spec = query_spec(keys_batch, alt_lo, alt_hi, t_start, t_end, "cpu")
-        slots, ovf, shard_hits = sharded_conflict_query_batch(
+        slots, ovf, acc = _sharded_query(
             self.post_key,
             self.post_ent,
             self.ents,
             spec,
             torch.from_numpy(now_arr),
+            None,
             mesh=self.mesh,
             cap=self.cap,
             shard_results=self.shard_results,
             max_results=self.max_results,
+            with_owner=False,
             replicate_out=self.multihost,
         )
-        slots = slots.cpu().numpy()[:qn]
-        ovf = ovf.cpu().numpy()[:qn]
+        # one small copy (shard_hits, then the widest kept row), then
+        # only the columns any query of the batch kept
+        acc = acc.cpu().numpy()
+        slots = slots[:qn, : int(acc[self.n_sp])].cpu().numpy()
+        ovf = ovf[:qn].cpu().numpy()
         with self._hits_mu:
-            self.shard_hits += shard_hits.cpu().numpy().astype(np.int64)
+            self.shard_hits += acc[: self.n_sp].astype(np.int64)
         out = []
         for i in range(qn):
             if ovf[i]:

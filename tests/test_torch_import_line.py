@@ -18,7 +18,8 @@
   cmds.federation_dryrun; the tuner's by name: scenario,
   scenario.generator, plan.autotune, tune, tune.observe, tune.propose,
   tune.shadow, tune.controller; multihost's by name: parallel.multihost,
-  cmds.multihost_dryrun), chip_smoke and b1_device_time import in a
+  cmds.multihost_dryrun; the mesh kernels' by name: ops.mesh_cuda),
+  chip_smoke and b1_device_time import in a
   process where `jax`, `requests` (absent on the card's machine; the
   region client rides http.client) and every `dss_tpu` module are
   refused.
@@ -102,7 +103,7 @@ _PROBE = textwrap.dedent(
                 "scenario", "scenario.generator", "plan.autotune",
                 "tune", "tune.observe", "tune.propose", "tune.shadow",
                 "tune.controller", "parallel.multihost",
-                "cmds.multihost_dryrun"):
+                "cmds.multihost_dryrun", "ops.mesh_cuda"):
         assert "dss_tpu_torch." + mod in names, (mod, names)
     import chip_smoke  # its helpers; main() only runs as a script
     assert callable(chip_smoke.run) and callable(chip_smoke.make_batch)

@@ -15,8 +15,12 @@ store searches reaches B1 with the answers of a memory store.  The
 federation: two federated cuda stores (region/federation.py) drain 128
 cross-region stale searches, B1 launches on each region's store, and
 every answer equals two federated stores on the CPU.  The mesh
-route (ops/conflict.py's torch ops under parallel/sharded.py): a cuda
-ShardedDar on a virtual 2x4 mesh equals the CPU one; a replica
+route's kernels (ops/mesh_cuda.py: K1 mesh_query, K2 mesh_merge) against
+their plain versions on every case of chip_smoke.mesh_cases(), on
+outputs handed back dirty, over 40 launches back to back and over a
+scratch split into several launches, refusing inputs they do not take;
+a cuda ShardedDar on a virtual 2x4 mesh equals the CPU one, one K1 and
+one K2 launch a dp row; a replica
 refreshes in a loop while the GraphCache captures on another thread,
 with 0 capture failures; a reader on its own stream never sees a
 snapshot whose copies have not finished.  The autotune sweep
@@ -44,6 +48,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from dss_tpu_torch.dar.pack import pack_records
 from dss_tpu_torch.dar.oracle import Record
 from dss_tpu_torch.ops import fastpath_cuda as fc
@@ -1023,6 +1028,199 @@ def test_cuda_sharded_dar_on_a_virtual_mesh_equals_cpu(cuda):
         dev(post[0]), dev(post[1]), cents, keys.to(cuda), NOW, 3, **caps
     )) == int(pc.max_count_per_cell(post[0], post[1], ents, keys, NOW, 3,
                                     **caps))
+
+
+@pytest.fixture(scope="module")
+def mesh_cases():
+    cases = cs.mesh_cases()
+    assert [n for n, _ in cases] == list(cs.MESH_CASE_NAMES)
+    return dict(cases)
+
+
+def _mesh_run(mc, c, cuda, plain=False):
+    """K1 (and, after a compact K1, K2 on its shard lists) on a case's
+    card tensors -> their results."""
+    args, kw, mkw = cs.mesh_case_args(c, cuda)
+    k1 = mc.mesh_query_torch if plain else mc.mesh_query
+    k2 = mc.mesh_merge_torch if plain else mc.mesh_merge
+    out = k1(*args, **kw)
+    if kw["count"]:
+        return (out,)
+    return tuple(out) + tuple(k2(*out, **mkw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", cs.MESH_CASE_NAMES)
+def test_mesh_kernels_match_plain(cuda, mesh_cases, name):
+    """K1 and K2 against their plain versions on the same card tensors,
+    slot for slot, each case of chip_smoke.mesh_cases() (K*cap and
+    n_sp*sr past one block's shared memory among them)."""
+    from dss_tpu_torch.ops import mesh_cuda as mc
+
+    c = mesh_cases[name]
+    before = (mc.mesh_query.launches, mc.mesh_merge.launches)
+    got = _mesh_run(mc, c, cuda)
+    want = _mesh_run(mc, c, cuda, plain=True)
+    torch.cuda.synchronize()
+    assert (mc.mesh_query.launches - before[0],
+            mc.mesh_merge.launches - before[1]) == (
+                (1, 0) if c["count"] else (1, 1))
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == w.dtype
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.gpu
+def test_mesh_kernels_on_dirty_outputs_and_back_to_back(cuda):
+    """chip_smoke.mesh_kernel_checks: every case, then outputs that the
+    allocator hands back full of -1 (the kernels write every pad
+    themselves), then 40 launches over the cases with no sync between
+    them, each equal to its plain version, with no mismatch tallied."""
+    tallies = (cs.TALLY["mesh_query"], cs.TALLY["mesh_merge"],
+               cs.MESH_TALLY)
+    before = [(t.compared, t.mismatches) for t in tallies]
+    cs.mesh_kernel_checks(cuda)
+    for t, (compared, mismatches) in zip(tallies, before):
+        assert t.compared > compared, t.name
+        assert t.mismatches == mismatches, t.name
+
+
+@pytest.mark.gpu
+def test_mesh_query_splits_a_scratch_past_its_limit(cuda, mesh_cases,
+                                                    monkeypatch):
+    """Hit buffers past one block's shared memory live in a global
+    scratch; past SCRATCH_LIMIT bytes the batch runs as several launches
+    over its items, equal to the plain version."""
+    from dss_tpu_torch.ops import mesh_cuda as mc
+
+    args, kw, _ = cs.mesh_case_args(mesh_cases["k1_past_shared_memory"],
+                                    cuda)
+    buf = args[5].keys.shape[1] * kw["cap"]
+    monkeypatch.setattr(mc, "SCRATCH_LIMIT", 3 * 4 * buf)  # 3 items
+    before = mc.mesh_query.launches
+    got = mc.mesh_query(*args, **kw)
+    want = mc.mesh_query_torch(*args, **kw)
+    torch.cuda.synchronize()
+    assert mc.mesh_query.launches - before == 3  # 8 items, 3 a launch
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_mesh_query_from_threads_with_other_buffer_sizes(cuda, mesh_cases):
+    """Nine threads launch K1 at once with hit buffers of 133 KB, 68 KB
+    and 7 KB a block (past the default 48 KB twice: a thread must not
+    lower the limit under another's launch), under a short switch
+    interval: every answer equals the plain version and every launch
+    is counted."""
+    import sys
+    import threading
+
+    from dss_tpu_torch.ops import mesh_cuda as mc
+
+    big_args, big_kw, _ = cs.mesh_case_args(
+        mesh_cases["k1_past_shared_memory"], cuda)
+    small_args, small_kw, _ = cs.mesh_case_args(
+        mesh_cases["random_k16_sp8"], cuda)
+    # 16 cells x cap 512 and x cap 256: 133 KB and 68 KB a block
+    runs = [(big_args, dict(big_kw, cap=512)),
+            (big_args, dict(big_kw, cap=256)), (small_args, small_kw)]
+    want = [mc.mesh_query_torch(*a, **k) for a, k in runs]
+    torch.cuda.synchronize()
+    before = mc.mesh_query.launches
+    bad, iters = [], 25
+
+    def work(i):
+        args, kw = runs[i % 3]
+        with torch.cuda.stream(torch.cuda.Stream(cuda)):
+            for _ in range(iters):
+                got = mc.mesh_query(*args, **kw)
+                torch.cuda.current_stream(cuda).synchronize()
+                if not all(torch.equal(g, w)
+                           for g, w in zip(got, want[i % 3])):
+                    bad.append(i)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(i,))
+                   for i in range(9)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert not bad
+    assert mc.mesh_query.launches - before == 9 * iters
+
+
+@pytest.mark.gpu
+def test_mesh_kernels_reject_bad_input(cuda, mesh_cases):
+    from dss_tpu_torch.ops import mesh_cuda as mc
+
+    args, kw, mkw = cs.mesh_case_args(mesh_cases["random_k16_sp8"], cuda)
+    pk, pe, dk, de, ents, q, now, owner = args
+    with pytest.raises(ValueError, match="uint8"):  # active as bool
+        mc.mesh_query(pk, pe, dk, de, ents._replace(
+            active=ents.active.bool()), q, now, owner, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        mc.mesh_query(pk, pe, dk, de, ents, q._replace(
+            keys=q.keys.t().contiguous().t()), now, owner, **kw)
+    with pytest.raises(ValueError, match="int64"):  # now as int32
+        mc.mesh_query(pk, pe, dk, de, ents, q, now.int(), owner, **kw)
+    slots, n_uni = mc.mesh_query(pk, pe, dk, de, ents, q, now, owner, **kw)
+    with pytest.raises(ValueError, match="int32"):
+        mc.mesh_merge(slots, n_uni.long(), **mkw)
+    with pytest.raises(ValueError, match="contiguous"):
+        mc.mesh_merge(slots.transpose(0, 1), n_uni, **mkw)
+
+
+@pytest.mark.gpu
+def test_sharded_dar_runs_the_mesh_kernels(cuda):
+    """A cuda ShardedDar on a virtual 2x4 mesh at the size of the test
+    above: each dp row is one K1 launch (its four positions share the
+    card) and one K2 launch, the batch downloads only the kept columns,
+    and the answers equal the CPU dar's; K1 and K2 on the row's own
+    tensors equal their plain versions."""
+    from dss_tpu_torch.ops import mesh_cuda as mc
+    from dss_tpu_torch.parallel import ShardedDar, make_mesh
+    from dss_tpu_torch.parallel import sharded as ps
+    from dss_tpu_torch.parallel.mesh import virtual_devices
+
+    rng = np.random.default_rng(41)
+    recs = _mesh_records(rng, 20000, 4000)
+    q = _mesh_queries(rng, 512, 4000)
+    a = ShardedDar(recs, make_mesh(8, dp=2, sp=4,
+                                   devices=virtual_devices(cuda, 8)),
+                   max_results=64, shard_results=16)
+    b = ShardedDar(recs, make_mesh(8, dp=2, sp=4,
+                                   devices=virtual_devices("cpu", 8)),
+                   max_results=64, shard_results=16)
+    before = (mc.mesh_query.launches, mc.mesh_merge.launches)
+    assert a.query_batch(*q, now=NOW) == b.query_batch(*q, now=NOW)
+    assert (mc.mesh_query.launches - before[0],
+            mc.mesh_merge.launches - before[1]) == (2, 2)
+    assert np.array_equal(a.shard_hits, b.shard_hits)
+    assert a.overflow_fallbacks == b.overflow_fallbacks > 0
+    dev = a.mesh.devices[0, 0]
+    spec = ps.query_spec(np.pad(q[0], ((0, 0), (0, 8)), constant_values=-1),
+                         *q[1:], dev)
+    post = ps.Postings(a.post_key.rows(dev, [0, 1, 2, 3]),
+                       a.post_ent.rows(dev, [0, 1, 2, 3]))
+    now = torch.full((512,), NOW, dtype=torch.int64, device=dev)
+    args = (post.post_key, post.post_ent, None, None, ps._u8(a.ents[dev]),
+            spec, now, None)
+    kw = dict(cap=a.cap, delta_cap=0, max_results=16)
+    got = mc.mesh_query(*args, **kw)
+    want = mc.mesh_query_torch(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    mkw = dict(shard_results=16, max_results=64)
+    for g, w in zip(mc.mesh_merge(*got, **mkw),
+                    mc.mesh_merge_torch(*got, **mkw)):
+        assert torch.equal(g, w)
 
 
 def _card_replica(cuda, tmp_path, recs, sp=4):
