@@ -45,7 +45,7 @@ Phases (any failure exits non-zero; nothing is caught):
      then the reference's bulk stale drain (bench.py:1157-1186), 16
      bursts of 128 bounded-staleness callers, every answer held against
      the twin, one `bulk_burst` line;
-  8. the store: a WAL of 100k SCD operational intents (8 contiguous
+  8. the store: a WAL of 60k SCD operational intents (8 contiguous
      level-13 cells each, 10-600 m bands, 1-5 h windows), the RID poll
      recipe's 4,000 ISAs over 512 areas, and a few hundred RID
      subscriptions, SCD subscriptions and constraints, written with
@@ -150,7 +150,7 @@ Phases (any failure exits non-zero; nothing is caught):
      ops and three subscriptions written and read back, K1's and K2's
      launches from its /metrics, SIGTERM exit 0; the `mesh` line;
  14. the DSS Region (region/, cmds/region_server, the store's region
-     mode), after the mesh server, on the http phase's 54,800 records:
+     mode), after the mesh server, on the http phase's 24,800 records:
      a region log seeded offline through the port's RegionLog (one
      entry a record, the snapshot 800 entries before the head); the
      port's region_server as a primary with two --mirror_of mirrors at
@@ -323,8 +323,9 @@ SERVING_SAMPLE = 4096  # answers per leg held against the CPU twin
 # 923 s once the native and push phases came, at 300k up to 890 s once
 # the mesh came, so the region phase's room came from here (200k), and
 # the multihost phase's (100k): at 200k the smoke took 1,116 s of
-# phases with it (PERF.md §4).
-STORE_OPS = 100_000
+# phases with it; at 100k 1,029 and 1,264 s on two H100 hosts, so
+# 60k, with the http phase's WAL cut too (PERF.md §4).
+STORE_OPS = 60_000
 STORE_SUBS = 300  # SCD subscriptions; as many RID subscriptions
 STORE_CSTS = 200
 POLL_ISAS, POLL_AREAS, POLL_CELLS = 4000, 512, 64
@@ -335,9 +336,11 @@ STORE_WRITES = 1200
 REBOOT_SAMPLE = 256  # searches compared between the live and rebooted store
 # the services over the store phase's store, and the server binary as
 # a process booted from a WAL of HTTP_OPS intents (cut from the store's
-# size so that both phases stay within 120 s; the region phase's state)
+# size so that both phases stay within 120 s; the state of every later
+# phase that boots processes from it, each at about 2,000-4,000
+# records/s, so cut from 50,000 to keep the smoke inside its limit)
 SVC_SAMPLE = 256  # ISA searches, and as many op queries, per phase
-HTTP_OPS = 50_000  # the HTTP server's WAL: ops besides the poll ISAs
+HTTP_OPS = 20_000  # the HTTP server's WAL: ops besides the poll ISAs
 HTTP_SEARCHES = 256
 HTTP_LOOP_CLIENTS, HTTP_LOOP_S = 8, 3.0
 HTTP_GRACE_S = 10.0
@@ -3276,7 +3279,7 @@ def shm_front_phase(smi, state, workers0) -> tuple:
 def replay_profile(wal, n_records, dev, smi) -> dict:
     """An in-process boot of DSSStore(storage="cuda") from `wal` under
     cProfile: the boot's seconds and the top 12 functions by cumulative
-    time, for the replay that cuts the store phase to 100k.  -> the
+    time, for the replay that cuts the store phase to 60k.  -> the
     `store_replay_profile` line."""
     import cProfile
     import os
@@ -4081,7 +4084,8 @@ def mesh_kernel_checks(dev) -> None:
     mesh_cases(), then on outputs the allocator hands back full of -1
     (the kernels write every pad themselves), then 40 launches over the
     cases with no sync between them."""
-    cases = [(n, mesh_case_args(c, dev)) for n, c in mesh_cases()]
+    cases = [(n, mesh_case_args(c, dev))
+             for n, c in mesh_cases(mc.query_tile())]
     for name, (args, kw, mkw) in cases:
         mesh_pair(args, kw, mkw, f"case {name}")
     args, kw, mkw = dict(cases)["owner_off"]
@@ -4140,7 +4144,8 @@ def dar_row_args(dar, q, d, now=NOW) -> list:
                 torch.full((qloc,), now, dtype=torch.int64, device=dev), None)
         out.append((dev, list(shards), args,
                     {"cap": dar.cap, "delta_cap": 0,
-                     "max_results": dar.shard_results}))
+                     "max_results": dar.shard_results,
+                     "rows": dar.rows[dev]}))
     return out
 
 
@@ -4169,14 +4174,15 @@ def dar_kernel_checks(dar, q, what, now=NOW) -> list:
 
 def mesh_case(recs, queries, *, n_sp=1, delta=None, r=16, merge_r=None,
               cap=None, delta_cap=8, count=False, owner=None, now=NOW,
-              dead=9, base=True):
+              dead=9, base=True, reverse_runs=False):
     """One case of the mesh kernels as numpy inputs: Records -> the
     entity columns (every `dead`-th slot dead; 0: none), their postings
     split over n_sp shards (the equal-count split; none without
-    `base`), `delta` (slots whose postings also form the delta rows,
-    S = 1 only), `queries` (keys [Q, K] and the bounds), `owner` [Q] or
-    None, `now` (scalar or [Q]); K1 compacts to r, K2 merges the n_sp
-    shard lists to merge_r."""
+    `base`; with `reverse_runs` each key's run of slots descending, not
+    in slot order), `delta` (slots whose postings also form the delta
+    rows, S = 1 only), `queries` (keys [Q, K] and the bounds), `owner`
+    [Q] or None, `now` (scalar or [Q]); K1 compacts to r, K2 merges the
+    n_sp shard lists to merge_r."""
     from dss_tpu_torch.parallel.sharded import shard_postings
 
     p = pack_records(recs, pad_postings=False)
@@ -4185,6 +4191,11 @@ def mesh_case(recs, queries, *, n_sp=1, delta=None, r=16, merge_r=None,
     if dead:
         active[::dead] = False
     pk, pe = shard_postings(p.post_key, p.post_ent, n_sp, p.capacity)
+    if reverse_runs:
+        for row_k, row_e in zip(pk, pe):
+            for key in np.unique(row_k[row_k != int(mc.INT32_MAX)]):
+                at = np.flatnonzero(row_k == key)
+                row_e[at] = row_e[at[::-1]]
     if p.n_postings == 0 or not base:
         pk, pe = pk[:, :0], pe[:, :0]
     dk = de = None
@@ -4215,11 +4226,13 @@ MESH_CASE_NAMES = (
     "k1_n_unique_r-1", "k1_n_unique_r", "k1_n_unique_r+1",
     "k2_n_unique_r-1", "k2_n_unique_r", "k2_n_unique_r+1",
     "slot_in_cells_and_delta", "now_past_t_end", "owner_off", "count_mode",
-    "k1_past_shared_memory", "k2_past_shared_memory",
+    "k1_past_shared_memory", "k2_past_shared_memory", "k1_run_out_of_order",
+    "k1_hits_tile-1", "k1_hits_tile", "k1_hits_tile+1",
+    "k1_k48_spill_second_chunk", "k2_slot_in_all_8_lists",
 )
 
 
-def mesh_cases() -> list:
+def mesh_cases(tile) -> list:
     """The mesh kernels' fixed edge cases (numpy, from seeds) ->
     [(name, case)]: random tables at K 16 and 32 on 1, 2 and 8 shards
     (shard_results below max_results on 2), owner filter on and off;
@@ -4227,7 +4240,12 @@ def mesh_cases() -> list:
     and R+1 for K1 and for K2; one slot in several query cells and in
     both base and delta; `now` past t_end for some queries; the count
     mode; K*cap past one block's shared memory (K1) and n_sp*sr past it
-    (K2)."""
+    (K2); runs of slots out of slot order; an item's hits at K1's
+    shared tile of `tile` int32 (the built kernel's,
+    `mesh_cuda.query_tile()`) less one, equal to it and one past it (the
+    spill to its global slice); K 48 whose hits pass a tile of 512 in
+    the second chunk of 32 cells; one slot in every one of 8 shard
+    lists (K2)."""
     rng = np.random.default_rng(77)
     recs = []
     for i in range(400):
@@ -4280,6 +4298,21 @@ def mesh_cases() -> list:
     wide = [Record(f"w{i}", np.asarray([i], np.int32), 0.0, 100.0,
                    NOW - HOUR, NOW + HOUR, 1) for i in range(8 * 300)]
     wq = one_query(np.arange(0, 8 * 300, 150, dtype=np.int32))
+
+    def tile_hits(extra):
+        # 8 cells of tile / 8 slots, the last with `extra` more: every
+        # candidate hits, so the item has tile + extra hits
+        return same(tile + extra, lambda i: [min(i // (tile // 8), 7)])
+
+    # chunk 0: 32 cells of 2 slots; chunk 1: 16 cells of 40 postings,
+    # every slot in two of them (704 hits, 384 unique)
+    k48 = (same(64, lambda i: [1000 + i // 2])
+           + same(320, lambda i: [2000 + i % 16, 2000 + (i + 1) % 16]))
+    k48_keys = np.r_[1000:1032, 2000:2016].astype(np.int32)
+    # 8 cells of 8 postings each, slot 0 in all of them: with 8 postings
+    # a shard, every shard list holds slot 0
+    in_all = same(1, lambda i: np.arange(0, 800, 100)) + same(
+        56, lambda i: [100 * (i // 7)])
     return [
         ("random_k16_sp1_owner", mesh_case(
             recs, queries(1, 24, 16), owner=owners(2, 24), r=32)),
@@ -4313,6 +4346,17 @@ def mesh_cases() -> list:
             hot + recs, queries(11, 8, 16, key_space=40), r=64)),
         ("k2_past_shared_memory", mesh_case(
             wide, wq, n_sp=8, r=8192, merge_r=16, cap=8)),
+        ("k1_run_out_of_order", mesh_case(
+            recs, queries(12, 24, 16), delta=list(range(0, 400, 7)), r=32,
+            reverse_runs=True)),
+        *((f"k1_hits_tile{tag}", mesh_case(
+            tile_hits(extra), one_query(range(8)), r=600, dead=0))
+          for tag, extra in (("-1", -1), ("", 0), ("+1", 1))),
+        ("k1_k48_spill_second_chunk", mesh_case(
+            k48, one_query(k48_keys, k=48), r=1024, dead=0)),
+        ("k2_slot_in_all_8_lists", mesh_case(
+            in_all, one_query(np.arange(0, 800, 100), nq=2), n_sp=8, r=16,
+            merge_r=64, dead=0)),
     ]
 
 
@@ -4330,7 +4374,8 @@ def mesh_case_args(c, dev):
                                          "qt1")))
     args = (t(c["pk"]), t(c["pe"]), t(c["dk"]), t(c["de"]), ents, q,
             t(c["now"]), t(c["owner"]))
-    kw = {"cap": c["cap"], "delta_cap": c["delta_cap"],
+    kw = {"rows": mc.pack_entity_rows(ents),
+          "cap": c["cap"], "delta_cap": c["delta_cap"],
           "max_results": c["r"], "count": c["count"]}
     return args, kw, {"shard_results": c["r"], "max_results": c["merge_r"]}
 
@@ -4755,6 +4800,8 @@ def mesh_kernel_entries() -> list:
         e["at_2x4"] = {k: scale["kernels"]["2x4"][name][k]
                        for k in ("ms", "warm_ms", "call_ms", "plain_ms",
                                  "bound_ms", *bounds)}
+        if name == "mesh_query":
+            e.update(mc.occupancy())
         out.append(e)
     return out
 
@@ -5222,7 +5269,7 @@ def warm_end(proc, limit=REGION_DEADLINE_S * 4) -> dict:
 
 
 def region_phase(smi, state) -> tuple:
-    """The DSS Region on the card.  The http phase's WAL (its 54,800
+    """The DSS Region on the card.  The http phase's WAL (its 24,800
     records) becomes a region log, seeded offline through the port's
     RegionLog: one entry per record, a snapshot put REGION_TAIL entries
     before the head.  Then, as tests/e2e/test_failover.py:69 runs it:

@@ -6,7 +6,10 @@ functions, `conflict_query_batch` and `max_count_per_cell`.  Both run on
 K1, the hand-written kernel of `ops/mesh_cuda.py`
 (`csrc/mesh_query.cu`), which the mesh route (`parallel/sharded.py`)
 runs per shard too: on CUDA tensors it launches the kernel, on CPU
-tensors it runs its plain PyTorch version.
+tensors it runs its plain PyTorch version.  K1 reads the entity columns
+as 32 B rows (`mesh_cuda.pack_entity_rows`), which these two functions
+pack on every call: neither is on a serving path, and the mesh route
+packs them once per snapshot.
 
 Table layout (struct-of-arrays):
 
@@ -42,7 +45,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from dss_tpu_torch.ops.mesh_cuda import INT32_MAX, mesh_query
+from dss_tpu_torch.ops.mesh_cuda import (
+    INT32_MAX,
+    mesh_query,
+    pack_entity_rows,
+)
 
 # Sentinel times for "no bound" (comfortably beyond any real timestamp).
 NO_TIME_LO = np.int64(-(2**62))
@@ -137,6 +144,7 @@ def conflict_query_batch(
         torch.full((nq,), int(now), dtype=torch.int64, device=dev),
         torch.as_tensor(owner_filter, dtype=torch.int32, device=dev)
         if with_owner else None,
+        rows=pack_entity_rows(ents),
         cap=base_cap, delta_cap=delta_cap, max_results=max_results)
     return slots[0], n_unique[0] > max_results
 
@@ -203,7 +211,7 @@ def max_count_per_cell(
     row = [t.reshape(1, -1) for t in (*base, *delta)]
     counts = mesh_query(
         *row, _u8(ents), q, one(int(now), torch.int64),
-        one(int(owner_filter), torch.int32),
+        one(int(owner_filter), torch.int32), rows=pack_entity_rows(ents),
         cap=base_cap, delta_cap=delta_cap, max_results=0, count=True)
     return counts[0, 0]
 

@@ -24,8 +24,11 @@ On CUDA tensors each launches its kernel or raises; on CPU tensors it
 runs the plain PyTorch version beside it (`mesh_query_torch`,
 `mesh_merge_torch`: the torch ops the port ran before the kernels,
 written after the reference's steps).  Each wrapper counts its kernel
-launches in `.launches`.  The kernels' bound on the card and their
-design are in the CUDA source's header.
+launches in `.launches`.  K1 reads each entity as one 32 B row of
+`pack_entity_rows`, which the caller builds and hands over as `rows=`
+(`parallel/sharded.ShardedDar` builds them once per snapshot).  The
+kernels' bound on the card and their design are in the CUDA source's
+header.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ SCRATCH_LIMIT = 1 << 28
 _QUERY_ARGTYPES = (
     [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
     + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-    + [ctypes.c_void_p] * 7 + [ctypes.c_int]
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int]
     + [ctypes.c_void_p] * 6
     + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 3
@@ -61,6 +64,23 @@ _FITS_ARGTYPES = [ctypes.c_longlong] * 2
 # replica readers query from several threads: the counts are bumped
 # under this lock, so no increment is lost
 _COUNT_LOCK = threading.Lock()
+
+
+def pack_entity_rows(ents) -> torch.Tensor:
+    """The entity columns (alt_lo/alt_hi f32, t_start/t_end i64, active
+    bool or uint8, owner i32, each [N+1]) as K1 reads them: int32 [N+1,
+    8], one 32 B row a slot on the columns' device, holding the bits of
+    alt_lo, alt_hi, t_start (low word first), t_end, owner, and active
+    (0 or 1, or the uint8 value) widened to a word."""
+    i32 = torch.int32
+    return torch.cat([
+        ents.alt_lo.contiguous().view(i32)[:, None],
+        ents.alt_hi.contiguous().view(i32)[:, None],
+        ents.t_start.contiguous().view(i32).view(-1, 2),
+        ents.t_end.contiguous().view(i32).view(-1, 2),
+        ents.owner.to(i32)[:, None],
+        ents.active.to(i32)[:, None],
+    ], dim=1)
 
 
 # -- the plain versions -------------------------------------------------------
@@ -155,8 +175,9 @@ class _Fields:
 
 def mesh_query_torch(post_key, post_ent, delta_key, delta_ent, ents, q, now,
                      owner=None, *, cap, delta_cap, max_results,
-                     count=False):
-    """K1's plain version; the arguments and results of `mesh_query`."""
+                     count=False, rows=None):
+    """K1's plain version; the arguments and results of `mesh_query`
+    (it reads the columns, not `rows`)."""
     n_sentinel = ents.alt_lo.shape[0] - 1
     keys = q.keys
     s, (nq, k) = post_key.shape[0], keys.shape
@@ -218,18 +239,20 @@ def _ptr(t):
 
 
 def mesh_query(post_key, post_ent, delta_key, delta_ent, ents, q, now,
-               owner=None, *, cap, delta_cap, max_results, count=False):
+               owner=None, *, rows, cap, delta_cap, max_results,
+               count=False):
     """K1.  `post_key`/`post_ent` int32 [S, P], each row sorted (pad
     INT32_MAX / the sentinel slot); `delta_key`/`delta_ent` int32 [S, Pd]
     or None; `ents` the entity columns (alt_lo/alt_hi f32, t_start/t_end
     i64, active uint8, owner i32, each [N+1], row N the inactive
     sentinel); `q` a QuerySpec (keys int32 [Q, K] padded with -1,
     alt_lo/alt_hi f32 [Q], t_start/t_end i64 [Q]); `now` i64 [Q];
-    `owner` int32 [Q] filters by owner, None does not.  Each query cell
-    contributes min(run, cap) base and min(run, delta_cap) delta
-    candidates.  -> (slots int32 [S, Q, max_results] ascending, padded
-    with INT32_MAX, n_unique int32 [S, Q]), or with count=True the max
-    per-cell hit count int32 [S, Q] (base + delta, no dedup)."""
+    `owner` int32 [Q] filters by owner, None does not; `rows` the
+    columns' `pack_entity_rows` on their device.  Each
+    query cell contributes min(run, cap) base and min(run, delta_cap)
+    delta candidates.  -> (slots int32 [S, Q, max_results] ascending,
+    padded with INT32_MAX, n_unique int32 [S, Q]), or with count=True
+    the max per-cell hit count int32 [S, Q] (base + delta, no dedup)."""
     keys = q.keys
     dev = keys.device
     if dev.type == "cpu":
@@ -273,6 +296,9 @@ def mesh_query(post_key, post_ent, delta_key, delta_ent, ents, q, now,
         _check(t, f"query {name}", dtype, 1, dev)
         if t.shape[0] != nq:
             raise ValueError(f"query {name} has {t.shape[0]} rows, want {nq}")
+    _check(rows, "rows", torch.int32, 2, dev)
+    if tuple(rows.shape) != (n1, 8) or rows.data_ptr() % 32:
+        raise ValueError(f"rows must be 32 B aligned [{n1}, 8]")
     buf = 0 if count else k * (cap + (delta_cap if pd else 0))
     if (max(p, pd, n1, buf) >= 1 << 30
             or min(cap, delta_cap, max_results) < 0):
@@ -297,8 +323,7 @@ def mesh_query(post_key, post_ent, delta_key, delta_ent, ents, q, now,
             _launch(fn, "mesh_query",
                     post_key.data_ptr(), post_ent.data_ptr(), p, cap,
                     _ptr(delta_key), _ptr(delta_ent), pd, delta_cap,
-                    *(t.data_ptr() for t in ents),
-                    keys.data_ptr(), k,
+                    rows.data_ptr(), keys.data_ptr(), k,
                     *(t.data_ptr() for t in q[1:5]), now.data_ptr(),
                     _ptr(owner), s, nq, max_results, int(count), buf,
                     _ptr(scratch), item0, min(step, items - item0),
@@ -340,7 +365,8 @@ def mesh_merge(slots, n_uni, *, shard_results, max_results):
     scratch = None
     fits = cuda_build.function("dss_mesh_merge_fits", _FITS_ARGTYPES)
     if not fits(n_sp, sr):
-        scratch = torch.empty(nq * n_sp * sr, dtype=torch.int32, device=dev)
+        scratch = torch.empty(nq * 2 * n_sp * sr, dtype=torch.int32,
+                              device=dev)
     fn = cuda_build.function("dss_mesh_merge", _MERGE_ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -350,6 +376,25 @@ def mesh_merge(slots, n_uni, *, shard_results, max_results):
     with _COUNT_LOCK:
         mesh_merge.launches += 1
     return out, ovf, kept, acc
+
+
+def query_tile() -> int:
+    """The int32 hits a K1 warp holds in shared memory, as the built
+    kernel has it: an item with more moves them to its slice of a
+    global scratch."""
+    return cuda_build.function("dss_mesh_query_tile", [])()
+
+
+def occupancy() -> dict:
+    """K1 on this card: the blocks of 128 threads an SM holds at once,
+    the registers a thread and the local memory a thread (spills and
+    stack) of the built kernel."""
+    out = (ctypes.c_int * 3)()
+    _launch(cuda_build.function("dss_mesh_query_occupancy",
+                                [ctypes.c_void_p]),
+            "mesh_query occupancy", ctypes.addressof(out))
+    return {"blocks_per_sm": out[0], "registers": out[1],
+            "local_bytes": out[2]}
 
 
 def launch_stats() -> dict:

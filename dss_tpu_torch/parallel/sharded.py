@@ -23,9 +23,10 @@ runs its sp shards grouped by device (the shards of one device stacked
 and the reference's `psum` over "dp" is a sum.
 `ShardedDar.query_batch` downloads only the columns that some query of
 the batch kept.  The EntityTable is replicated, one copy per distinct
-device.  Outputs are bit-identical to the reference's for every mesh
-shape and boundary split (tests/test_torch_sharded.py,
-tests/test_torch_mesh_kernels.py).
+device, and beside it the same columns as K1's 32 B entity rows
+(`ops/mesh_cuda.pack_entity_rows`), built once per snapshot.  Outputs
+are bit-identical to the reference's for every mesh shape and boundary
+split (tests/test_torch_sharded.py, tests/test_torch_mesh_kernels.py).
 
 On a mesh that spans processes (parallel/multihost.py) each process
 holds and answers only its own shard columns, and the "sp" all_gather
@@ -57,7 +58,11 @@ from dss_tpu_torch.ops.conflict import (
     entity_table,
     query_spec,
 )
-from dss_tpu_torch.ops.mesh_cuda import mesh_merge, mesh_query
+from dss_tpu_torch.ops.mesh_cuda import (
+    mesh_merge,
+    mesh_query,
+    pack_entity_rows,
+)
 from dss_tpu_torch.parallel.mesh import Mesh, mesh_spans_processes
 
 
@@ -297,36 +302,38 @@ def _local_query(
     cap: int,
     shard_results: int,
     with_owner: bool,
+    rows: torch.Tensor,  # ents' pack_entity_rows
 ):
     """One device's shards on K1: candidates from each local postings
     range, 4D test, compact to shard_results.  Returns (slots [S, Q,
     sr], n_unique [S, Q] int32)."""
     return mesh_query(
         post.post_key, post.post_ent, None, None, _u8(ents), q, now,
-        owner if with_owner else None,
+        owner if with_owner else None, rows=rows,
         cap=cap, delta_cap=0, max_results=shard_results,
     )
 
 
 def _row_shards(post_key, post_ent, ents, q, now, owner, mesh, d, qloc,
-                *, cap, shard_results, with_owner):
+                *, cap, shard_results, with_owner, rows):
     """dp row `d`'s sp columns on this process -> [(device, columns,
     slots [S, Qloc, sr], n_unique [S, Qloc])], one entry per device
     group of the row."""
-    rows = slice(d * qloc, (d + 1) * qloc)
+    part = slice(d * qloc, (d + 1) * qloc)
     out = []
     for dev, shards in mesh.row_groups(d):
-        qq = QuerySpec(*(f[rows].to(dev) for f in q))
+        qq = QuerySpec(*(f[part].to(dev) for f in q))
         slots_s, n_uni = _local_query(
             Postings(post_key.rows(dev, shards),
                      post_ent.rows(dev, shards)),
             ents[dev],
             qq,
-            now[rows].to(dev),
-            owner[rows].to(dev) if with_owner else None,
+            now[part].to(dev),
+            owner[part].to(dev) if with_owner else None,
             cap=cap,
             shard_results=shard_results,
             with_owner=with_owner,
+            rows=rows[dev],
         )
         out.append((dev, list(shards), slots_s, n_uni))
     return out
@@ -436,19 +443,23 @@ def sharded_conflict_query_batch(
     whole answer (the reference's replicate_out=True, which such a
     mesh requires).  The merged values are bit-identical to the
     single-process path: the gather only changes where the shards were
-    answered, never the merge."""
+    answered, never the merge.  K1's entity rows are packed from `ents`
+    on every call (ShardedDar keeps them built)."""
     slots, ovf, acc = _sharded_query(
         post_key, post_ent, ents, q, now, owner, mesh=mesh, cap=cap,
         shard_results=shard_results, max_results=max_results,
-        with_owner=with_owner, replicate_out=replicate_out)
+        with_owner=with_owner, replicate_out=replicate_out,
+        rows={dev: pack_entity_rows(e) for dev, e in ents.items()})
     return slots, ovf, acc[: mesh.shape["sp"]]
 
 
 def _sharded_query(post_key, post_ent, ents, q, now, owner, *, mesh, cap,
-                   shard_results, max_results, with_owner, replicate_out):
-    """sharded_conflict_query_batch's body -> (slots, overflowed, acc
-    int32 [n_sp + 1]: shard_hits, then the widest kept row of the
-    batch, so that a caller downloads only the used columns)."""
+                   shard_results, max_results, with_owner, replicate_out,
+                   rows):
+    """sharded_conflict_query_batch's body, with `rows` each device's
+    `pack_entity_rows` of `ents` -> (slots, overflowed, acc int32
+    [n_sp + 1]: shard_hits, then the widest kept row of the batch, so
+    that a caller downloads only the used columns)."""
     dp, n_sp = mesh.shape["dp"], mesh.shape["sp"]
     spans = mesh_spans_processes(mesh)
     if spans and not replicate_out:
@@ -468,7 +479,7 @@ def _sharded_query(post_key, post_ent, ents, q, now, owner, *, mesh, cap,
     local = [
         _row_shards(post_key, post_ent, ents, q, now, owner, mesh, d, qloc,
                     cap=cap, shard_results=shard_results,
-                    with_owner=with_owner)
+                    with_owner=with_owner, rows=rows)
         for d in range(dp)
     ]
     merge = {"shard_results": shard_results, "max_results": max_results}
@@ -572,6 +583,9 @@ class ShardedDar:
         self.post_key = ShardRows(mesh, skey)
         self.post_ent = ShardRows(mesh, sent)
         self.ents = put_replicated(mesh, packed)
+        # K1's entity rows beside the columns (not in nbytes, which
+        # counts what crosses from the host)
+        self.rows = {dev: pack_entity_rows(e) for dev, e in self.ents.items()}
         # the copies are complete before anyone can see this dar
         sync_devices(mesh)
 
@@ -637,6 +651,7 @@ class ShardedDar:
             max_results=self.max_results,
             with_owner=False,
             replicate_out=self.multihost,
+            rows=self.rows,
         )
         # one small copy (shard_hits, then the widest kept row), then
         # only the columns any query of the batch kept

@@ -19,6 +19,7 @@ route's kernels (ops/mesh_cuda.py: K1 mesh_query, K2 mesh_merge) against
 their plain versions on every case of chip_smoke.mesh_cases(), on
 outputs handed back dirty, over 40 launches back to back and over a
 scratch split into several launches, refusing inputs they do not take;
+K1 at the mesh headline's shape class in one launch;
 a cuda ShardedDar on a virtual 2x4 mesh equals the CPU one, one K1 and
 one K2 launch a dp row; a replica
 refreshes in a loop while the GraphCache captures on another thread,
@@ -43,6 +44,8 @@ The card's full check, at the main path's shapes, is chip_smoke.py.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -1032,7 +1035,11 @@ def test_cuda_sharded_dar_on_a_virtual_mesh_equals_cpu(cuda):
 
 @pytest.fixture(scope="module")
 def mesh_cases():
-    cases = cs.mesh_cases()
+    from dss_tpu_torch.ops import mesh_cuda as mc
+
+    if not torch.cuda.is_available():  # before cuda: this scope is wider
+        pytest.skip("needs a CUDA card")
+    cases = cs.mesh_cases(mc.query_tile())
     assert [n for n, _ in cases] == list(cs.MESH_CASE_NAMES)
     return dict(cases)
 
@@ -1108,9 +1115,10 @@ def test_mesh_query_splits_a_scratch_past_its_limit(cuda, mesh_cases,
 
 @pytest.mark.gpu
 def test_mesh_query_from_threads_with_other_buffer_sizes(cuda, mesh_cases):
-    """Nine threads launch K1 at once with hit buffers of 133 KB, 68 KB
-    and 7 KB a block (past the default 48 KB twice: a thread must not
-    lower the limit under another's launch), under a short switch
+    """Nine threads launch K1 at once with items of three buffer sizes
+    (16 cells at cap 512 and at cap 256, each past the shared tile and
+    so with global scratches of their own, and K 16 at a small cap,
+    inside the tile), each on its own stream, under a short switch
     interval: every answer equals the plain version and every launch
     is counted."""
     import sys
@@ -1122,7 +1130,7 @@ def test_mesh_query_from_threads_with_other_buffer_sizes(cuda, mesh_cases):
         mesh_cases["k1_past_shared_memory"], cuda)
     small_args, small_kw, _ = cs.mesh_case_args(
         mesh_cases["random_k16_sp8"], cuda)
-    # 16 cells x cap 512 and x cap 256: 133 KB and 68 KB a block
+    # 16 cells x cap 512 and x cap 256: 32 KB and 16 KB of scratch an item
     runs = [(big_args, dict(big_kw, cap=512)),
             (big_args, dict(big_kw, cap=256)), (small_args, small_kw)]
     want = [mc.mesh_query_torch(*a, **k) for a, k in runs]
@@ -1157,6 +1165,46 @@ def test_mesh_query_from_threads_with_other_buffer_sizes(cuda, mesh_cases):
 
 
 @pytest.mark.gpu
+def test_mesh_query_at_the_headline_shape_is_one_launch(cuda):
+    """K1 at the mesh headline's shape class (8,192 queries of 8 cells
+    in a key width of 16, cap 128): its scratch of K * cap int32 an item
+    stays under SCRATCH_LIMIT, so a call is one launch, equal to the
+    plain version; the kernel needs no scratch up to its tile, and its
+    occupancy is readable."""
+    from dss_tpu_torch.ops import conflict as pc
+    from dss_tpu_torch.ops import cuda_build
+    from dss_tpu_torch.ops import mesh_cuda as mc
+
+    recs, _ = cs.make_records(20_000, 2_000, cs.KPE, seed=3)
+    p = pack_records(recs, pad_postings=False)
+    assert p.base_cap == 128
+    q = cs.make_batch(7, 8192, 2_000, cs.WIDTH)
+    keys = np.full((8192, 16), -1, np.int32)
+    keys[:, : cs.WIDTH] = q[0]
+    spec = pc.query_spec(keys, *q[1:], cuda)
+    ents = pc._u8(pc.entity_table(p, cuda))
+    post = [torch.from_numpy(a).to(cuda)[None] for a in (p.post_key,
+                                                         p.post_ent)]
+    now = torch.full((8192,), NOW, dtype=torch.int64, device=cuda)
+    kw = dict(rows=mc.pack_entity_rows(ents), cap=p.base_cap, delta_cap=0,
+              max_results=512)
+    args = (*post, None, None, ents, spec, now, None)
+    assert 8192 * 16 * 128 * 4 <= mc.SCRATCH_LIMIT
+    want = mc.mesh_query_torch(*args, **kw)
+    before = mc.mesh_query.launches
+    got = mc.mesh_query(*args, **kw)
+    torch.cuda.synchronize()
+    assert mc.mesh_query.launches - before == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    fits = cuda_build.function("dss_mesh_query_fits", [ctypes.c_longlong] * 2)
+    tile = mc.query_tile()
+    assert (fits(tile, 0), fits(tile + 1, 0)) == (1, 0)
+    occ = mc.occupancy()
+    assert occ["blocks_per_sm"] >= 1 and occ["registers"] > 0
+
+
+@pytest.mark.gpu
 def test_mesh_kernels_reject_bad_input(cuda, mesh_cases):
     from dss_tpu_torch.ops import mesh_cuda as mc
 
@@ -1170,6 +1218,9 @@ def test_mesh_kernels_reject_bad_input(cuda, mesh_cases):
             keys=q.keys.t().contiguous().t()), now, owner, **kw)
     with pytest.raises(ValueError, match="int64"):  # now as int32
         mc.mesh_query(pk, pe, dk, de, ents, q, now.int(), owner, **kw)
+    with pytest.raises(ValueError, match="rows"):  # a row short
+        mc.mesh_query(pk, pe, dk, de, ents, q, now, owner,
+                      **dict(kw, rows=kw["rows"][1:]))
     slots, n_uni = mc.mesh_query(pk, pe, dk, de, ents, q, now, owner, **kw)
     with pytest.raises(ValueError, match="int32"):
         mc.mesh_merge(slots, n_uni.long(), **mkw)
@@ -1212,7 +1263,7 @@ def test_sharded_dar_runs_the_mesh_kernels(cuda):
     now = torch.full((512,), NOW, dtype=torch.int64, device=dev)
     args = (post.post_key, post.post_ent, None, None, ps._u8(a.ents[dev]),
             spec, now, None)
-    kw = dict(cap=a.cap, delta_cap=0, max_results=16)
+    kw = dict(rows=a.rows[dev], cap=a.cap, delta_cap=0, max_results=16)
     got = mc.mesh_query(*args, **kw)
     want = mc.mesh_query_torch(*args, **kw)
     for g, w in zip(got, want):

@@ -22,6 +22,8 @@ seeds.
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -44,9 +46,16 @@ from dss_tpu_torch.parallel import sharded as ps
 INT32_MAX = int(rc.INT32_MAX)
 
 
+def _kernel_tile():
+    """K1's shared tile as csrc/mesh_query.cu defines it (on the card
+    the smoke and the card tests ask the built kernel)."""
+    text = (cuda_build.CSRC / "mesh_query.cu").read_text()
+    return int(re.search(r"constexpr int kTile = (\d+);", text).group(1))
+
+
 @pytest.fixture(scope="module")
 def cases():
-    built = cs.mesh_cases()
+    built = cs.mesh_cases(_kernel_tile())
     assert [n for n, _ in built] == list(cs.MESH_CASE_NAMES)
     return dict(built)
 
