@@ -29,9 +29,15 @@ Phases (any failure exits non-zero; nothing is caught):
      4 batches of 8192 queries through FastTable.query_batch on both
      routes (B2 kernel and the matmul words) and exact_filter, held
      against each other, the CPU twin, the fused path's pair set and the
-     oracle; B3's and B4's own entries driven on each batch's first 512
-     windows against the twin; then B3 and B4 against their plain
-     versions, with times and bounds;
+     oracle; B3 and B4 against their plain versions
+     over a fixed list of edge cases (mask_cases(): NW = 1, 31, 32, 33
+     and 512, every window on one block, block indices of -1 and NB,
+     pad keys of -2, start == end, [0, 128) and a range inside one
+     four-lane group, i64 times at +-2^63), on outputs handed back dirty
+     and over 40 launches back to back; B3's and B4's own entries driven
+     on each batch's first 512 windows against the twin; then B3 and B4
+     against their plain versions at the headline, with times and
+     bounds;
   7. the serving path on the compacted 1M-intent index: the resident
      loop's CUDA graph grid (batch buckets 128/1024/4096 x window
      buckets 4096/16384/65536, bench.py:375-379) captured and timed;
@@ -148,7 +154,8 @@ Phases (any failure exits non-zero; nothing is caught):
      --virtual_devices 2` on the http phase's WAL: every
      /aux/v1/replica/<surface> against its store route once synced, 8
      ops and three subscriptions written and read back, K1's and K2's
-     launches from its /metrics, SIGTERM exit 0; the `mesh` line;
+     launches from its /metrics, SIGTERM exit 0, and whether the
+     server's fault handler printed any stacks; the `mesh` line;
  14. the DSS Region (region/, cmds/region_server, the store's region
      mode), after the mesh server, on the http phase's 24,800 records:
      a region log seeded offline through the port's RegionLog (one
@@ -1095,6 +1102,170 @@ def unpacked_words(words: torch.Tensor) -> torch.Tensor:
     return bits.reshape(len(words), 128).to(torch.int8)
 
 
+MASK_CASE_NAMES = (
+    "nw_1", "nw_31", "nw_32", "nw_33", "nw_512", "one_block",
+    "block_-1_and_nb", "key_-2", "start_eq_end", "start_0_end_128",
+    "range_in_one_group", "time_edges",
+)
+MASK_NB = 24  # blocks of the mask cases' table
+I32 = np.iinfo(np.int32)
+I64 = np.iinfo(np.int64)
+
+
+def mask_case(seed, nw, *, blk=None, key=None, start=None, end=None,
+              edges=False) -> dict:
+    """One case of B3 and B4 as numpy inputs, from a seed: a table of
+    MASK_NB blocks, its quantized `p3` (keys 0..5, every 7th lane a pad
+    lane of INT32_MAX, every 11th a dead posting with t1 INT32_MIN) and
+    its exact columns (f32 altitudes with infinities, i64 times), and
+    `nw` windows over it; `blk`, `key`, `start` and `end` (arrays or
+    scalars) replace the random ones, and `edges` draws every time and
+    quantized bound from the extremes of its type and their neighbours.
+    -> {"p3", "cols", "b3": B3's six vectors, "b4": B4's six}."""
+    r = np.random.default_rng(seed)
+    nb = MASK_NB
+    if edges:
+        q_vals = np.asarray([I32.min, I32.min + 1, -1, 0, 1, I32.max - 1,
+                             I32.max], np.int32)
+        t_vals = np.asarray(
+            [I64.min, I64.min + 1, -(2**62), -(2**32) - 1, -1, 0, 1,
+             2**32, 2**62, I64.max - 1, I64.max], np.int64)
+        p_lo = r.choice(q_vals, (nb, 128))
+        p_hi = r.choice(q_vals, (nb, 128))
+        p_t0 = r.choice(q_vals, (nb, 128))
+        p_t1 = r.choice(q_vals, (nb, 128))
+        b_t0 = r.choice(t_vals, (nb, 128))
+        b_t1 = r.choice(t_vals, (nb, 128))
+    else:
+        p_lo = r.integers(0, 1000, (nb, 128))
+        p_hi = p_lo + r.integers(0, 500, (nb, 128))
+        p_t0 = r.integers(0, 1000, (nb, 128))
+        p_t1 = p_t0 + r.integers(0, 500, (nb, 128))
+        b_t0 = NOW + r.integers(-4, 4, (nb, 128)) * HOUR
+        b_t1 = b_t0 + r.integers(1, 4, (nb, 128)) * HOUR
+    p3 = np.stack([r.integers(0, 6, (nb, 128)), p_lo, p_hi, p_t0, p_t1],
+                  axis=1).astype(np.int32)
+    p3[:, :, ::7] = I32.max
+    p3[:, 4, 3::11] = I32.min
+    alts = np.asarray([-np.inf, -1.5, 0.0, 250.0, 700.0, 1500.0, np.inf],
+                      np.float32)
+    cols = (r.choice(alts, (nb, 128)), r.choice(alts, (nb, 128)),
+            b_t0.astype(np.int64), b_t1.astype(np.int64))
+
+    def pick(given, draw):
+        return np.broadcast_to(np.asarray(given if given is not None
+                                          else draw), (nw,)).astype(np.int32)
+
+    win_blk = pick(blk, r.integers(0, nb, nw))
+    if edges:
+        q = [r.choice(q_vals, nw) for _ in range(4)]
+        t = [r.choice(t_vals, nw) for _ in range(2)]
+    else:
+        lo = r.integers(0, 1200, nw)
+        t0 = r.integers(0, 1200, nw)
+        q = [lo, lo + r.integers(0, 400, nw), t0, t0 + r.integers(0, 400, nw)]
+        w0 = NOW + r.integers(-3, 3, nw) * HOUR
+        t = [w0, w0 + HOUR]
+    s = pick(start, r.integers(0, 129, nw))
+    e = pick(end, np.where(r.random(nw) < 0.3, 128, r.integers(0, 129, nw)))
+    b3 = (win_blk, pick(key, r.integers(0, 6, nw)),
+          *(np.asarray(x, np.int32) for x in q))
+    b4 = (win_blk, (s | (e << 8)).astype(np.int32),
+          r.choice(alts, nw), r.choice(alts, nw),
+          np.asarray(t[0], np.int64), np.asarray(t[1], np.int64))
+    return {"p3": p3, "cols": cols, "b3": b3, "b4": b4}
+
+
+def mask_cases() -> list:
+    """B3's and B4's fixed edge cases (numpy, from seeds) ->
+    [(name, case)]: NW = 1, 31, 32, 33 and 512 (one window, a warp's
+    worth and its neighbours, the reference's cap); 512 windows on one
+    block; block indices of -1 and NB (they match nothing); pad windows
+    of key -2 (B3); start == end, the whole row [0, 128) and a range
+    inside one four-lane group (B4); every time and quantized bound at
+    the extremes of its type (i64 to +-2^63 for B4, i32 for B3)."""
+    nw = 97
+    out_of_range = np.where(np.arange(nw) % 3 == 0, -1, np.where(
+        np.arange(nw) % 5 == 0, MASK_NB, np.arange(nw) % MASK_NB))
+    group = np.arange(nw) % 32
+    return [
+        *((f"nw_{k}", mask_case(k + 1, k)) for k in (1, 31, 32, 33, 512)),
+        ("one_block", mask_case(40, GRIDLESS, blk=5)),
+        ("block_-1_and_nb", mask_case(41, nw, blk=out_of_range)),
+        ("key_-2", mask_case(42, nw, key=np.where(np.arange(nw) % 2, -2,
+                                                  np.arange(nw) % 6))),
+        ("start_eq_end", mask_case(43, nw, start=np.arange(nw) % 129,
+                                   end=np.arange(nw) % 129)),
+        ("start_0_end_128", mask_case(44, nw, start=0, end=128)),
+        ("range_in_one_group", mask_case(45, nw, start=4 * group + 1,
+                                         end=4 * group + 3)),
+        ("time_edges", mask_case(46, GRIDLESS, edges=True)),
+    ]
+
+
+def mask_case_args(c, dev) -> tuple:
+    """A case's tensors on `dev` -> (B3's args, B4's args), each the
+    table's then the windows'."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return ((t(c["p3"]), *map(t, c["b3"])),
+            (*map(t, c["cols"]), *map(t, c["b4"])))
+
+
+def mask_plain(plain, n_table, args) -> torch.Tensor:
+    """A mask kernel's plain version on `args` (its `n_table` table
+    tensors, then the windows'), where a window whose block lies outside
+    [0, NB) matches nothing, as the kernels document: such a window is
+    compared on block 0 and its row cleared."""
+    table, (blk, *rest) = args[:n_table], args[n_table:]
+    bad = (blk < 0) | (blk >= table[0].shape[0])
+    want = plain(*table, blk.masked_fill(bad, 0), *rest)
+    want[bad] = 0
+    return want
+
+
+def mask_kernel_checks(dev) -> tuple:
+    """B3 and B4 against their plain versions on the card over
+    mask_cases(), then on outputs the allocator hands back full of -1
+    (the kernels write every byte of every row), then 40 launches over
+    the cases, B3 and B4 in turn, with no sync between them; tallied.
+    -> (B3's, B4's largest absolute error)."""
+    kernels = (("filter_windows_gridless", fc.filter_windows_gridless,
+                fc.filter_windows_torch, 1),
+               ("fused_filter_gridless", fc.fused_filter_gridless,
+                fc.fused_filter_mask_torch, 4))
+    cases = [(n, mask_case_args(c, dev)) for n, c in mask_cases()]
+    err = {name: 0 for name, *_ in kernels}
+    want = {}
+    for case, args in cases:
+        for k, (name, fn, plain, n_table) in enumerate(kernels):
+            want[case, k] = mask_plain(plain, n_table, args[k])
+            err[name] = max(err[name], check_mask(
+                name, fn(*args[k]), want[case, k], f"mask case {case}"))
+    for k, (name, fn, _, _) in enumerate(kernels):
+        case, args = cases[4]  # nw_512
+        torch.cuda.synchronize()
+        dirty = torch.full((args[k][-1].shape[0], 128), -1,
+                           dtype=torch.int8, device=dev)
+        ptr = dirty.data_ptr()
+        del dirty
+        got = fn(*args[k])
+        TALLY[name].check(got.data_ptr() == ptr, "dirty output: the -1 "
+                          "block was not handed back, so it tested nothing")
+        err[name] = max(err[name], check_mask(name, got, want[case, k],
+                                              "dirty output"))
+    outs = []
+    for i in range(40):
+        case, args = cases[i % len(cases)]
+        k = (i // len(cases)) % 2
+        outs.append((kernels[k][0], kernels[k][1](*args[k]), want[case, k]))
+    for i, (name, got, ref) in enumerate(outs):
+        err[name] = max(err[name], check_mask(name, got, ref,
+                                              f"back-to-back launch {i}"))
+    return err["filter_windows_gridless"], err["fused_filter_gridless"]
+
+
 def legacy_phase(idx, twin, cases, orc, smi, flush) -> list:
     """Phase 6 on the compacted L0 table; -> the kernels line entries
     of B2, B3 and B4."""
@@ -1177,6 +1348,12 @@ def legacy_phase(idx, twin, cases, orc, smi, flush) -> list:
         "card": smi,
     }}))
 
+    # -- B3 and B4 on their edge cases, dirty outputs, back to back --------
+    case_err = mask_kernel_checks(ft.p3.device)
+    log(f"mask cases: {len(MASK_CASE_NAMES)} cases, dirty outputs and 40 "
+        f"back-to-back launches; max abs err B3 {case_err[0]}, B4 "
+        f"{case_err[1]}")
+
     # -- B3's and B4's own entries, launch counts from zero ----------------
     fc.filter_windows_gridless.launches = 0
     fc.fused_filter_gridless.launches = 0
@@ -1198,11 +1375,12 @@ def legacy_phase(idx, twin, cases, orc, smi, flush) -> list:
 
     # -- B3 and B4 against their plain versions ----------------------------
     b3, b4, full = gridless_args(ft, hq)
-    b3_err = check_mask("filter_windows_gridless",
-                        fc.filter_windows_gridless(ft.p3, *b3),
-                        fc.filter_windows_torch(ft.p3, *b3), "B3 headline")
+    b3_err = max(case_err[0], check_mask(
+        "filter_windows_gridless", fc.filter_windows_gridless(ft.p3, *b3),
+        fc.filter_windows_torch(ft.p3, *b3), "B3 headline"))
     mask4 = fc.fused_filter_gridless(*cols4, *b4)
     b4_err = max(
+        case_err[1],
         check_mask("fused_filter_gridless", mask4,
                    fc.fused_filter_mask_torch(*cols4, *b4), "B4 headline"),
         check_mask("fused_filter_gridless", mask4,
@@ -4889,8 +5067,9 @@ def mesh_server(smi, state) -> tuple:
     interval, no class dirty), every /aux/v1/replica/<surface> is held
     to its store route; MESH_WRITES ops, two RID subscriptions and an
     SCD subscription are written and read back from the replica
-    surfaces; SIGTERM must exit 0.  -> (its part of the mesh line,
-    failures)."""
+    surfaces; SIGTERM must exit 0.  The line records whether the
+    server's fault handler printed (and then the stacks it printed).
+    -> (its part of the mesh line, failures)."""
     import os
     import signal
     import urllib.parse
@@ -5039,14 +5218,25 @@ def mesh_server(smi, state) -> tuple:
             "notify_for_operations": True, "old_version": 0}),
             "SCD sub PUT")
         written["scd_subscriptions"].append(sub_id)
+        # every write visible on its replica surface: the replica is
+        # bounded-stale, and a tail that has applied the ops may not yet
+        # have applied the subscriptions written after them
         t_w = time.perf_counter()
         while True:
-            seen, st = set(), None
+            seen = {key: set() for key in written}
+            st = None
             for vol in vols:
                 got, st = replica("operations", "operation_ids",
                                   area_of(vol), vol)
-                seen.update(got)
-            if set(written["operations"]) <= seen and synced(st):
+                seen["operations"].update(got)
+            for k in (3, 4):
+                seen["subscriptions"].update(replica(
+                    "subscriptions", "subscription_ids", isa_area(k))[0])
+            seen["scd_subscriptions"].update(replica(
+                "scd_subscriptions", "subscription_ids", area_of(vols[0]),
+                vols[0])[0])
+            if all(set(ids) <= seen[key] for key, ids in written.items()) \
+                    and synced(st):
                 break
             if time.perf_counter() - t_w > 60:
                 raise RuntimeError("the replica never showed the writes")
@@ -5119,11 +5309,18 @@ def mesh_server(smi, state) -> tuple:
             rc = proc.returncode
             failures.append(f"mesh server: died (rc {rc})")
         errf.close()
-        line.update(sigterm_exit_s=time.perf_counter() - t, exit_code=rc)
+        with open(err_path, "rb") as f:
+            err_text = f.read().decode(errors="replace")
+        # the server arms faulthandler: an abort prints every thread's
+        # stack, from "Fatal Python error" on
+        at = err_text.find("Fatal Python error")
+        line.update(sigterm_exit_s=time.perf_counter() - t, exit_code=rc,
+                    fault_handler_output=at >= 0)
+        if at >= 0:
+            line["fault_handler_stacks"] = err_text[at:at + 6000]
         if rc != 0:
-            with open(err_path, "rb") as f:
-                tail = f.read()[-2000:].decode(errors="replace")
-            failures.append(f"mesh server: exit code {rc}: {tail}")
+            failures.append(f"mesh server: exit code {rc}: "
+                            f"{err_text[at if at >= 0 else -2000:][:6000]}")
     return line, failures
 
 

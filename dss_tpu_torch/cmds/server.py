@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import faulthandler
 import os
 import threading
 import time
@@ -61,6 +62,52 @@ from dss_tpu_torch.clock import Clock
 from dss_tpu_torch.dar.dss_store import DSSStore
 from dss_tpu_torch.services.rid import RIDService
 from dss_tpu_torch.services.scd import SCDService
+
+
+# The port's own threads that may be inside a torch call (by name or
+# name prefix): the replica's tail, the multihost runtime's loops, the
+# federation's sync, the tables' folds, the coalescers, the resident
+# loops and their graph compiler, the push delivery workers, the shm
+# front's servers, the boot warm, the WAL and region-log tails and the
+# tuner.  A daemon thread still inside a torch call when the
+# interpreter exits aborts the process ("terminate called without an
+# active exception"), so the server's cleanup ends by joining those
+# still alive.  tests/test_torch_server.py holds every thread the
+# package names against this list.
+PORT_THREADS = (
+    "sharded-replica", "multihost-", "dss-multihost-watchdog",
+    "federation-sync", "dar-folder", "dar-coalescer-", "dss-resident-",
+    "dss-push-deliver-", "shm-serve-", "fastpath-warmup", "wal-follower",
+    "region-tail", "dss-tune",
+)
+
+
+def port_threads(skip=frozenset()) -> list:
+    """The live threads of this process named in PORT_THREADS, but the
+    caller's and those in `skip`."""
+    me = threading.current_thread()
+    return [t for t in threading.enumerate()
+            if t is not me and t not in skip and t.is_alive()
+            and t.name.startswith(PORT_THREADS)]
+
+
+def join_port_threads(log, skip=frozenset(), report_s=5.0) -> list:
+    """The end of a cleanup: each port thread still alive, but those in
+    `skip` (the threads that were running before the app was built,
+    which its cleanup does not own), is logged by name and joined
+    until it has stopped.  Its owner's close has told it to stop, and
+    may have returned from a timed join while it finished a step; every
+    owner's loop stops between steps, so the join ends.  A thread still
+    running is named again every `report_s`.  -> the names found."""
+    found = port_threads(skip)
+    for t in found:
+        log.warning("thread %s still alive after the cleanup; joining it",
+                    t.name)
+        t.join(report_s)
+        while t.is_alive():
+            log.warning("still joining thread %s", t.name)
+            t.join(report_s)
+    return [t.name for t in found]
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -379,6 +426,7 @@ def build_worker(args) -> web.Application:
     from dss_tpu_torch.obs.logging import configure_logging, get_logger
     from dss_tpu_torch.obs.metrics import MetricsRegistry
 
+    before = frozenset(threading.enumerate())  # not this app's to join
     configure_logging()
     log = get_logger("dss.worker")
     if not args.wal_path or not args.leader_url:
@@ -508,6 +556,7 @@ def build_worker(args) -> web.Application:
             if front is not None:
                 front.client.close()
             store.close()
+            join_port_threads(log, skip=before)
 
         await asyncio.get_running_loop().run_in_executor(None, close)
 
@@ -719,6 +768,7 @@ def build(args) -> web.Application:
 
     if args.worker_reader:
         return build_worker(args)
+    before = frozenset(threading.enumerate())  # not this app's to join
     if args.federation_map and args.workers > 0:
         # worker readers serve searches from a plain WAL-tail replica
         # with no federation layer: a cross-region covering landing on
@@ -933,7 +983,8 @@ def build(args) -> web.Application:
         # inside a torch call when the interpreter exits (it would
         # abort the process: "terminate called without an active
         # exception"); the federation's sync thread and the replica's
-        # tail stop first
+        # tail stop first, and any port thread still alive after all
+        # that is joined last
         def close():
             if fed_router is not None:
                 fed_router.close()
@@ -944,6 +995,7 @@ def build(args) -> web.Application:
             if warm_thread is not None:
                 warm_thread.join(args.shutdown_grace)
             store.close()
+            join_port_threads(log, skip=before)
 
         await asyncio.get_running_loop().run_in_executor(None, close)
         r = app["dss_read_routes"]
@@ -1168,6 +1220,9 @@ def main():
     import sys
     import tempfile
 
+    # an abort (a signal such as SIGABRT) prints every thread's stack
+    # to stderr
+    faulthandler.enable()
     args = make_parser().parse_args()
     # the multi-host mesh is refused or joined before anything boots
     mh_cfg = multihost_config(args)

@@ -81,11 +81,20 @@
 //   windows the reference allows, about 1.6 MB, or about 0.5 us at
 //   3.35 TB/s on an H100 SXM.  chip_smoke.py counts the distinct lanes
 //   of [start, end) that a run's windows need.
-//   Design: one warp per window, 8 per CTA.  Thread t loads lanes
-//   4t..4t+3 of each column as 16 B vectors (32 B for the i64 columns),
-//   so each column row is one coalesced read, and writes its 4 mask
-//   bytes as one 32-bit store, so a window's 128 B row is one coalesced
-//   store.
+//   Design: one warp a window; thread t owns lanes 4t..4t+3 and loads
+//   them (16 B of each f32 column, 32 B of each i64 column) only when
+//   they intersect the window's [start, end): about 30 lanes a window
+//   at the headline, so a window reads about 8 of its 32 four-lane
+//   groups where a full row is 3,072 B.  A warp loads its window's
+//   block, meta and bounds in one round trip (the range decides which
+//   columns to read), then the columns.  Every thread writes its 4
+//   mask bytes as one 32-bit store, so a window's 128 B row is one
+//   coalesced store.  The range is what made B4 about 12 % faster
+//   cold than the earlier kernel (every lane loaded).  Two other
+//   designs were timed against it in turns on the card (PERF.md) and
+//   lost: one wave over every SM (4 windows a CTA at 512 windows, about
+//   2 % slower), and the CTA's scalars loaded in one coalesced pass into
+//   shared memory before any column load (about 95 % slower cold).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -426,7 +435,8 @@ __global__ void __launch_bounds__(kThreads) fused_filter_compact(
   }
 }
 
-// B4: one warp per window; thread t owns lanes 4t..4t+3.  A window
+// B4: one warp per window, 8 per CTA; thread t owns lanes 4t..4t+3 and
+// reads their columns only where they meet [start, end).  A window
 // whose block index lies outside [0, nb) matches nothing (the reference
 // leaves such an index undefined; here it must not read out of range).
 __global__ void fused_filter_mask(const float* __restrict__ b_alo,
@@ -444,12 +454,17 @@ __global__ void fused_filter_mask(const float* __restrict__ b_alo,
   if (w >= nw) return;  // uniform across the warp
   const int lane = threadIdx.x & 31;
   const int32_t blk = win_blk[w];
-  uint32_t packed = 0;  // byte k = lane 4*lane+k, little-endian
-  if (blk >= 0 && blk < nb) {
-    const int32_t meta = win_meta[w];
-    const int start = meta & 0xFF;
-    const int end = (meta >> 8) & 0xFF;
-    const int64_t i = static_cast<int64_t>(blk) * kBlock + 4 * lane;
+  const int32_t meta = win_meta[w];
+  const float qa = w_alo[w];  // with blk and meta: one round trip
+  const float qb = w_ahi[w];
+  const int64_t q0 = w_t0[w];
+  const int64_t q1 = w_t1[w];
+  const int start = meta & 0xFF;
+  const int end = (meta >> 8) & 0xFF;
+  const int l0 = 4 * lane;
+  uint32_t packed = 0;  // byte k = lane l0+k, little-endian
+  if (blk >= 0 && blk < nb && l0 < end && l0 + 4 > start) {
+    const int64_t i = static_cast<int64_t>(blk) * kBlock + l0;
     const float4 alo4 = *reinterpret_cast<const float4*>(b_alo + i);
     const float4 ahi4 = *reinterpret_cast<const float4*>(b_ahi + i);
     const longlong2 t0a = *reinterpret_cast<const longlong2*>(b_t0 + i);
@@ -460,13 +475,9 @@ __global__ void fused_filter_mask(const float* __restrict__ b_alo,
     const float p_ahi[4] = {ahi4.x, ahi4.y, ahi4.z, ahi4.w};
     const int64_t p_t0[4] = {t0a.x, t0a.y, t0b.x, t0b.y};
     const int64_t p_t1[4] = {t1a.x, t1a.y, t1b.x, t1b.y};
-    const float qa = w_alo[w];
-    const float qb = w_ahi[w];
-    const int64_t q0 = w_t0[w];
-    const int64_t q1 = w_t1[w];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const int l = 4 * lane + k;
+      const int l = l0 + k;
       const bool hit = l >= start && l < end &&
                        exact_hit(p_alo[k], p_ahi[k], p_t0[k], p_t1[k], qa,
                                  qb, q0, q1);

@@ -2,12 +2,14 @@
 //
 // Replaces, in the reference package:
 //   dss_tpu/ops/fastpath_pallas.py:_kernel (via filter_windows_pallas), B2:
-//     the legacy path's window filter over the quantized p3 columns;
+//     the legacy path's window filter over the quantized p3 columns
+//     (filter_windows, below);
 //   dss_tpu/ops/fastpath_pallas.py:_gridless_kernel (via
 //     filter_windows_gridless), B3: the same compare over windows that
-//     XLA gathered first (jnp.take).  The gather existed only because the
-//     TPU's compile service refused scalar prefetch; here B3 launches this
-//     kernel on p3 and the block indices directly, with no gather.
+//     XLA gathered first (jnp.take), at most 512 windows.  The gather
+//     existed only because the TPU's compile service refused scalar
+//     prefetch; here B3 reads p3 and the block indices directly, with no
+//     gather (dss_filter_windows_gridless, below).
 // For window w on block b = win_blk[w], lane l of the mask is
 //   p3[b,0,l] == qk[w] && p3[b,2,l] >= qalo[w] && p3[b,1,l] <= qahi[w] &&
 //   p3[b,4,l] >= qt0[w] && p3[b,3,l] <= qt1[w]
@@ -24,11 +26,24 @@
 // about 180 MB, or about 0.05 ms at 3.35 TB/s on an H100 SXM;
 // chip_smoke.py computes it from each run's distinct blocks.
 //
-// Design (simple first): one warp per window, 8 windows per CTA.  Thread
-// t reads lanes 4t..4t+3 of each of the five rows as one 16 B load, so
-// each row is one coalesced 512 B read, and writes its 4 mask bytes as
-// one 32-bit store, so a window's 128 B mask row is one coalesced store.
-// Windows that share a block read it again (from L2 when it is hot).
+// B2's design (simple first): one warp per window, 8 windows per CTA.
+// Thread t reads lanes 4t..4t+3 of each of the five rows as one 16 B
+// load, so each row is one coalesced 512 B read, and writes its 4 mask
+// bytes as one 32-bit store, so a window's 128 B mask row is one
+// coalesced store.  Windows that share a block read it again (from L2
+// when it is hot).
+//
+// B3's design: B2's kernel, launched through B3's own entry
+// (dss_filter_windows_gridless), so B2 and B3 share one compare.  At
+// <= 512 windows B3's bound (about 0.5 MB at the headline, 0.16 us) is
+// a tenth of one launch's fixed cost, so what a design can win is
+// latency.  Three others were timed against this one in turns on the
+// card (PERF.md has the times) and lost: one wave over every SM (4
+// windows a CTA at 512 windows, about 2 % slower); the CTA's block
+// indices and scalars loaded in one coalesced pass into shared memory
+// before any row load (about 30 % slower); and with that, each distinct
+// block of a CTA staged once by a 1D bulk copy on an mbarrier (about
+// 65 % slower).  Each kernel is two dependent round trips and a launch.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -90,7 +105,7 @@ __global__ void filter_windows(const int32_t* __restrict__ p3, int nb,
 
 // Launches filter_windows on `stream` and returns cudaGetLastError().
 // p3 is i32 (nb, 5, 128), 16 B aligned; the six per-window arrays are
-// i32 (nw,); mask is int8 (nw, 128).  B2 and B3 both call this entry.
+// i32 (nw,); mask is int8 (nw, 128).  B2's entry; B3's calls it.
 extern "C" int dss_filter_windows(const void* p3, int nb, const void* win_blk,
                                   const void* qk, const void* qalo,
                                   const void* qahi, const void* qt0,
@@ -105,4 +120,17 @@ extern "C" int dss_filter_windows(const void* p3, int nb, const void* win_blk,
       static_cast<const int32_t*>(qt0), static_cast<const int32_t*>(qt1), nw,
       static_cast<uint32_t*>(mask));
   return static_cast<int>(cudaGetLastError());
+}
+
+// B3: launches filter_windows on `stream` and returns
+// cudaGetLastError(); the arguments are dss_filter_windows' (any nw,
+// the wrapper caps it at 512).
+extern "C" int dss_filter_windows_gridless(const void* p3, int nb,
+                                           const void* win_blk,
+                                           const void* qk, const void* qalo,
+                                           const void* qahi, const void* qt0,
+                                           const void* qt1, int nw,
+                                           void* mask, void* stream) {
+  return dss_filter_windows(p3, nb, win_blk, qk, qalo, qahi, qt0, qt1, nw,
+                            mask, stream);
 }

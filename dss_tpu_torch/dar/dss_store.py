@@ -191,6 +191,7 @@ class _CachedSearchMixin:
 
     _cache: Optional[rcache.ReadCache] = None
     _epoch_fn = staticmethod(lambda: "")
+    _retired: tuple = ()  # indexes that state resets swapped out
 
     def _init_cache(self, cache, epoch_fn):
         self._cache = cache
@@ -206,7 +207,11 @@ class _CachedSearchMixin:
         caller clears its dicts (factory cost stays outside the window
         lock-free readers can observe), adopt each predecessor's clock
         (O(1) — no stamp-array churn in the window), then floor it so
-        every fence stamped before the reset fails."""
+        every fence stamped before the reset fails.  Each predecessor
+        is retired (its folder stops: it takes no more writes) and kept
+        until close_retired(), since a lock-free reader may still be
+        inside it; the reference drops it with its folder still
+        running, a daemon thread that nothing stops."""
         if self._cache is not None:
             self._cache.invalidate_all()
         fresh = []
@@ -216,7 +221,20 @@ class _CachedSearchMixin:
             new_ix.adopt_cell_clock(clock)
             clock.bump_all()
             fresh.append(new_ix)
+            retire = getattr(ix, "retire", None)
+            if retire is not None:
+                retire()
+        self._retired = (*self._retired, *old_indexes)
         return fresh
+
+    def close_retired(self) -> None:
+        """Close the indexes that state resets swapped out (at the
+        store's close, when no reader is left)."""
+        retired, self._retired = self._retired, ()
+        for ix in retired:
+            closer = getattr(ix, "close", None)
+            if closer is not None:
+                closer()
 
     def _cached_ids(
         self,
@@ -1889,6 +1907,8 @@ class DSSStore:
             closer = getattr(index, "close", None)
             if closer is not None:
                 closer()
+        self.rid.close_retired()
+        self.scd.close_retired()
         self.wal.close()
 
     def stats(self) -> dict:

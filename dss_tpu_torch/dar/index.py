@@ -183,6 +183,14 @@ class CudaSpatialIndex:
     def coalescer(self) -> QueryCoalescer:
         return self._coalescer
 
+    def retire(self):
+        """A state reset swapped this index out: it takes no more
+        writes, so its table's folder is told to stop (without waiting
+        out a fold in progress); reads, and the coalescer, go on serving
+        a reader that took the index before the swap.  close() ends
+        both."""
+        self._table.close(join=False)
+
     def close(self):
         """Stop the coalescer (it drains what it holds) before the
         table."""

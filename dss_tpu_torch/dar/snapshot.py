@@ -444,13 +444,15 @@ class DarTable:
         self._ensure_folder()
         self._fold_event.set()
 
-    def close(self):
+    def close(self, join: bool = True):
         """Stop the folder thread (tables created in tests/benchmarks
-        must not leak a wake-every-idle_fold_s daemon each)."""
+        must not leak a wake-every-idle_fold_s daemon each); with
+        join=False only tell it to stop (it ends after the fold in
+        progress, if any).  Reads go on working."""
         self._closed = True
         self._fold_event.set()
         th = self._fold_thread
-        if th is not None and th is not threading.current_thread():
+        if join and th is not None and th is not threading.current_thread():
             th.join(timeout=5)
 
     def _fold_loop(self):

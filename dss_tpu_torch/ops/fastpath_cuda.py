@@ -14,7 +14,9 @@ the reference's names and signatures (without `interpret`):
 
 Each returns an (NW, 128) int8 mask.  On CUDA tensors each launches its
 hand-written kernel (`csrc/window_mask.cu` for B2 and B3,
-`csrc/fused_filter.cu` for B4, built by `ops/cuda_build.py`) or raises;
+`csrc/fused_filter.cu` for B4, built by `ops/cuda_build.py`; B3 has a
+C entry of its own, and B4 reads only the lanes of each window's
+range) or raises;
 on CPU tensors it runs the plain PyTorch version beside it
 (`filter_windows_torch`, `fused_filter_mask_torch`).  Each entry counts
 its kernel launches in `.launches`.  The input checks are the
@@ -102,9 +104,10 @@ def _check_aligned(named) -> None:
             raise ValueError(f"{name} must be 16-byte aligned for the kernel")
 
 
-def _window_mask(entry, p3, win_blk, qk, qalo_mm, qahi_mm, qt0s, qt1s):
+def _window_mask(entry, c_name, p3, win_blk, qk, qalo_mm, qahi_mm, qt0s,
+                 qt1s):
     """B2/B3 body: the plain version for CPU tensors, else the kernel
-    (counted on `entry`)."""
+    behind C entry `c_name` (counted on `entry`)."""
     dev = p3.device
     if dev.type == "cpu":
         return filter_windows_torch(
@@ -124,7 +127,7 @@ def _window_mask(entry, p3, win_blk, qk, qalo_mm, qahi_mm, qt0s, qt1s):
     mask = torch.empty((nw, BLOCK), dtype=torch.int8, device=dev)
     if nw == 0:
         return mask
-    fn = cuda_build.function("dss_filter_windows", _WINDOW_ARGTYPES)
+    fn = cuda_build.function(c_name, _WINDOW_ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(p3.data_ptr(), int(p3.shape[0]),
@@ -145,7 +148,8 @@ def filter_windows(p3, win_blk, qk, qalo_mm, qahi_mm, qt0s, qt1s):
     if nw % GROUP:
         raise ValueError(f"NW must be padded to a multiple of {GROUP}, got {nw}")
     return _window_mask(
-        filter_windows, p3, win_blk, qk, qalo_mm, qahi_mm, qt0s, qt1s
+        filter_windows, "dss_filter_windows", p3, win_blk, qk, qalo_mm,
+        qahi_mm, qt0s, qt1s,
     )
 
 
@@ -160,7 +164,8 @@ def filter_windows_gridless(p3, win_blk, qk, qalo_mm, qahi_mm, qt0s, qt1s):
             f"got {nw}"
         )
     return _window_mask(
-        filter_windows_gridless, p3, win_blk, qk, qalo_mm, qahi_mm, qt0s, qt1s
+        filter_windows_gridless, "dss_filter_windows_gridless", p3, win_blk,
+        qk, qalo_mm, qahi_mm, qt0s, qt1s,
     )
 
 

@@ -1002,6 +1002,8 @@ class ShardedReplica:
             while not self._stop.wait(interval_s):
                 try:
                     self.poll_once()
+                    if self._stop.is_set():
+                        break  # close(): stop between steps
                     if self._refresh_due():
                         self.refresh()
                     else:
@@ -1040,9 +1042,15 @@ class ShardedReplica:
         return now - self._demand_last <= pace
 
     def close(self) -> None:
+        """Stop the tail and wait until its thread has stopped.  The
+        loop stops between steps, so this waits out at most the step in
+        progress (one poll or one refresh, which may be inside a torch
+        call); the reference's timed join (5 s) could return while the
+        thread still ran, and a daemon thread inside a torch call at
+        interpreter exit aborts the process."""
         self._stop.set()
         if self._thread is not None:
-            self._thread.join(timeout=5)
+            self._thread.join()
 
     # -- serving reads --------------------------------------------------------
 

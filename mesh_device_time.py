@@ -24,6 +24,20 @@ the card:
     for r in build/parent . . build/parent; do
         python3 mesh_device_time.py --root "$r"; done
 
+Then the shapes that launch K1 and K2 off the headline (`shapes`): the
+skew leg's one query (chip_smoke.skew_pass) over its 3,120 records on a
+virtual 1x8 mesh (max_results 256, shard_results 48; the hot area of
+64 cells and a cold one of 24, open bounds, now 0), and a batch of 64
+(MH_BATCH) searches, each the cells of a seeded record with open
+bounds as the multihost leg's, over the http phase's 20,000
+operational intents (HTTP_OPS, chip_smoke.store_columns seed 9: the
+ops class of its 24,800 records) on a virtual 1x2 mesh (the server's
+--sharded_replica) and 1x4 (the multihost leg's mesh).  For each, K1
+and K2 on dp row 0 against their plain versions, their device time
+cold and warm and their call time (chip_smoke.timings), their bounds
+(chip_smoke.k1_bound, k2_bound, as the headline uses them) and the
+share, and the device and call time of the whole query_batch.
+
 With --variants (this checkout only) each variant of VARIANTS is
 compiled from csrc/mesh_query.cu with one constant changed, into
 build/mesh_variants/, and its library stands in for the package's while
@@ -165,6 +179,87 @@ def measure(cs, dars, q, flush) -> tuple:
     return out, bad
 
 
+def shape_row(cs, dar, q, now, flush, label) -> tuple:
+    """K1 and K2 on dp row 0 of `dar` for batch `q`, held against their
+    plain versions, with their times beside their bounds, and the whole
+    query_batch's device and call time.  -> (row, mismatches)."""
+    mc = cs.mc
+    bad0 = cs.MESH_TALLY.mismatches
+    rows = cs.dar_kernel_checks(dar, q, label, now)
+    _, _, args, kw = cs.dar_row_args(dar, q, 0, now)[0]
+    cols, mkw = rows[0]
+    b1 = cs.k1_bound(args[0].cpu().numpy(), args[1].cpu().numpy(),
+                     args[5].keys.cpu().numpy(), dar.cap, dar.shard_results)
+    width = int(mc.mesh_merge(*cols, **mkw)[3][-1])
+    b2 = cs.k2_bound(cols[1].cpu().numpy(), dar.shard_results,
+                     dar.max_results, width)
+    out = {"queries": int(len(q[0])), "key_width": int(args[5].keys.shape[1]),
+           "records": len(dar.records), "mesh": f"{dar.dp}x{dar.n_sp}",
+           "cap": dar.cap, "shard_results": dar.shard_results,
+           "max_results": dar.max_results}
+    for name, fn, plain, b in (
+            ("mesh_query", lambda: mc.mesh_query(*args, **kw),
+             lambda: mc.mesh_query_torch(*args, **kw), b1),
+            ("mesh_merge", lambda: mc.mesh_merge(*cols, **mkw),
+             lambda: mc.mesh_merge_torch(*cols, **mkw), b2)):
+        t = cs.timings(f"{name}_{label}", fn, plain, flush)
+        out[name] = {**t, "bound_ms": b["ms"], "bound_bytes": b["bytes"],
+                     "share_of_bound": b["ms"] / t["ms"]}
+    out["mesh_query"]["candidates"] = b1["candidates"]
+    out["mesh_merge"]["width"] = width
+
+    def batch():
+        return dar.query_batch(*q, now=now)
+
+    out["batch_device_ms"] = cs.device_ms(batch, flush, n=10)[0]
+    out["batch_call_ms"] = cs.call_ms(batch)
+    return out, cs.MESH_TALLY.mismatches - bad0
+
+
+def shapes(cs, dev, flush) -> tuple:
+    """K1 and K2 at the skew leg's one query on 1x8 and at 64 searches
+    over the http phase's operational intents on 1x2 and 1x4.
+    -> ({shape: row}, mismatches)."""
+    from dss_tpu_torch.parallel import sharded as ps
+    from dss_tpu_torch.parallel.mesh import make_mesh, virtual_devices
+
+    np = cs.np
+    out, bad = {}, 0
+    recs, areas = cs.skew_fixture()
+    dar = ps.ShardedDar(recs, make_mesh(8, dp=1, sp=8,
+                                        devices=virtual_devices(dev, 8)),
+                        max_results=256, shard_results=48)
+    one = (np.full(1, -np.inf, np.float32), np.full(1, np.inf, np.float32),
+           np.full(1, -(2**62), np.int64), np.full(1, 2**62, np.int64))
+    for label, area in (("skew_1x8_hot", areas[0]),
+                        ("skew_1x8_cold", areas[1])):
+        out[label], b = shape_row(cs, dar, (area[None, :], *one), 0, flush,
+                                  label)
+        bad += b
+    del dar
+    keys, alo, ahi, t0, t1 = cs.store_columns(cs.HTTP_OPS, seed=9,
+                                              now=cs.NOW + cs.HOUR // 2)
+    ops = [cs.Record(f"op{i}", keys[i], float(alo[i]), float(ahi[i]),
+                     int(t0[i]), int(t1[i]), i % 8)
+           for i in range(len(keys))]
+    rng = np.random.default_rng(31)
+    picks = rng.integers(0, len(ops), cs.MH_BATCH)
+    b = cs.MH_BATCH
+    q = (np.stack([ops[int(i)].keys for i in picks]).astype(np.int32),
+         np.full(b, -np.inf, np.float32), np.full(b, np.inf, np.float32),
+         np.full(b, cs.NO_TIME_LO, np.int64),
+         np.full(b, cs.NO_TIME_HI, np.int64))
+    for sp in (2, 4):
+        dar = ps.ShardedDar(ops, make_mesh(sp, dp=1, sp=sp,
+                                           devices=virtual_devices(dev, sp)),
+                            max_results=cs.MESH_MAX_RESULTS)
+        label = f"http_{b}_1x{sp}"
+        out[label], bad_row = shape_row(cs, dar, q, cs.NOW, flush, label)
+        bad += bad_row
+        del dar
+    return out, bad
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE),
@@ -203,7 +298,10 @@ def main() -> int:
         max_results=cs.MESH_MAX_RESULTS) for dp, sp in MESHES}
     flush = cs.Flush(dev)
     rows, bad = measure(cs, dars, q, flush)
+    shape_rows, bad_shapes = shapes(cs, dev, flush)
+    bad += bad_shapes
     out = {"package": str(root / "dss_tpu_torch"), "kernels": rows,
+           "shapes": shape_rows,
            "batch_device_ms": {
                name: cs.device_ms(lambda: dar.query_batch(*q, now=cs.NOW),
                                   flush, n=10)[0]

@@ -3,6 +3,9 @@
 B1 (the fused window filter), B2 and B3 (the quantized window mask) and
 B4 (the exact window mask), each on card tensors against its plain
 version on the same tensors; masks and words must be equal exactly.
+B3 and B4 also on every case of
+chip_smoke.mask_cases(), on outputs handed back dirty and over 40
+launches back to back, each wrapper through its own C entry.
 B1's single-pass compaction is also held at the max_words boundaries,
 past 4,096 tiles, over back-to-back launches and on a dirty output, and
 B1 captured into a CUDA graph (ops/resident.py) against its eager
@@ -273,6 +276,31 @@ def test_window_mask_kernels_match_plain(cuda, seed, n, n_cells, b, w):
     want = fc.fused_filter_mask_torch(*cols, *wargs)
     torch.cuda.synchronize()
     assert want.any() and torch.equal(got, want)
+    # a window, a warp's worth and its neighbours, the reference's cap
+    for k in (1, 31, 32, 33, min(nw, 512)):
+        got3 = fc.filter_windows_gridless(ft.p3, *(a[:k] for a in args))
+        got4 = fc.fused_filter_gridless(*cols, *(a[:k] for a in wargs))
+        torch.cuda.synchronize()
+        assert torch.equal(got3, fc.filter_windows_torch(
+            ft.p3, *(a[:k] for a in args))), k
+        assert torch.equal(got4, want[:k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", cs.MASK_CASE_NAMES)
+def test_mask_kernels_match_plain_on_every_mask_case(cuda, name):
+    """B3 and B4 against their plain versions on each case of
+    chip_smoke.mask_cases(), where a window whose block lies outside
+    [0, NB) matches nothing."""
+    a3, a4 = cs.mask_case_args(dict(cs.mask_cases())[name], cuda)
+    for fn, plain, n_table, args in (
+            (fc.filter_windows_gridless, fc.filter_windows_torch, 1, a3),
+            (fc.fused_filter_gridless, fc.fused_filter_mask_torch, 4, a4)):
+        got = fn(*args)
+        want = cs.mask_plain(plain, n_table, args)
+        torch.cuda.synchronize()
+        assert got.shape == (args[-1].shape[0], 128)
+        assert torch.equal(got, want), (name, fn.__name__)
 
 
 @pytest.mark.gpu
@@ -299,19 +327,52 @@ def test_exact_mask_kernel_on_i64_edges(cuda):
     torch.cuda.synchronize()
     assert want.any() and not want.all()
     assert torch.equal(got, want)
+    # mask_cases()' time_edges: i64 times to +-2^63 (B4), i32 bounds at
+    # their extremes (B3), 512 windows
+    a3, a4 = cs.mask_case_args(dict(cs.mask_cases())["time_edges"], cuda)
+    want4 = cs.mask_plain(fc.fused_filter_mask_torch, 4, a4)
+    want3 = cs.mask_plain(fc.filter_windows_torch, 1, a3)
+    got4, got3 = fc.fused_filter_gridless(*a4), fc.filter_windows_gridless(*a3)
+    torch.cuda.synchronize()
+    assert want4.any() and not want4.all() and torch.equal(got4, want4)
+    assert torch.equal(got3, want3)
 
 
 @pytest.mark.gpu
-def test_mask_kernels_count_launches_and_reject_bad_input(cuda):
+def test_mask_kernels_count_launches_and_reject_bad_input(cuda, monkeypatch):
     rng = np.random.default_rng(9)
     ft = _table(rng, 500, 100, cuda)
     _, _, args = ft._legacy_inputs(*_queries(rng, 50, 4, 100))
+    names = []
+    bind = fc.cuda_build.function
+
+    def spy(name, argtypes):
+        names.append(name)
+        return bind(name, argtypes)
+
+    monkeypatch.setattr(fc.cuda_build, "function", spy)
     before = (fc.filter_windows.launches, fc.filter_windows_gridless.launches)
     fc.filter_windows(ft.p3, *args)
     fc.filter_windows_gridless(ft.p3, *(a[:64] for a in args))
     assert (fc.filter_windows.launches,
             fc.filter_windows_gridless.launches) == (before[0] + 1,
                                                      before[1] + 1)
+    # B2 and B3 launch through their own entries
+    assert names == ["dss_filter_windows", "dss_filter_windows_gridless"]
+    monkeypatch.setattr(fc.cuda_build, "function", bind)
+    # every mask case, then dirty outputs and 40 launches back to back
+    tallies = (cs.TALLY["filter_windows_gridless"],
+               cs.TALLY["fused_filter_gridless"])
+    seen = [(t.compared, t.mismatches) for t in tallies]
+    launches = (fc.filter_windows_gridless.launches,
+                fc.fused_filter_gridless.launches)
+    assert cs.mask_kernel_checks(cuda) == (0, 0)
+    for t, (compared, mismatches) in zip(tallies, seen):
+        assert t.compared > compared and t.mismatches == mismatches, t.name
+    n_cases = len(cs.MASK_CASE_NAMES)
+    assert (fc.filter_windows_gridless.launches - launches[0]
+            + fc.fused_filter_gridless.launches - launches[1]
+            == 2 * n_cases + 2 + 40)
     with pytest.raises(ValueError):  # qk must be i32
         fc.filter_windows(ft.p3, args[0], args[1].long(), *args[2:])
     with pytest.raises(ValueError):  # p3 must be 16-byte aligned

@@ -316,3 +316,34 @@ def test_hit_performs_zero_coalescer_enqueues():
         assert s.stats()["dss_dar_isa_co_cache_hits"] >= 1
     finally:
         s.close()
+
+
+def test_reset_retires_swapped_out_indexes_and_close_ends_them():
+    """A state reset (a region resync's) swaps every index out: the old
+    index's folder stops at once, a reader that took the old index
+    before the swap still gets its answer, and the store's close
+    closes the old indexes, so none of their threads outlives it.  The
+    reference drops them with their folders still running."""
+    w = Poll(PORT, "cuda", True)
+    s = w.store
+    try:
+        cells = w.cells(1300, 1316)
+        s.rid.insert_isa(w.isa(21, cells))
+        old = s.rid._isa_index
+        old.table._ensure_folder()
+        folder = old.table._fold_thread
+        assert folder.is_alive()
+        s.rid.reset_state()
+        assert s.rid._isa_index is not old and old in s.rid._retired
+        folder.join(10)
+        assert not folder.is_alive()
+        keys = np.asarray(cells, np.uint64)
+        assert old.query_ids(keys, now=0) == [_uuid(21)]
+        assert s.rid._isa_index.query_ids(keys, now=0) == []
+    finally:
+        s.close()
+    assert s.rid._retired == () and s.scd._retired == ()
+    co = old.coalescer
+    assert co._closed
+    assert not any(th is not None and th.is_alive()
+                   for th in (co._pack_thread, co._collect_thread))

@@ -9,6 +9,10 @@ reference store writes it; the port's WAL format is the reference's)
 or the same records, with equal answers, boundaries, effective
 capacities and gauges required.  The three `test_global_mesh_*` cases
 wait for the multihost slice.
+
+One divergence is pinned on purpose: the port's close() waits until
+its tail thread has stopped, where the reference's joins for 5 s and
+returns with the thread still inside a refresh.
 """
 
 from __future__ import annotations
@@ -406,6 +410,52 @@ def test_background_refresh_reaches_fresh(tmp_path):
         rep.close()
         store.close()
     assert not rep._thread.is_alive()
+
+
+def test_close_waits_for_the_tail_where_the_reference_join_times_out(
+        tmp_path):
+    """Both packages' replicas tail a WAL, and each one's refresh is
+    held on an Event while close() runs: after 6.5 s the reference's
+    close has returned with its thread still in the refresh (a timed
+    join of 5 s), and the port's is still waiting; once the refresh is
+    released, the port's close returns with its thread stopped."""
+    wal = tmp_path / "dss.wal"
+    wal.touch()
+    reps = dict(zip(("ref", "port"), _pair(wal, dp=1, sp=2)))
+    entered = {name: threading.Event() for name in reps}
+    release = threading.Event()
+    for name, rep in reps.items():
+        def refresh(*, plan=True, _name=name):
+            entered[_name].set()
+            release.wait(30)
+            return False
+
+        rep.refresh = refresh
+        rep.demand_pace_s = 0.0
+        rep.start(0.01)
+    for name in reps:
+        assert entered[name].wait(10), name
+    alive_at_return = {}
+
+    def close(name):
+        reps[name].close()
+        alive_at_return[name] = reps[name]._thread.is_alive()
+
+    closers = [threading.Thread(target=close, args=(name,))
+               for name in reps]
+    for c in closers:
+        c.start()
+    try:
+        time.sleep(6.5)
+        assert alive_at_return == {"ref": True}
+        assert reps["port"]._thread.is_alive()
+    finally:
+        release.set()
+        for c in closers:
+            c.join(30)
+    assert alive_at_return == {"ref": True, "port": False}
+    reps["ref"]._thread.join(30)  # released, it ends on its own
+    assert not reps["ref"]._thread.is_alive()
 
 
 # -- the rebalancer (tests/test_shard_rebalance.py:270-696) ---------------------

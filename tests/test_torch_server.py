@@ -21,7 +21,10 @@ refused with workers, as the reference refuses it.
 `--sharded_replica 1,2 --virtual_devices 2` (the mesh route on two CPU
 positions) serves every `/aux/v1/replica/<surface>` equal to the
 store's own route once the replica has tailed the WAL; a mesh larger
-than its positions exits.
+than its positions exits.  Built in this process, such an app's
+on_cleanup waits out a replica refresh that outlasts the reference's
+5 s join and leaves none of the port's threads alive; a straggler that
+its owner's close left running is logged and joined.
 
 The multihost flags and their env fallbacks make the runtime's config
 and are refused beside `--workers` and `--worker_reader` as the
@@ -36,11 +39,14 @@ limit.
 
 from __future__ import annotations
 
+import asyncio
+import logging
 import os
 import re
 import signal
 import subprocess
 import sys
+import threading
 import time
 import uuid
 from pathlib import Path
@@ -815,6 +821,121 @@ def test_sharded_replica_needs_its_positions_and_a_wal():
     assert p_server.make_replica(parser.parse_args([]), None, None) is None
     assert len(p_server.mesh_devices(parser.parse_args(
         "--device cpu --virtual_devices 3".split()))) == 3
+
+
+def test_cleanup_waits_out_a_replica_refresh_and_leaves_no_port_thread(
+        tmp_path, monkeypatch):
+    """An app of `--device cpu --sharded_replica 1,2`, built in this
+    process: its on_cleanup starts while the replica's tail is inside a
+    refresh that lasts 6 s, past the reference's timed join of 5 s; the
+    cleanup returns only after that refresh, and none of the port's
+    named threads that the app started is alive after it."""
+    from dss_tpu_torch.parallel import replica as pr
+
+    holding, entered, release = (threading.Event() for _ in range(3))
+    real = pr.ShardedReplica.refresh
+
+    def refresh(self, *, plan=True):
+        if holding.is_set():
+            entered.set()
+            release.wait(30)
+        return real(self, plan=plan)
+
+    monkeypatch.setattr(pr.ShardedReplica, "refresh", refresh)
+    before = {t.ident for t in threading.enumerate()}
+    args = p_server.make_parser().parse_args(
+        f"--storage cuda --device cpu --insecure_no_auth --enable_scd "
+        f"--wal_path {tmp_path / 'dss.wal'} --sharded_replica 1,2 "
+        f"--virtual_devices 2 --replica_refresh_interval 0.05 "
+        f"--no_warmup".split())
+    app = p_server.build(args)
+
+    async def run():
+        app.freeze()
+        await app.startup()
+        holding.set()
+        while not entered.is_set():
+            await asyncio.sleep(0.02)
+        threading.Timer(6.0, release.set).start()
+        t0 = time.monotonic()
+        await app.shutdown()
+        await app.cleanup()
+        return time.monotonic() - t0
+
+    took = asyncio.run(run())
+    assert release.is_set() and took >= 5.5
+    left = [t.name for t in p_server.port_threads()
+            if t.ident not in before]
+    assert left == []
+
+
+def test_join_port_threads_logs_and_joins_a_straggler(caplog):
+    """The cleanup's last step: a port thread that its owner's close
+    left running (here a fold that ends 0.5 s later) is named in the
+    log and joined until it has stopped, named again while it runs;
+    threads of other names, and port threads that were running before
+    the app was built (`skip`), are not waited on."""
+    stop = threading.Event()
+    older = threading.Thread(target=stop.wait, args=(30,),
+                             name="dar-coalescer-pack", daemon=True)
+    older.start()
+    skip = frozenset(threading.enumerate())
+    straggler = threading.Thread(target=time.sleep, args=(0.5,),
+                                 name="dar-folder", daemon=True)
+    other = threading.Thread(target=stop.wait, args=(30,),
+                             name="not-a-port-thread", daemon=True)
+    straggler.start()
+    other.start()
+    try:
+        with caplog.at_level(logging.WARNING):
+            found = p_server.join_port_threads(logging.getLogger("t"),
+                                               skip=skip, report_s=0.1)
+        assert found == ["dar-folder"]
+        assert not straggler.is_alive()
+        assert other.is_alive() and older.is_alive()
+        assert "thread dar-folder still alive after the cleanup" in \
+            caplog.text
+        assert "still joining thread dar-folder" in caplog.text
+    finally:
+        stop.set()
+        other.join(5)
+        older.join(5)
+
+
+# threads the port names that never enter torch: the server's own
+# housekeeping, the shm front's ring scan and a worker's heartbeat, and
+# the native library's build
+NOT_TORCH_THREADS = {"gc-freeze", "parent-watch", "worker-watch",
+                     "shm-scan", "shm-heartbeat", "dss-native-build"}
+
+
+def test_every_named_port_thread_is_joined_or_never_enters_torch():
+    """Each `threading.Thread(name=...)` of the package (an f-string
+    name by its leading text) is one that the server's cleanup joins
+    (PORT_THREADS) or one that never enters torch, so that a thread
+    named anew or renamed cannot slip past the cleanup's last join."""
+    import ast
+
+    pkg = Path(p_server.__file__).resolve().parents[1]
+    names = set()
+    for path in pkg.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if not (isinstance(node, ast.Call)
+                    and isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "Thread"):
+                continue
+            for kw in node.keywords:
+                if kw.arg != "name":
+                    continue
+                v = kw.value
+                if isinstance(v, ast.JoinedStr):
+                    v = v.values[0]
+                assert isinstance(v, ast.Constant), (path, node.lineno)
+                names.add(v.value)
+    assert {"dar-folder", "sharded-replica", "shm-serve-"} <= names
+    for name in names:
+        joined = name.startswith(p_server.PORT_THREADS)
+        assert joined != (name in NOT_TORCH_THREADS), name
 
 
 def test_region_url_boots_from_a_region_log_and_serves(certs, oauth,
