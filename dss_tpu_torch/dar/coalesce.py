@@ -1237,7 +1237,9 @@ class QueryCoalescer:
         """Record the pipeline-stamped spans through the caller's own
         trace handle (runs on the caller's thread, after the event) —
         plus the queue-wait span derived from enqueue -> first stamped
-        span."""
+        span.  A stamped (name, start_ns, dur_ms, attrs, children)
+        records its children's (name, start_ns, dur_ms, attrs) under
+        itself."""
         spans = item.tspans or ()
         if item.enq_ns and spans:
             first = min(s[1] for s in spans)
@@ -1249,7 +1251,12 @@ class QueryCoalescer:
         for rec in spans:
             name, start_ns, dur_ms = rec[0], rec[1], rec[2]
             attrs = rec[3] if len(rec) > 3 else None
-            _trace.add_span(th, name, start_ns, dur_ms, attrs=attrs)
+            sid = _trace.add_span(th, name, start_ns, dur_ms, attrs=attrs)
+            for c_name, c_start, c_dur, c_attrs in (
+                rec[4] if len(rec) > 4 else ()
+            ):
+                _trace.add_span(th, c_name, c_start, c_dur,
+                                attrs=c_attrs, parent=sid)
 
     @staticmethod
     def _stamp_spans(batch: List[_Item], spans) -> None:
@@ -1427,17 +1434,30 @@ class QueryCoalescer:
                         keys, lo, hi, t0s, t1s, now, _ = (
                             self._pack_args(part)
                         )
-                        if traced:
+                        if not traced:
+                            results = self._mesh_fn(
+                                keys, lo, hi, t0s, t1s, now
+                            )
+                        else:
+                            # the replica's phase spans, collected on
+                            # this thread, become the mesh span's
+                            # children on every traced item
                             tm_w = time.time_ns()
                             tm0 = time.perf_counter()
-                        results = self._mesh_fn(
-                            keys, lo, hi, t0s, t1s, now
-                        )
-                        if traced:
+                            tok = _trace.begin_collect(next(
+                                it.tctx.ctx.trace_id for it in batch
+                                if it.tctx is not None))
+                            try:
+                                results = self._mesh_fn(
+                                    keys, lo, hi, t0s, t1s, now
+                                )
+                            finally:
+                                phases = _trace.end_collect(tok)
                             self._stamp_spans(part, [plan_span, (
                                 "mesh", tm_w,
                                 (time.perf_counter() - tm0) * 1000,
                                 None,
+                                [sp[2:] for sp in phases],
                             )])
                         for it, res in zip(part, results):
                             it.via_mesh = True  # before event.set()

@@ -58,6 +58,7 @@ from dss_tpu_torch.dar import tiers as tiersmod
 from dss_tpu_torch.dar import wal as _walmod
 from dss_tpu_torch.dar.oracle import Record
 from dss_tpu_torch.geo import s2cell
+from dss_tpu_torch.obs import trace as _trace
 from dss_tpu_torch.ops.conflict import NO_TIME_HI, NO_TIME_LO
 from dss_tpu_torch.parallel.sharded import (
     ShardedDar,
@@ -411,6 +412,11 @@ class ShardedReplica:
         }
         self._applied_records = 0
         self._apply_errors = 0
+        # per class: searches answered, slots decoded over every tier
+        # (before the shadow drop), base ids the shadow dropped; the
+        # coalescer and the fronts query from several threads
+        self._served = {c: [0, 0, 0] for c in CLASSES}
+        self._served_mu = threading.Lock()
         # host->device bytes materialized by snapshot builds (per-host
         # refresh traffic: on a multi-host mesh this is what each
         # process ships to its addressable shards per refresh)
@@ -1178,16 +1184,23 @@ class ShardedReplica:
         """Batched mesh query -> entity-id lists (sorted).  Hits merge
         across the base and delta tiers; base ids in the shadow set
         (superseded/deleted since the base was built) are dropped, so
-        the newest tier wins."""
-        qkeys, alo, ahi, ts, te, now_arr = self.pad_query_batch(
-            keys_list, alt_lo, alt_hi, t_start, t_end, now=now
-        )
+        the newest tier wins.
+
+        With tracing on, flat spans cover the call in order:
+        `replica.pad`, then query_padded's, then `replica.load`."""
+        with _trace.span("replica.pad") as sp:
+            qkeys, alo, ahi, ts, te, now_arr = self.pad_query_batch(
+                keys_list, alt_lo, alt_hi, t_start, t_end, now=now
+            )
+            if sp.span_id is not None:
+                sp.set(queries=len(keys_list))
         rows = self.query_padded(cls, qkeys, alo, ahi, ts, te, now_arr)
         # serving-entry load accounting: this query's covering stamps
         # its key-range buckets with its measured candidate work (the
         # input the skew-aware splitter plans from)
-        for i, row in enumerate(rows):
-            self.load.record(keys_list[i], len(row))
+        with _trace.span("replica.load"):
+            for i, row in enumerate(rows):
+                self.load.record(keys_list[i], len(row))
         return rows
 
     def query_padded(
@@ -1201,15 +1214,22 @@ class ShardedReplica:
         now_arr: np.ndarray,
     ) -> List[List[str]]:
         """The per-tier mesh query over pre-padded arrays (the shape
-        every lockstep process replays verbatim)."""
+        every lockstep process replays verbatim).
+
+        With tracing on, each tier's `ShardedDar.query_batch` spans
+        (`mesh.*`) and `replica.ids` (its slots to entity ids, the
+        shadow drop) carry the tier's name; `replica.sort` ends the
+        call."""
         snap = self._snapshots[cls]
         b = qkeys.shape[0]
         if snap is None or (snap.base is None and snap.delta is None):
+            self._count_served(cls, b, 0, 0)
             return [[] for _ in range(b)]
         out = [set() for _ in range(b)]
-        for dar, ids, drop in (
-            (snap.base, snap.base_ids, snap.shadow),
-            (snap.delta, snap.delta_ids, None),
+        hits = drops = 0
+        for tier, dar, ids, drop in (
+            ("base", snap.base, snap.base_ids, snap.shadow),
+            ("delta", snap.delta, snap.delta_ids, None),
         ):
             if dar is None:
                 continue
@@ -1220,14 +1240,36 @@ class ShardedReplica:
                 t_start,
                 t_end,
                 now=now_arr,
+                tier=tier,
             )
-            for i, row in enumerate(rows):
-                for s in row:
-                    if s < len(ids):
-                        eid = ids[s]
-                        if drop is None or eid not in drop:
-                            out[i].add(eid)
-        return [sorted(s) for s in out]
+            with _trace.span("replica.ids", tier=tier) as sp:
+                tier_hits, drops0 = sum(map(len, rows)), drops
+                for i, row in enumerate(rows):
+                    for s in row:
+                        if s < len(ids):
+                            eid = ids[s]
+                            if drop is None or eid not in drop:
+                                out[i].add(eid)
+                            else:
+                                drops += 1
+                hits += tier_hits
+                if sp.span_id is not None:
+                    sp.set(hits=tier_hits, shadow_drops=drops - drops0)
+                # the tier's slot lists are freed inside the span that
+                # read them, not between spans
+                del rows
+        with _trace.span("replica.sort"):
+            out = [sorted(s) for s in out]
+        self._count_served(cls, b, hits, drops)
+        return out
+
+    def _count_served(self, cls: str, queries: int, hits: int,
+                      drops: int) -> None:
+        with self._served_mu:
+            served = self._served[cls]
+            served[0] += queries
+            served[1] += hits
+            served[2] += drops
 
     def query_batch_host(
         self,
@@ -1313,7 +1355,11 @@ class ShardedReplica:
             ),
         }
         out.update(self.shard_stats())
+        with self._served_mu:
+            served = {c: tuple(v) for c, v in self._served.items()}
         for cls in CLASSES:
+            (out[f"replica_{cls}_queries"], out[f"replica_{cls}_hits"],
+             out[f"replica_{cls}_shadow_drops"]) = served[cls]
             snap = self._snapshots[cls]
             out[f"replica_{cls}_records"] = len(self._records[cls])
             out[f"replica_{cls}_snapshot_records"] = (

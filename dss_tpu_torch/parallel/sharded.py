@@ -47,6 +47,7 @@ import torch
 from dss_tpu_torch.dar import oracle
 from dss_tpu_torch.dar.oracle import Record
 from dss_tpu_torch.dar.pack import pack_records
+from dss_tpu_torch.obs import trace as _trace
 from dss_tpu_torch.ops.conflict import (
     INT32_MAX,
     NO_TIME_HI,
@@ -513,6 +514,15 @@ def _sharded_query(post_key, post_ent, ents, q, now, owner, *, mesh, cap,
 sharded_conflict_query_batch.launches = 0  # calls on a card
 
 
+def _phase(name: str, tier: Optional[str]):
+    """One phase span of `ShardedDar.query_batch` (obs/trace.py; the
+    shared no-op when tracing is off here), with the replica tier the
+    dar serves as its attribute when one is named."""
+    if tier is None:
+        return _trace.span(name)
+    return _trace.span(name, tier=tier)
+
+
 class ShardedDar:
     """A read-only sharded snapshot of a DAR entity class.
 
@@ -541,7 +551,8 @@ class ShardedDar:
         self.max_results = max_results
         self.shard_results = shard_results or max_results
         self.records = {slot: r for slot, r in enumerate(records)}
-        self.overflow_fallbacks = 0  # host-scan fallbacks (observability)
+        # host-scan fallbacks (observability), under _hits_mu
+        self.overflow_fallbacks = 0
         # key-space split map this dar was built under (None = legacy
         # equal-count); kept for move accounting across rebuilds
         self.boundaries = (
@@ -550,7 +561,8 @@ class ShardedDar:
         )
         # measured per-shard unique-hit work, accumulated across
         # query batches (the rebalancer's measured-imbalance input);
-        # locked — concurrent snapshot readers must not lose updates
+        # locked, with overflow_fallbacks — concurrent snapshot readers
+        # must not lose updates
         self.shard_hits = np.zeros(self.n_sp, np.int64)
         self._hits_mu = threading.Lock()
 
@@ -598,89 +610,115 @@ class ShardedDar:
         t_end: np.ndarray,
         *,
         now,  # int scalar or [Q] i64 per-query visibility time
+        tier: Optional[str] = None,
     ):
-        """Run a batch of queries; returns list-of-lists of entity slots."""
-        qn = keys_batch.shape[0]
-        now_arr = np.broadcast_to(
-            np.asarray(now, np.int64), (qn,)
-        ).copy()
-        # the reference's key-width bucket (pow2 from 16) and batch
-        # bucket (pow2 from 16, dp-aligned): equal shapes, equal pads
-        kw = 16
-        while kw < keys_batch.shape[1]:
-            kw *= 2
-        if kw != keys_batch.shape[1]:
-            keys_batch = np.concatenate(
-                [
-                    keys_batch,
-                    np.full(
-                        (qn, kw - keys_batch.shape[1]), -1, np.int32
-                    ),
-                ],
-                axis=1,
-            )
-        bucket = 16
-        while bucket < qn:
-            bucket *= 2
-        if bucket % self.dp:
-            bucket = ((bucket + self.dp - 1) // self.dp) * self.dp
-        pad = bucket - qn
-        if pad:
-            keys_batch = np.concatenate(
-                [keys_batch, np.full((pad, keys_batch.shape[1]), -1, np.int32)]
-            )
-            alt_lo = np.concatenate([alt_lo, np.full(pad, -np.inf, np.float32)])
-            alt_hi = np.concatenate([alt_hi, np.full(pad, np.inf, np.float32)])
-            t_start = np.concatenate([t_start, np.full(pad, NO_TIME_LO)])
-            t_end = np.concatenate([t_end, np.full(pad, NO_TIME_HI)])
-            now_arr = np.concatenate(
-                [now_arr, np.zeros(pad, np.int64)]
-            )
-        # pageable host tensors; each dp row's slice goes to its devices
-        spec = query_spec(keys_batch, alt_lo, alt_hi, t_start, t_end, "cpu")
-        slots, ovf, acc = _sharded_query(
-            self.post_key,
-            self.post_ent,
-            self.ents,
-            spec,
-            torch.from_numpy(now_arr),
-            None,
-            mesh=self.mesh,
-            cap=self.cap,
-            shard_results=self.shard_results,
-            max_results=self.max_results,
-            with_owner=False,
-            replicate_out=self.multihost,
-            rows=self.rows,
-        )
-        # one small copy (shard_hits, then the widest kept row), then
-        # only the columns any query of the batch kept
-        acc = acc.cpu().numpy()
-        slots = slots[:qn, : int(acc[self.n_sp])].cpu().numpy()
-        ovf = ovf[:qn].cpu().numpy()
-        with self._hits_mu:
-            self.shard_hits += acc[: self.n_sp].astype(np.int64)
-        out = []
-        for i in range(qn):
-            if ovf[i]:
-                # result wider than max_results: exact host fallback
-                # for this query (counted — a hot cell silently
-                # degrading to the slow path must be observable)
-                self.overflow_fallbacks += 1
-                out.append(
-                    oracle.search(
-                        self.records,
-                        keys_batch[i][keys_batch[i] >= 0],
-                        None
-                        if alt_lo[i] == -np.inf
-                        else float(alt_lo[i]),
-                        None if alt_hi[i] == np.inf else float(alt_hi[i]),
-                        None if t_start[i] == NO_TIME_LO else int(t_start[i]),
-                        None if t_end[i] == NO_TIME_HI else int(t_end[i]),
-                        int(now_arr[i]),
-                    )
+        """Run a batch of queries; returns list-of-lists of entity slots.
+
+        With tracing on, four flat spans cover the call, in order:
+        `mesh.pad` (the buckets and the query fields), `mesh.launch`
+        (their host->device copies, K1 and K2 enqueued), `mesh.wait`
+        (the host waits on the card, then the device->host copies) and
+        `mesh.decode` (the slot lists; `queries`, `hits` and
+        `overflow_fallbacks` as attributes).  `tier` tags each span
+        with the replica tier this dar serves."""
+        with _phase("mesh.pad", tier):
+            qn = keys_batch.shape[0]
+            now_arr = np.broadcast_to(
+                np.asarray(now, np.int64), (qn,)
+            ).copy()
+            # the reference's key-width bucket (pow2 from 16) and batch
+            # bucket (pow2 from 16, dp-aligned): equal shapes, equal pads
+            kw = 16
+            while kw < keys_batch.shape[1]:
+                kw *= 2
+            if kw != keys_batch.shape[1]:
+                keys_batch = np.concatenate(
+                    [
+                        keys_batch,
+                        np.full(
+                            (qn, kw - keys_batch.shape[1]), -1, np.int32
+                        ),
+                    ],
+                    axis=1,
                 )
-            else:
-                row = slots[i]
-                out.append([int(s) for s in row[row != INT32_MAX]])
+            bucket = 16
+            while bucket < qn:
+                bucket *= 2
+            if bucket % self.dp:
+                bucket = ((bucket + self.dp - 1) // self.dp) * self.dp
+            pad = bucket - qn
+            if pad:
+                keys_batch = np.concatenate(
+                    [keys_batch,
+                     np.full((pad, keys_batch.shape[1]), -1, np.int32)]
+                )
+                alt_lo = np.concatenate(
+                    [alt_lo, np.full(pad, -np.inf, np.float32)])
+                alt_hi = np.concatenate(
+                    [alt_hi, np.full(pad, np.inf, np.float32)])
+                t_start = np.concatenate([t_start, np.full(pad, NO_TIME_LO)])
+                t_end = np.concatenate([t_end, np.full(pad, NO_TIME_HI)])
+                now_arr = np.concatenate(
+                    [now_arr, np.zeros(pad, np.int64)]
+                )
+            # pageable host tensors; each dp row's slice goes to its
+            # devices
+            spec = query_spec(keys_batch, alt_lo, alt_hi, t_start, t_end,
+                              "cpu")
+        with _phase("mesh.launch", tier):
+            slots, ovf, acc = _sharded_query(
+                self.post_key,
+                self.post_ent,
+                self.ents,
+                spec,
+                torch.from_numpy(now_arr),
+                None,
+                mesh=self.mesh,
+                cap=self.cap,
+                shard_results=self.shard_results,
+                max_results=self.max_results,
+                with_owner=False,
+                replicate_out=self.multihost,
+                rows=self.rows,
+            )
+        with _phase("mesh.wait", tier):
+            # one small copy (shard_hits, then the widest kept row),
+            # then only the columns any query of the batch kept
+            acc = acc.cpu().numpy()
+            slots = slots[:qn, : int(acc[self.n_sp])].cpu().numpy()
+            ovf = ovf[:qn].cpu().numpy()
+        with _phase("mesh.decode", tier) as sp:
+            out = []
+            fallbacks = 0
+            for i in range(qn):
+                if ovf[i]:
+                    # result wider than max_results: exact host fallback
+                    # for this query (counted — a hot cell silently
+                    # degrading to the slow path must be observable)
+                    fallbacks += 1
+                    out.append(
+                        oracle.search(
+                            self.records,
+                            keys_batch[i][keys_batch[i] >= 0],
+                            None
+                            if alt_lo[i] == -np.inf
+                            else float(alt_lo[i]),
+                            None if alt_hi[i] == np.inf
+                            else float(alt_hi[i]),
+                            None if t_start[i] == NO_TIME_LO
+                            else int(t_start[i]),
+                            None if t_end[i] == NO_TIME_HI
+                            else int(t_end[i]),
+                            int(now_arr[i]),
+                        )
+                    )
+                else:
+                    row = slots[i]
+                    out.append([int(s) for s in row[row != INT32_MAX]])
+            with self._hits_mu:
+                self.shard_hits += acc[: self.n_sp].astype(np.int64)
+                self.overflow_fallbacks += fallbacks
+            if sp.span_id is not None:
+                sp.set(queries=qn, hits=sum(map(len, out)),
+                       overflow_fallbacks=fallbacks)
         return out
