@@ -261,6 +261,7 @@ Runs the port only: imports neither jax nor the reference package.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import statistics
@@ -394,8 +395,15 @@ KERNELS = {
                    "dss_tpu/ops/conflict.py:78"),
     "mesh_merge": ("dss_tpu_torch/csrc/mesh_query.cu",
                    "dss_tpu/parallel/sharded.py:368"),
+    # K1 with a block of warps an item, for calls of few items
+    "mesh_query_spread": ("dss_tpu_torch/csrc/mesh_query.cu",
+                          "dss_tpu/ops/conflict.py:78"),
 }
 MESH_KERNELS = ("mesh_query", "mesh_merge")
+SPREAD_KERNEL = "mesh_query_spread"
+# the mesh kernels whose launches are counted apart: K1 a warp an item,
+# K2, and K1 a block an item
+MESH_COUNTED = MESH_KERNELS + (SPREAD_KERNEL,)
 
 
 def log(msg: str) -> None:
@@ -4214,7 +4222,7 @@ def k2_bound(n_uni, sr, r, width) -> dict:
             "bytes_padded_lists": old}
 
 
-MESH_ERR = dict.fromkeys(MESH_KERNELS, 0)  # largest |kernel - plain|
+MESH_ERR = dict.fromkeys(MESH_COUNTED, 0)  # largest |kernel - plain|
 
 
 def mesh_check(name, got, want, what) -> None:
@@ -4235,24 +4243,64 @@ def mesh_check(name, got, want, what) -> None:
 
 
 def mesh_counts() -> dict:
-    return {"mesh_query": mc.mesh_query.launches,
-            "mesh_merge": mc.mesh_merge.launches}
+    """The mesh kernels' launches in this process, each kernel apart:
+    K1 a warp an item, K1 a block an item (the spread kernel), K2."""
+    spread = mc.mesh_query.spread_launches
+    return {"mesh_query": mc.mesh_query.launches - spread,
+            SPREAD_KERNEL: spread, "mesh_merge": mc.mesh_merge.launches}
+
+
+def mesh_counts_of(metrics) -> dict:
+    """mesh_counts() of a server, from its /metrics text (where
+    dss_mesh_query_launches counts both of K1's kernels)."""
+    n = {name: int(sum(metric_values(metrics, f"_{name}_launches").values()))
+         for name in MESH_COUNTED}
+    n["mesh_query"] -= n[SPREAD_KERNEL]
+    return n
 
 
 def reset_mesh() -> None:
     mc.mesh_query.launches = 0
+    mc.mesh_query.spread_launches = 0
     mc.mesh_merge.launches = 0
 
 
-def mesh_pair(k1_args, k1_kw, k2_kw, what) -> None:
+@contextlib.contextmanager
+def k1_width(warps):
+    """K1 at `warps` warps an item (1: a warp an item) whatever a call's
+    size, for checks that hold both of its kernels to the plain
+    version on the same cases."""
+    choose = mc.spread_warps
+    mc.spread_warps = lambda items, sms: warps
+    try:
+        yield
+    finally:
+        mc.spread_warps = choose
+
+
+def k1(args, kw) -> tuple:
+    """K1 on the card -> (the name of the kernel that ran, as the
+    kernels line and TALLY name it, its outputs)."""
+    spread = mc.mesh_query.spread_launches
+    got = mc.mesh_query(*args, **kw)
+    ran = SPREAD_KERNEL if mc.mesh_query.spread_launches > spread else \
+        "mesh_query"
+    return ran, got
+
+
+def mesh_pair(k1_args, k1_kw, k2_kw, what, want_k1=None) -> None:
     """K1, and then K2 on K1's lists, each against its plain version on
-    the same tensors, tallied."""
-    got = mc.mesh_query(*k1_args, **k1_kw)
+    the same tensors, tallied; with `want_k1` the kernel K1 must have
+    launched."""
+    ran, got = k1(k1_args, k1_kw)
+    if want_k1 is not None:
+        MESH_TALLY.check(ran == want_k1, f"{what}: K1 ran {ran}, not "
+                         f"{want_k1}")
     want = mc.mesh_query_torch(*k1_args, **k1_kw)
     if k1_kw["count"]:
-        mesh_check("mesh_query", (got,), (want,), what)
+        mesh_check(ran, (got,), (want,), what)
         return
-    mesh_check("mesh_query", got, want, what)
+    mesh_check(ran, got, want, what)
     mesh_check("mesh_merge", mc.mesh_merge(*got, **k2_kw),
                mc.mesh_merge_torch(*got, **k2_kw), what)
 
@@ -4261,11 +4309,26 @@ def mesh_kernel_checks(dev) -> None:
     """K1 and K2 against their plain versions on the card over
     mesh_cases(), then on outputs the allocator hands back full of -1
     (the kernels write every pad themselves), then 40 launches over the
-    cases with no sync between them."""
+    cases with no sync between them: all of it once with K1 a warp an
+    item and once with the spread kernel's block of SPREAD_MAX_WARPS
+    warps an item (count mode a warp an item at both), each launch's
+    kernel confirmed by the spread counter."""
     cases = [(n, mesh_case_args(c, dev))
              for n, c in mesh_cases(mc.query_tile())]
+    for warps in (1, mc.SPREAD_MAX_WARPS):
+        with k1_width(warps):
+            mesh_width_checks(cases, dev, warps)
+
+
+def mesh_width_checks(cases, dev, warps) -> None:
+    """mesh_kernel_checks at one width of K1 (on the CPU, where the
+    wrappers run the plain versions, no call takes the spread kernel)."""
+    wide = (SPREAD_KERNEL if warps > 1 and dev.type == "cuda"
+            else "mesh_query")
+    at = f" at {warps} warps an item"
     for name, (args, kw, mkw) in cases:
-        mesh_pair(args, kw, mkw, f"case {name}")
+        mesh_pair(args, kw, mkw, f"case {name}{at}",
+                  "mesh_query" if kw["count"] else wide)
     args, kw, mkw = dict(cases)["owner_off"]
     want = mc.mesh_query_torch(*args, **kw)
     want2 = mc.mesh_merge_torch(*want, **mkw)
@@ -4277,7 +4340,10 @@ def mesh_kernel_checks(dev) -> None:
         ptr = dirty.data_ptr()
         del dirty
         if name == "mesh_query":
-            got, ref = mc.mesh_query(*args, **kw), want
+            name, got = k1(args, kw)
+            ref = want
+            MESH_TALLY.check(name == wide, f"dirty output{at}: K1 ran "
+                             f"{name}")
         else:
             got, ref = mc.mesh_merge(*want, **mkw), want2
         torch.cuda.synchronize()
@@ -4285,17 +4351,19 @@ def mesh_kernel_checks(dev) -> None:
         TALLY[name].check(handed_back, "dirty output: the -1 block was "
                           "not handed back, so it tested nothing")
         MESH_TALLY.check(handed_back, f"{name} dirty output not handed back")
-        mesh_check(name, got, ref, "dirty output")
+        mesh_check(name, got, ref, f"dirty output{at}")
     small = [(n, a) for n, a in cases if "past" not in n]
     plain = {n: (mc.mesh_query_torch(*a, **kw_),) if kw_["count"] else
              mc.mesh_query_torch(*a, **kw_) for n, (a, kw_, _) in small}
     outs = []
     for i in range(40):
         n, (a, kw_, _) = small[i % len(small)]
-        got = mc.mesh_query(*a, **kw_)
-        outs.append((n, (got,) if kw_["count"] else got))
-    for i, (n, got) in enumerate(outs):
-        mesh_check("mesh_query", got, plain[n], f"back-to-back launch {i}")
+        ran, got = k1(a, kw_)
+        MESH_TALLY.check(ran == ("mesh_query" if kw_["count"] else wide),
+                         f"back-to-back launch {i}{at}: K1 ran {ran}")
+        outs.append((n, ran, (got,) if kw_["count"] else got))
+    for i, (n, ran, got) in enumerate(outs):
+        mesh_check(ran, got, plain[n], f"back-to-back launch {i}{at}")
 
 
 def dar_row_args(dar, q, d, now=NOW) -> list:
@@ -4339,8 +4407,8 @@ def dar_kernel_checks(dar, q, what, now=NOW) -> list:
     for d in range(dar.dp):
         groups = []
         for dev, shards, args, kw in dar_row_args(dar, q, d, now):
-            got = mc.mesh_query(*args, **kw)
-            mesh_check("mesh_query", got, mc.mesh_query_torch(*args, **kw),
+            ran, got = k1(args, kw)
+            mesh_check(ran, got, mc.mesh_query_torch(*args, **kw),
                        f"{what} row {d}")
             groups.append((dev, shards, *got))
         cols = ps._row_columns(groups, dar.n_sp, dar.mesh.devices[d, 0])
@@ -4824,13 +4892,16 @@ def skew_pass(rep, areas, picks) -> tuple:
             got)
 
 
-def mesh_skew(dev, smi) -> dict:
+def mesh_skew(dev, smi, flush) -> dict:
     """Part 2: the reference's skew leg (bench.py:2424-2459, 2530-2600)
     at its own size on a virtual 1x8 mesh of the card, max_results 256,
     shard_results 48: per Zipf alpha, SKEW_QUERIES serial queries with
     rebalancing off (the equal-count split) and on (measure, move at
     the fold, re-measure).  The answers with it on must equal those
-    with it off, and the exact host answer."""
+    with it off, and the exact host answer.  Its one query is 8 K1
+    items, which take the spread kernel: timed here
+    (`spread_kernel`) at the hot area's query against the plain
+    version, beside its bound on the same inputs."""
     import os
     import shutil
 
@@ -4924,6 +4995,9 @@ def mesh_skew(dev, smi) -> dict:
         for dar in (snap.base, snap.delta):
             if dar is not None:
                 dar_kernel_checks(dar, q, "skew", now=0)
+        hot = (keys[:1], *(x[:1] for x in q[1:]))
+        _, _, args, kw = dar_row_args(snap.base, hot, 0, now=0)[0]
+        spread_kernel = spread_timing(args, kw, flush)
     finally:
         rep.close()
         shutil.rmtree(work, ignore_errors=True)
@@ -4931,9 +5005,26 @@ def mesh_skew(dev, smi) -> dict:
             "queries_per_pass": SKEW_QUERIES, "mesh": "1x8 virtual",
             "sharded_launches": ps.sharded_conflict_query_batch.launches,
             "kernel_launches": kernel_launches,
+            "spread_kernel": spread_kernel,
             "max_results": 256, "shard_results": 48,
             "per_alpha": per_alpha, "seconds": time.perf_counter() - t_all,
             "card": smi}
+
+
+def spread_timing(args, kw, flush) -> dict:
+    """The spread kernel's timings() on K1's `args`, `kw` (a call it
+    takes, as the counter confirms), with k1_bound on the same inputs
+    and the share of it."""
+    ran, _ = k1(args, kw)
+    MESH_TALLY.check(ran == SPREAD_KERNEL, f"spread timing: K1 ran {ran}")
+    t = timings(SPREAD_KERNEL, lambda: mc.mesh_query(*args, **kw),
+                lambda: mc.mesh_query_torch(*args, **kw), flush)
+    b = k1_bound(args[0].cpu().numpy(), args[1].cpu().numpy(),
+                 args[5].keys.cpu().numpy(), kw["cap"], kw["max_results"])
+    return {**t, "items": args[0].shape[0] * args[5].keys.shape[0],
+            "bound_ms": b["ms"], "bound_bytes": b["bytes"],
+            "candidates": b["candidates"],
+            "share_of_bound": b["ms"] / t["ms"]}
 
 
 def mesh_failures(line) -> list:
@@ -4947,6 +5038,11 @@ def mesh_failures(line) -> list:
                  "max_count_per_cell") + MESH_KERNELS:
         if launches[name] <= 0:
             out.append(f"mesh: {name} never ran on the card")
+    if launches[SPREAD_KERNEL]:
+        out.append(f"mesh: the headline batches took the spread kernel "
+                   f"{launches[SPREAD_KERNEL]} times")
+    if line["skew"]["kernel_launches"][SPREAD_KERNEL] <= 0:
+        out.append("mesh skew: K1 never took the spread kernel")
     hot = line["skew"]["per_alpha"][str(SKEW_ALPHAS[-1])]["on"]
     if hot["boundary_moves"] <= 0:
         out.append("mesh skew: no boundary move at the hottest alpha")
@@ -4956,7 +5052,9 @@ def mesh_failures(line) -> list:
 def mesh_kernel_entries() -> list:
     """K1's and K2's entries of the kernels line: times at the 1x1
     headline (the 2x4's beside them), launches on the main path (the
-    headline batches) and in every leg."""
+    headline batches) and in every leg; then the spread kernel's (K1 a
+    block an item), timed at the skew leg's hot query, whose launches
+    are the skew leg's (no headline batch takes it)."""
     scale = MESH_LINE["scale"]
     legs = {"mesh": scale["launches"],
             "skew": MESH_LINE["skew"]["kernel_launches"],
@@ -4964,6 +5062,8 @@ def mesh_kernel_entries() -> list:
                 "kernel_launches", {}),
             "server": MESH_LINE.get("server", {}).get("kernel_launches", {}),
             "multihost": MESH_LINE.get("multihost_kernel_launches", {})}
+    occ = mc.occupancy()
+    spread_occ = occ.pop("spread")
     out = []
     for name in MESH_KERNELS:
         t = scale["kernels"]["1x1"][name]
@@ -4979,8 +5079,21 @@ def mesh_kernel_entries() -> list:
                        for k in ("ms", "warm_ms", "call_ms", "plain_ms",
                                  "bound_ms", *bounds)}
         if name == "mesh_query":
-            e.update(mc.occupancy())
+            e.update(occ)
         out.append(e)
+    t = MESH_LINE["skew"]["spread_kernel"]
+    e = entry(SPREAD_KERNEL, legs["skew"][SPREAD_KERNEL],
+              MESH_ERR[SPREAD_KERNEL],
+              {k: t[k] for k in ("ms", "warm_ms", "call_ms", "plain_ms",
+                                 "plain_call_ms", "ms_source")},
+              t["bound_ms"])
+    e["launches_by_leg"] = {leg: v.get(SPREAD_KERNEL, 0)
+                            for leg, v in legs.items()}
+    e.update((k, t[k]) for k in ("items", "bound_bytes", "candidates",
+                                 "share_of_bound"))
+    e["timed_at"] = "the skew leg's hot query, virtual 1x8"
+    e.update(spread_occ)
+    out.append(e)
     return out
 
 
@@ -5290,9 +5403,7 @@ def mesh_server(smi, state) -> tuple:
                         or not k.endswith(("_dirty", "_generation"))},
             "http_mesh_offloads": int(sum(metric_values(
                 metrics, "_mesh_offloads").values())),
-            "kernel_launches": {name: int(sum(metric_values(
-                metrics, f"_{name}_launches").values()))
-                for name in MESH_KERNELS},
+            "kernel_launches": mesh_counts_of(metrics),
         }
     finally:
         t = time.perf_counter()
@@ -7621,9 +7732,7 @@ def mh_server_leg(work, state, smi) -> tuple:
             "multihost_gauges": {k: v for k, v in gauges.items()
                                  if k.startswith("dss_multihost_")},
             "shard_members": st.get("dss_shard_members"),
-            "kernel_launches": {name: int(sum(metric_values(
-                metrics, f"_{name}_launches").values()))
-                for name in MESH_KERNELS},
+            "kernel_launches": mesh_counts_of(metrics),
         })
         if st.get("dss_shard_members") != 2:
             failures.append(f"multihost server: {st.get('dss_shard_members')}"
@@ -7700,7 +7809,7 @@ def multihost_phase(smi, state) -> tuple:
     parts = (list(line["serving"].get("kernel_launches", {}).values())
              + [line["server"].get("kernel_launches", {})])
     line["kernel_launches"] = {name: sum(p.get(name, 0) for p in parts)
-                               for name in MESH_KERNELS}
+                               for name in MESH_COUNTED}
     MESH_LINE["multihost_kernel_launches"] = line["kernel_launches"]
     return {"multihost": line}, failures
 
@@ -7854,7 +7963,7 @@ def run(dev, smi) -> tuple:
     MESH_LINE["scale"] = mesh_scale(dev, idx, recs, orc, flush, smi,
                                     b1_t["ms"])
     log(json.dumps({"mesh_scale": MESH_LINE["scale"]}))
-    MESH_LINE["skew"] = mesh_skew(dev, smi)
+    MESH_LINE["skew"] = mesh_skew(dev, smi, flush)
     log(json.dumps({"mesh_skew": MESH_LINE["skew"]}))
     failures = mesh_failures(MESH_LINE)
     log(f"seconds before serving: {time.perf_counter() - t_all:.2f}")
@@ -7987,7 +8096,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     # K1's and K2's comparisons are on MESH_TALLY as well
-    tallies = [t for name, t in TALLY.items() if name not in MESH_KERNELS]
+    tallies = [t for name, t in TALLY.items() if name not in MESH_COUNTED]
     tallies += [STORE_TALLY, NATIVE_TALLY, PUSH_TALLY, MESH_TALLY,
                 REGION_TALLY, FED_TALLY, TUNER_TALLY, MULTIHOST_TALLY]
     bad = sum(t.mismatches for t in tallies)

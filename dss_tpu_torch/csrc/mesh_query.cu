@@ -57,6 +57,37 @@
 // 40 registers (spilling) or four candidates a lane are slower; merging
 // the hits' ascending runs (each cell's run is ascending by slot) instead
 // of sorting them was 1-4 % slower at about 40 hits an item, so K1 sorts.
+// A warp an item leaves a narrow launch short of loads in flight: the
+// benchmark's chunk of 64 searches (1M intents, 8 cells in a key width of
+// 16, cap 1024) is 64 warps on 132 SMs, each walking ~3,300 candidates
+// (~52 rounds of two dependent loads) and ~330 raw hits alone: 0.172 ms.
+// So up to SPREAD_ITEMS_PER_SM items an SM (ops/mesh_cuda.py
+// spread_warps: the call's items and the card's SM count, nothing else)
+// K1 takes a block of kSpreadMax warps an item
+// (mesh_query_kernel_spread, any 2..kSpreadMax warps): the searches for
+// each live key's first posting and its run's end (the first posting
+// past the key), base and delta, spread over the warps, a warp each where
+// there are as many warps as searches (33-ary, ~5 probes at 8M postings),
+// else groups of lanes; the run table in shared memory; all 32 W lanes
+// gathering kUnroll candidates a round (~4 rounds at W 16); the hits
+// appended by ballot, popc and one shared counter a warp to a block tile
+// of kSpreadTile int32 (32 KB: no scratch while a chunk's candidates fit
+// beside the hits so far, as every item of the benchmark's does) or, past
+// it, the item's global slice; a block-wide bitonic sort whose steps up
+// to 64 values stay in one warp; warp 0's dedup.  Count mode
+// (max_count_per_cell, off the serving paths) stays a warp an item.
+// Measured on an H100 (mesh_device_time.py, cold device ms at 64 / 512 /
+// 2048 / 4096 / 8192 items), at that shape (--shape search64): a warp
+// an item 0.177 / 0.185 / 0.206 / 0.272 / 0.531, a block of 16 warps
+// 0.028 / 0.051 / 0.145 / 0.257 / 0.503 (of 2, 4 or 8 warps slower than
+// 16 at every size; of 32, before the launch bound, 0.025 at 64 but
+// slower from 256 on); at the headline's sparse queries (cap 128) at
+// 512 / 1024 / 2048 / 4096 / 8192 items: a warp an item 0.030 / 0.034 /
+// 0.038 / 0.046 / 0.081, 16 warps 0.020 / 0.034 / 0.059 / 0.106 / 0.201.
+// So 16 warps up to 8 items an SM (1,056 on an H100, where both shapes
+// gain or tie; past every narrow caller: the cell's 64, the server's
+// 128, multihost's 256, the skew leg's 8), a warp an item past it (the
+// headlines' 4,096 and 8,192).
 // K2 reads n_uni and the min(n_uni, sr) live values of each shard list
 // (the rest are pads it never reads) and writes every column of a row of
 // R, pads included: that is its bound.  One warp per query.  K1 writes
@@ -86,6 +117,8 @@ constexpr int kUnroll = 2;         // K1: candidates a lane gathers a round
 constexpr int kMinBlocks = 8;      // K1: blocks an SM should hold (32 warps)
 constexpr int kDelta = 1 << 30;    // K1: marks a delta run's first posting
 constexpr int kMergeTile = 1024;   // K2: int32 a warp holds in shared memory
+constexpr int kSpreadMax = 16;     // K1 spread: most warps an item's block
+constexpr int kSpreadTile = 8192;  // K1 spread: hits in a block's shared tile
 
 // One K1 warp's shared state.
 struct QueryWarp {
@@ -95,6 +128,18 @@ struct QueryWarp {
   int hits[65];        // count mode: hits before each run's first candidate,
                        // then after the chunk
   int32_t tile[kTile];
+};
+
+// One K1 spread block's shared state: one item over the block's warps.
+struct QueryBlock {
+  int32_t key[32];     // the chunk's live keys, in order
+  int bound[128];      // the searches' answers: each key's base run's
+                       // first posting, then its end, then the delta's
+  int start[65];       // as in QueryWarp
+  int lo[64];
+  int nr;              // the chunk's nonempty runs
+  int n;               // hits so far
+  int32_t tile[kSpreadTile];
 };
 
 struct QueryArgs {
@@ -281,27 +326,55 @@ __device__ __forceinline__ void merge_runs(const int32_t* buf,
   }
 }
 
-// Sorts buf[0, n) ascending, one warp.  Bitonic with every compare
+// Compare t of the bitonic step (k, j) over buf[0, n): every compare
 // ascending (the first step of each merge compares mirror positions), so
 // the positions past n act as +inf and any compare that reaches one is a
-// no-op: only n values are stored.
+// no-op: only n values are stored.  Compare t touches positions in
+// [64 * (t / 32), + 64) while k <= 64.
+__device__ __forceinline__ void bitonic_compare(int32_t* buf, int n, int k,
+                                                int j, int t) {
+  const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
+  const int pr = (j == (k >> 1)) ? (i ^ (k - 1)) : (i + j);
+  if (pr < n) {
+    const int32_t x = buf[i], y = buf[pr];
+    if (x > y) {
+      buf[i] = y;
+      buf[pr] = x;
+    }
+  }
+}
+
+// Sorts buf[0, n) ascending, one warp.
 __device__ __forceinline__ void warp_sort(int32_t* buf, int n, int lane) {
   int np2 = 1;
   while (np2 < n) np2 <<= 1;
   for (int k = 2; k <= np2; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
       for (int t = lane; t < (np2 >> 1); t += 32) {
-        const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
-        const int pr = (j == (k >> 1)) ? (i ^ (k - 1)) : (i + j);
-        if (pr < n) {
-          const int32_t x = buf[i], y = buf[pr];
-          if (x > y) {
-            buf[i] = y;
-            buf[pr] = x;
-          }
-        }
+        bitonic_compare(buf, n, k, j, t);
       }
       __syncwarp();
+    }
+  }
+}
+
+// Sorts buf[0, n) ascending, the whole block (nt threads, whole warps):
+// the steps of merges of up to 64 values stay inside one warp's 64
+// positions, so only the later steps wait for the block.
+__device__ __forceinline__ void block_sort(int32_t* buf, int n, int tid,
+                                           int nt) {
+  int np2 = 1;
+  while (np2 < n) np2 <<= 1;
+  for (int k = 2; k <= np2; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int t = tid; t < (np2 >> 1); t += nt) {
+        bitonic_compare(buf, n, k, j, t);
+      }
+      if (k < 64 || (k == 64 && j > 1)) {
+        __syncwarp();
+      } else {
+        __syncthreads();
+      }
     }
   }
 }
@@ -492,6 +565,170 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
   if (lane == 0) a.count[item] = uniq;
 }
 
+// K1 with one item a block of W warps (blockDim.x = 32 W), for calls of
+// few items; not in count mode.  The same answers as mesh_query_kernel
+// (the header's design): each end of each run by its own group search,
+// the gather over the block, the hits in a block tile of kSpreadTile
+// int32 while a chunk's candidates fit beside them, else in the item's
+// slice of the scratch (present whenever buf > kSpreadTile, as the
+// wrapper allocates it), sorted by the block, deduplicated by warp 0.
+// The launch bound leaves a full SM of threads 32 registers each.
+__global__ void __launch_bounds__(kSpreadMax * 32, 2048 / (kSpreadMax * 32))
+    mesh_query_kernel_spread(const QueryArgs a) {
+  __shared__ QueryBlock sh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nt = blockDim.x, nw = nt >> 5;
+  const long long rel = blockIdx.x;
+  const long long item = a.item0 + rel;
+  const int s = static_cast<int>(item / a.q);
+  const int qi = static_cast<int>(item % a.q);
+  const int32_t* pkey = a.pkey + static_cast<long long>(s) * a.p;
+  const int32_t* pent = a.pent + static_cast<long long>(s) * a.p;
+  const int32_t* dkey = a.dkey + static_cast<long long>(s) * a.pd;
+  const int32_t* dent = a.dent + static_cast<long long>(s) * a.pd;
+  const int32_t* keys = a.keys + static_cast<long long>(qi) * a.k;
+  Bounds bq;
+  bq.alo = a.qalo[qi];
+  bq.ahi = a.qahi[qi];
+  bq.t0 = a.qt0[qi];
+  bq.t1 = a.qt1[qi];
+  bq.now = a.now[qi];
+  bq.by_owner = a.qowner != nullptr;
+  bq.owner = bq.by_owner ? a.qowner[qi] : 0;
+
+  if (tid == 0) sh.n = 0;
+  int32_t* buf = sh.tile;
+  bool spilled = false;
+  for (int c0 = 0; c0 < a.k; c0 += 32) {
+    // every warp reads the chunk's keys, so nk is the block's
+    const int32_t key = c0 + lane < a.k ? keys[c0 + lane] : -1;
+    const unsigned live = __ballot_sync(kFull, key >= 0);
+    const int nk = __popc(live);
+    if (nk == 0) continue;
+    if (warp == 0 && key >= 0) sh.key[__popc(live & lanes_below(lane))] = key;
+    __syncthreads();
+    // the searches: first and end of key i's base run at i and nk + i,
+    // of its delta run at 2 nk + i and 3 nk + i (an end is the first
+    // posting past the key); search j on warp j % nw, a warp's in groups
+    // of g lanes, all at once where they fit
+    const int ns = (a.pd ? 4 : 2) * nk;
+    const int per = (ns - warp + nw - 1) / nw;  // this warp's searches
+    int lg = 0;
+    while ((1 << lg) < min(per, 32)) ++lg;
+    const int g = 32 >> lg, gi = lane / g;
+    for (int m0 = 0; m0 < per; m0 += 32 / g) {
+      const int j = warp + (m0 + gi) * nw;
+      const int part = j < ns ? j / nk : 0;
+      const int32_t kk = j < ns ? sh.key[j - part * nk] : 0;
+      const bool after = part & 1;
+      const int len = j >= ns ? 0 : part >= 2 ? a.pd : a.p;
+      const int at = group_lower_bound(part >= 2 ? dkey : pkey, len,
+                                       after ? kk + (kk < kPad) : kk, g,
+                                       gi * g, lane % g);
+      if (j < ns && lane % g == 0) {
+        sh.bound[j] = after && kk == kPad ? len : at;
+      }
+    }
+    // the hits so far, read before any warp appends this chunk's
+    const int n0 = sh.n;
+    __syncthreads();
+    if (warp == 0) {
+      // lane i < nk: key i's runs, capped; the run table as
+      // mesh_query_kernel builds it
+      const bool mine = lane < nk;
+      const int fb = mine ? sh.bound[lane] : 0;
+      const int cnt_b = mine ? min(sh.bound[nk + lane] - fb, a.cap) : 0;
+      const bool md_on = mine && a.pd;
+      const int fd = md_on ? sh.bound[2 * nk + lane] : 0;
+      const int cnt_d = md_on ? min(sh.bound[3 * nk + lane] - fd, a.dcap) : 0;
+      const unsigned mb = __ballot_sync(kFull, cnt_b > 0);
+      const unsigned md = __ballot_sync(kFull, cnt_d > 0);
+      const int nb = __popc(mb), nr = nb + __popc(md);
+      const int rb = __popc(mb & lanes_below(lane));
+      const int rd = nb + __popc(md & lanes_below(lane));
+      int inc_b = cnt_b, inc_d = cnt_d;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int x = __shfl_up_sync(kFull, inc_b, o);
+        const int y = __shfl_up_sync(kFull, inc_d, o);
+        if (lane >= o) {
+          inc_b += x;
+          inc_d += y;
+        }
+      }
+      const int tot_b = __shfl_sync(kFull, inc_b, 31);
+      const int total = tot_b + __shfl_sync(kFull, inc_d, 31);
+      if (cnt_b > 0) {
+        sh.start[rb] = inc_b - cnt_b;
+        sh.lo[rb] = fb;
+      }
+      if (cnt_d > 0) {
+        sh.start[rd] = tot_b + inc_d - cnt_d;
+        sh.lo[rd] = fd | kDelta;
+      }
+      if (lane == 0) {
+        sh.start[nr] = total;
+        sh.nr = nr;
+      }
+    }
+    __syncthreads();
+    const int nr = sh.nr;
+    const int total = sh.start[nr];
+    if (!spilled && n0 + total > kSpreadTile) {
+      // the chunk's hits may pass the tile: the item's slice from here
+      // on (n0 + total <= buf, the item's candidates)
+      int32_t* slice = a.scratch + rel * a.buf;
+      for (int i = tid; i < n0; i += nt) slice[i] = sh.tile[i];
+      buf = slice;
+      spilled = true;
+    }
+    // the gather: kUnroll candidates a lane a round
+    for (int b = 0; b < total; b += nt * kUnroll) {
+      int32_t e[kUnroll];
+      bool hit[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int c = b + u * nt + tid;
+        e[u] = 0;
+        if (c < total) {
+          const int run = find_run(sh.start, nr, c);
+          const int lo = sh.lo[run];
+          const int idx = (lo & ~kDelta) + (c - sh.start[run]);
+          e[u] = __ldg((lo & kDelta ? dent : pent) + idx);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        hit[u] = b + u * nt + tid < total && entity_hit(a.rows, e[u], bq);
+      }
+      unsigned m[kUnroll];
+      int got = 0;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        m[u] = __ballot_sync(kFull, hit[u]);
+        got += __popc(m[u]);
+      }
+      int pos = 0;
+      if (lane == 0 && got) pos = atomicAdd(&sh.n, got);
+      pos = __shfl_sync(kFull, pos, 0);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (hit[u]) buf[pos + __popc(m[u] & lanes_below(lane))] = e[u];
+        pos += __popc(m[u]);
+      }
+    }
+    __syncthreads();
+  }
+  __syncthreads();
+  const int n = sh.n;
+  block_sort(buf, n, tid, nt);
+  if (warp == 0) {
+    const int uniq = unique_out(buf, n, lane < n ? buf[lane] : kPad,
+                                a.slots + item * a.r, a.r, lane);
+    if (lane == 0) a.count[item] = uniq;
+  }
+}
+
 __global__ void __launch_bounds__(kWarps * 32)
     mesh_merge_kernel(const MergeArgs a) {
   extern __shared__ int smem[];
@@ -578,13 +815,19 @@ long long merge_smem(long long n_sp) {
 
 }  // namespace
 
-// The int32 hits a K1 warp holds in shared memory (kTile).
-extern "C" int dss_mesh_query_tile() { return kTile; }
+// The int32 hits K1 holds in shared memory at `warps` warps an item: a
+// warp's kTile, or a spread block's kSpreadTile.
+extern "C" int dss_mesh_query_tile(int warps) {
+  return warps > 1 ? kSpreadTile : kTile;
+}
 
-// 1 when K1 needs no global scratch for items of `buf` int32 hits at
-// most (count mode holds none), else 0.
-extern "C" int dss_mesh_query_fits(long long buf, long long count_mode) {
-  return count_mode || buf <= kTile ? 1 : 0;
+// 1 when K1 at `warps` warps an item needs no global scratch for items
+// of `buf` int32 hits at most (count mode holds none), else 0.
+extern "C" int dss_mesh_query_fits(long long buf, long long count_mode,
+                                   long long warps) {
+  return count_mode || buf <= dss_mesh_query_tile(static_cast<int>(warps))
+             ? 1
+             : 0;
 }
 
 // 1 when K2 needs no global scratch for n_sp lists of sr values, else 0.
@@ -592,15 +835,18 @@ extern "C" int dss_mesh_merge_fits(long long n_sp, long long sr) {
   return n_sp <= 1 || 2 * n_sp * sr <= kMergeTile ? 1 : 0;
 }
 
-// K1's blocks per SM, registers a thread and local memory a thread, into
-// out[0..3); returns the CUDA error of the queries.
-extern "C" int dss_mesh_query_occupancy(int* out) {
+// A kernel's blocks per SM at `threads` a block, registers a thread and
+// local memory a thread, into out[0..3); returns the CUDA error of the
+// queries.
+template <typename Kernel>
+int kernel_occupancy(Kernel kernel, int threads, int* out) {
   int blocks = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, mesh_query_kernel, kWarps * 32, 0);
+  cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                    threads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, mesh_query_kernel);
+  err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = blocks;
   out[1] = attr.numRegs;
@@ -608,18 +854,37 @@ extern "C" int dss_mesh_query_occupancy(int* out) {
   return 0;
 }
 
+// K1's occupancy (kernel_occupancy) into out[0..3), then the spread
+// kernel's at blocks of kSpreadMax warps into out[3..6), and kSpreadMax
+// into out[6]; returns the CUDA error of the queries.
+extern "C" int dss_mesh_query_occupancy(int* out) {
+  const int err = kernel_occupancy(mesh_query_kernel, kWarps * 32, out);
+  if (err) return err;
+  out[6] = kSpreadMax;
+  return kernel_occupancy(mesh_query_kernel_spread, kSpreadMax * 32, out + 3);
+}
+
 // Launches K1 over items [item0, item0 + n_items) of the s * q (shard,
 // query) items on `stream` and returns cudaGetLastError().  Pointers as
-// in QueryArgs; qowner, and dkey/dent with pd 0, may be null; scratch
-// holds n_items * buf int32 when buf > the tile (dss_mesh_query_fits 0),
-// else may be null.  slots is unused in count mode.
+// in QueryArgs; qowner, and dkey/dent with pd 0, may be null.  With
+// warps 1 a warp takes an item (mesh_query_kernel), and scratch holds
+// n_items * buf int32 when buf > the tile (dss_mesh_query_fits 0), else
+// may be null; with warps in 2..kSpreadMax a block of that many warps
+// takes an item (mesh_query_kernel_spread, not in count mode), and
+// scratch holds n_items * buf int32 when buf > kSpreadTile, else may be
+// null (dss_mesh_query_fits decides both).  The program passes 1 or
+// kSpreadMax (ops/mesh_cuda.py spread_warps); the widths between are
+// for mesh_device_time.py's sweep.  slots is unused in count mode.
 extern "C" int dss_mesh_query(
     const void* pkey, const void* pent, int p, int cap, const void* dkey,
     const void* dent, int pd, int dcap, const void* rows, const void* keys,
     int k, const void* qalo, const void* qahi, const void* qt0,
     const void* qt1, const void* now, const void* qowner, int s, int q,
     int r, int count_mode, int buf, void* scratch, long long item0,
-    long long n_items, void* slots, void* count, void* stream) {
+    long long n_items, int warps, void* slots, void* count, void* stream) {
+  if (warps < 1 || warps > kSpreadMax || (count_mode && warps > 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n_items <= 0) return static_cast<int>(cudaGetLastError());
   QueryArgs a;
   a.pkey = static_cast<const int32_t*>(pkey);
@@ -649,6 +914,11 @@ extern "C" int dss_mesh_query(
   a.n_items = n_items;
   a.slots = static_cast<int32_t*>(slots);
   a.count = static_cast<int32_t*>(count);
+  if (warps > 1) {
+    mesh_query_kernel_spread<<<static_cast<unsigned>(n_items), warps * 32, 0,
+                               static_cast<cudaStream_t>(stream)>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
   const long long grid = (n_items + kWarps - 1) / kWarps;
   mesh_query_kernel<<<static_cast<unsigned>(grid), kWarps * 32, 0,
                       static_cast<cudaStream_t>(stream)>>>(a);

@@ -24,8 +24,11 @@ On CUDA tensors each launches its kernel or raises; on CPU tensors it
 runs the plain PyTorch version beside it (`mesh_query_torch`,
 `mesh_merge_torch`: the torch ops the port ran before the kernels,
 written after the reference's steps).  Each wrapper counts its kernel
-launches in `.launches`.  K1 reads each entity as one 32 B row of
-`pack_entity_rows`, which the caller builds and hands over as `rows=`
+launches in `.launches`.  K1 takes a warp an item, or, where a call has
+at most SPREAD_ITEMS_PER_SM items an SM, a block of `spread_warps(items,
+SMs)` warps an item; `mesh_query.spread_launches` counts those
+launches.  K1 reads each entity as one 32 B row of `pack_entity_rows`,
+which the caller builds and hands over as `rows=`
 (`parallel/sharded.ShardedDar` builds them once per snapshot).  The
 kernels' bound on the card and their design are in the CUDA source's
 header.
@@ -34,6 +37,7 @@ header.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import numpy as np
@@ -46,6 +50,12 @@ INT32_MAX = np.int32(2**31 - 1)
 # bytes of global hit buffers one K1 launch may take; a batch whose
 # buffers need more runs as several launches over its items
 SCRATCH_LIMIT = 1 << 28
+# K1 takes a block of SPREAD_MAX_WARPS warps an item (csrc/mesh_query.cu
+# kSpreadMax) while a call has at most this many items an SM, a warp an
+# item past it (measured on an H100 by mesh_device_time.py --shape
+# search64; the CUDA source's header)
+SPREAD_ITEMS_PER_SM = 8
+SPREAD_MAX_WARPS = 16
 
 _QUERY_ARGTYPES = (
     [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
@@ -53,7 +63,7 @@ _QUERY_ARGTYPES = (
     + [ctypes.c_void_p] * 2 + [ctypes.c_int]
     + [ctypes.c_void_p] * 6
     + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 3
+    + [ctypes.c_longlong] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3
 )
 _MERGE_ARGTYPES = (
     [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
@@ -61,6 +71,7 @@ _MERGE_ARGTYPES = (
 # whether a launch's buffers fit in a block's shared memory: the layout
 # is the CUDA source's alone
 _FITS_ARGTYPES = [ctypes.c_longlong] * 2
+_QUERY_FITS_ARGTYPES = [ctypes.c_longlong] * 3
 # replica readers query from several threads: the counts are bumped
 # under this lock, so no increment is lost
 _COUNT_LOCK = threading.Lock()
@@ -238,6 +249,18 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def spread_warps(items: int, sms: int) -> int:
+    """The warps of K1's block for each of a call's `items` on a card of
+    `sms` SMs: SPREAD_MAX_WARPS up to SPREAD_ITEMS_PER_SM items an SM,
+    else 1 (a warp an item, four items a block)."""
+    return SPREAD_MAX_WARPS if items <= SPREAD_ITEMS_PER_SM * sms else 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def mesh_query(post_key, post_ent, delta_key, delta_ent, ents, q, now,
                owner=None, *, rows, cap, delta_cap, max_results,
                count=False):
@@ -310,8 +333,10 @@ def mesh_query(post_key, post_ent, delta_key, delta_ent, ents, q, now,
     if items == 0:
         return out if count else (slots, out)
     fn = cuda_build.function("dss_mesh_query", _QUERY_ARGTYPES)
-    fits = cuda_build.function("dss_mesh_query_fits", _FITS_ARGTYPES)
-    in_smem = bool(fits(buf, int(count)))
+    warps = 1 if count else spread_warps(items, _sms(
+        torch.cuda.current_device() if dev.index is None else dev.index))
+    fits = cuda_build.function("dss_mesh_query_fits", _QUERY_FITS_ARGTYPES)
+    in_smem = bool(fits(buf, int(count), warps))
     step = items if in_smem else max(1, SCRATCH_LIMIT // (4 * buf))
     scratch = None
     if not in_smem:
@@ -326,10 +351,11 @@ def mesh_query(post_key, post_ent, delta_key, delta_ent, ents, q, now,
                     rows.data_ptr(), keys.data_ptr(), k,
                     *(t.data_ptr() for t in q[1:5]), now.data_ptr(),
                     _ptr(owner), s, nq, max_results, int(count), buf,
-                    _ptr(scratch), item0, min(step, items - item0),
+                    _ptr(scratch), item0, min(step, items - item0), warps,
                     _ptr(slots), out.data_ptr(), stream)
             with _COUNT_LOCK:
                 mesh_query.launches += 1
+                mesh_query.spread_launches += warps > 1
     return out if count else (slots, out)
 
 
@@ -378,31 +404,39 @@ def mesh_merge(slots, n_uni, *, shard_results, max_results):
     return out, ovf, kept, acc
 
 
-def query_tile() -> int:
-    """The int32 hits a K1 warp holds in shared memory, as the built
-    kernel has it: an item with more moves them to its slice of a
-    global scratch."""
-    return cuda_build.function("dss_mesh_query_tile", [])()
+def query_tile(warps: int = 1) -> int:
+    """The int32 hits K1 holds in shared memory at `warps` warps an
+    item (a warp's tile, or a spread block's), as the built kernel has
+    it: an item with more moves them to its slice of a global
+    scratch."""
+    return cuda_build.function("dss_mesh_query_tile",
+                               [ctypes.c_int])(warps)
 
 
 def occupancy() -> dict:
     """K1 on this card: the blocks of 128 threads an SM holds at once,
     the registers a thread and the local memory a thread (spills and
-    stack) of the built kernel."""
-    out = (ctypes.c_int * 3)()
+    stack) of the built kernel; under "spread" the same of the spread
+    kernel at its largest block (`warps`)."""
+    out = (ctypes.c_int * 7)()
     _launch(cuda_build.function("dss_mesh_query_occupancy",
                                 [ctypes.c_void_p]),
             "mesh_query occupancy", ctypes.addressof(out))
     return {"blocks_per_sm": out[0], "registers": out[1],
-            "local_bytes": out[2]}
+            "local_bytes": out[2],
+            "spread": {"warps": out[6], "blocks_per_sm": out[3],
+                       "registers": out[4], "local_bytes": out[5]}}
 
 
 def launch_stats() -> dict:
     """The kernels' launch counts in this process, as gauges (the
-    server's /metrics carries them beside a mesh replica's)."""
+    server's /metrics carries them beside a mesh replica's); K1's
+    launches with a block an item are also counted apart."""
     return {"dss_mesh_query_launches": mesh_query.launches,
+            "dss_mesh_query_spread_launches": mesh_query.spread_launches,
             "dss_mesh_merge_launches": mesh_merge.launches}
 
 
 mesh_query.launches = 0
+mesh_query.spread_launches = 0
 mesh_merge.launches = 0

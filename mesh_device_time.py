@@ -5,6 +5,7 @@ this checkout's K1 that each leave one design choice out.
 
     python3 mesh_device_time.py [--root DIR] [--variants]
                                 [--variant NAME=CONST:VALUE,...]
+    python3 mesh_device_time.py [--root DIR] --shape search64 [--seed N]
 
 DIR holds the `dss_tpu_torch` package to time (default: this checkout).
 It loads chip_smoke.py's 1M records (before the main path's writes),
@@ -15,9 +16,11 @@ width of 16) and its K2 (`mesh_merge`) on K1's lists: the device time
 of one call with the L2 flushed (`cold_ms`) and without (`warm_ms`),
 by chip_smoke.device_ms; and the device time of one whole
 `ShardedDar.query_batch`.  K1's and K2's answers are held against their
-plain versions.  To hold one copy against another, unpack the other's
-package where git does not look and run both in turns in one call on
-the card:
+plain versions.  On the 1x1 mesh K1 is also timed (cold) on the
+batch's first HEADLINE_ITEMS queries at every block width of a copy
+with the spread path (`width_sweep`).  To hold one copy against
+another, unpack the other's package where git does not look and run
+both in turns in one call on the card:
 
     mkdir -p build/parent
     git archive <commit> dss_tpu_torch | tar -x -C build/parent
@@ -37,6 +40,25 @@ and K2 on dp row 0 against their plain versions, their device time
 cold and warm and their call time (chip_smoke.timings), their bounds
 (chip_smoke.k1_bound, k2_bound, as the headline uses them) and the
 share, and the device and call time of the whole query_batch.
+
+With --shape search64 it times K1 at the benchmark cell
+scd_mesh_1m.search64's shape instead: portbench's `corridors` recipe at
+the configuration's 1M intents (seed N, default 1) in a 1x1 ShardedDar
+(base_cap 1024), chunks of 64 searches of 8 cells in a key width of 16
+from the traffic's query mix.  It counts, for the first SEARCH64_STATS
+searches, each item's candidates (min(run, cap) over its cells), raw
+hits before the dedup and unique hits, and the items whose raw hits
+pass the one-warp tile (`query_tile()`) or whose candidates pass a
+spread block's tile (`query_tile(SPREAD_MAX_WARPS)`, which moves its
+hits to the global scratch); then one chunk as the package launches it
+(chip_smoke.timings: cold, warm and call time, the plain version's)
+beside chip_smoke.k1_bound on its inputs; then K1's cold and warm
+device time on one chunk and its cold time on SEARCH64_ITEMS searches
+at once, each on every block width W of a copy that has the spread
+path (`spread_warps` forced to W, W = 1 a warp an item) and on the
+width the copy chooses, each call's answers held against the plain
+version.  A copy without the spread
+path is timed as it launches.
 
 With --variants (this checkout only) each variant of VARIANTS is
 compiled from csrc/mesh_query.cu with one constant changed, into
@@ -61,10 +83,18 @@ import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
+
 from b1_device_time import load_smoke
 
 HERE = Path(__file__).resolve().parent
 MESHES = ((1, 1), (2, 4))
+# --shape search64: the searches counted, and the searches of each launch
+# timed (whole chunks of the traffic's batch)
+SEARCH64_STATS = 1024
+SEARCH64_ITEMS = (64, 128, 256, 512, 1024, 2048, 3072, 4096, 8192)
+# the headline batch's first n queries at which K1's widths are timed
+HEADLINE_ITEMS = (512, 1024, 2048, 4096, 8192)
 # variant -> the constants of csrc/mesh_query.cu it changes: each leaves
 # out, or changes, one choice of K1's design
 VARIANTS = {
@@ -95,8 +125,8 @@ def ptxas(cs, src: Path) -> dict:
         capture_output=True, text=True, check=True).stderr
     info, kernel = {}, None
     for line in out.splitlines():
-        m = re.search(r"Compiling entry function '\w*(mesh_\w+_kernel)",
-                      line)
+        m = re.search(r"Compiling entry function "
+                      r"'\w*(mesh_[a-z]+_kernel(?:_spread)?)", line)
         if m:
             kernel = m.group(1)
             continue
@@ -260,6 +290,128 @@ def shapes(cs, dev, flush) -> tuple:
     return out, bad
 
 
+def _summary(a):
+    """min, median, mean and max of an int array, as plain numbers."""
+    return {"min": int(a.min()), "median": float(np.median(a)),
+            "mean": float(a.mean()), "max": int(a.max())}
+
+
+def search64(cs, dev, flush, seed) -> tuple:
+    """K1 at scd_mesh_1m.search64's shape (the module's docstring)
+    -> (row, mismatches)."""
+    from portbench import gen
+    from portbench.recipes import corridors
+    from dss_tpu_torch.parallel import sharded as ps
+    from dss_tpu_torch.parallel.mesh import make_mesh, virtual_devices
+
+    mc, torch = cs.mc, cs.torch
+    pb = HERE / "portbench"
+    cfg = json.loads((pb / "configs" / "scd_mesh_1m.json").read_text())
+    traffic = json.loads((pb / "traffic" / "search64.json").read_text())
+    data, query, b = cfg["data"], traffic["query"], traffic["batch"]
+    dar = ps.ShardedDar(
+        corridors.intents(data, seed).records(cs.Record),
+        make_mesh(1, dp=1, sp=1, devices=virtual_devices(dev, 1)),
+        max_results=cfg["replica"]["max_results"])
+    r = gen.rng(seed, gen.BATCHES)
+    pool = [corridors.queries(data, query, r, b)
+            for _ in range(max(SEARCH64_ITEMS) // b)]
+
+    def k1_args(i, n):
+        """K1's arguments for searches [i, i + n) of the pool."""
+        qs = gen.Queries.concat(pool[i // b:(i + n) // b])
+        q = (qs.keys, qs.alt_lo, qs.alt_hi, qs.t_start, qs.t_end)
+        return cs.dar_row_args(dar, q, 0, gen.NOW)[0][2:]
+
+    # each item's candidates, raw hits and unique hits, a chunk at a time
+    cand, raw, uniq = [], [], []
+    for i in range(0, SEARCH64_STATS, b):
+        args, kw = k1_args(i, b)
+        pk, pe, _, _, ents, spec, now, _ = args
+        ent, valid = mc._candidates(pk, pe, ents.alt_lo.shape[0] - 1,
+                                    spec.keys, kw["cap"])
+        shape = (spec.keys.shape[0], 1, 1)
+        hit = valid & mc._attr_test(ents, ent, mc._Fields(spec, shape),
+                                    now.reshape(shape), None)
+        cand.append(valid.sum(dim=(-1, -2)).flatten().cpu())
+        raw.append(hit.sum(dim=(-1, -2)).flatten().cpu())
+        uniq.append(mc.mesh_query_torch(*args, **kw)[1].flatten().cpu())
+    cand, raw, uniq = (torch.cat(x).numpy() for x in (cand, raw, uniq))
+    spread_tile = (mc.query_tile(mc.SPREAD_MAX_WARPS)
+                   if hasattr(mc, "spread_warps") else None)
+    out = {"seed": seed, "records": len(dar.records), "cap": dar.cap,
+           "key_width": int(k1_args(0, b)[0][5].keys.shape[1]),
+           "max_results": dar.shard_results,
+           "stats": {"searches": len(cand), "candidates": _summary(cand),
+                     "raw_hits": _summary(raw), "unique_hits": _summary(uniq),
+                     "past_tile": int((raw > mc.query_tile()).sum()),
+                     "tile": mc.query_tile(),
+                     "past_block": (None if spread_tile is None else
+                                    int((cand > spread_tile).sum())),
+                     "spread_tile": spread_tile}}
+    # one chunk as the package launches it, beside its bound
+    args, kw = k1_args(0, b)
+    t = cs.timings("mesh_query", lambda: mc.mesh_query(*args, **kw),
+                   lambda: mc.mesh_query_torch(*args, **kw), flush)
+    bound = cs.k1_bound(args[0].cpu().numpy(), args[1].cpu().numpy(),
+                        args[5].keys.cpu().numpy(), kw["cap"],
+                        kw["max_results"])
+    out["chunk"] = {**t, "bound_ms": bound["ms"],
+                    "bound_bytes": bound["bytes"],
+                    "candidates": bound["candidates"],
+                    "share_of_bound": bound["ms"] / t["ms"]}
+    out["k1"], bad = width_sweep(cs, dev, k1_args, SEARCH64_ITEMS, flush,
+                                 warm_at=b)
+    return out, bad
+
+
+def width_sweep(cs, dev, k1_args, sizes, flush, warm_at=None) -> tuple:
+    """K1 on the first n items of `k1_args(0, n)` for each n of `sizes`,
+    at every block width W of a copy with the spread path (W = 1 a warp
+    an item) and as the copy chooses: launches, spread launches, cold
+    device ms (warm too at n = warm_at), each call's answers held
+    against the plain version.  -> ({n: row}, mismatches)."""
+    mc, torch = cs.mc, cs.torch
+    choose = getattr(mc, "spread_warps", None)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    widths = [None]
+    if choose is not None:
+        widths = [1]
+        while widths[-1] < mc.SPREAD_MAX_WARPS:
+            widths.append(2 * widths[-1])
+    bad, times = 0, {"sms": sms}
+    try:
+        for n in sizes:
+            args, kw = k1_args(0, n)
+            want = mc.mesh_query_torch(*args, **kw)
+            row = {"chosen": None if choose is None else choose(n, sms)}
+            for w in widths:
+                if w is not None:
+                    mc.spread_warps = lambda items, sms, w=w: w
+                launches = mc.mesh_query.launches
+                spread = getattr(mc.mesh_query, "spread_launches", 0)
+                got = mc.mesh_query(*args, **kw)
+                torch.cuda.synchronize()
+                row_w = {"launches": mc.mesh_query.launches - launches,
+                         "spread_launches": getattr(
+                             mc.mesh_query, "spread_launches", 0) - spread}
+                bad += sum(not torch.equal(g, x) for g, x in zip(got, want))
+
+                def fn():
+                    return mc.mesh_query(*args, **kw)
+
+                row_w["cold_ms"] = cs.device_ms(fn, flush)[0]
+                if n == warm_at:
+                    row_w["warm_ms"] = cs.device_ms(fn)[0]
+                row[f"w{w}" if w else "package"] = row_w
+            times[str(n)] = row
+            del want
+    finally:
+        if choose is not None:
+            mc.spread_warps = choose
+    return times, bad
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE),
@@ -268,6 +420,10 @@ def main() -> int:
                     help="also time this checkout's K1 variants in turns")
     ap.add_argument("--variant", action="append", type=parse_variant,
                     help="a variant to time instead of VARIANTS")
+    ap.add_argument("--shape", choices=("search64",),
+                    help="time K1 at this benchmark cell's shape instead")
+    ap.add_argument("--seed", type=int, default=1,
+                    help="the seed of --shape's data and searches")
     args = ap.parse_args()
     chosen = dict(args.variant) if args.variant else VARIANTS
     root = Path(args.root).resolve()
@@ -289,6 +445,15 @@ def main() -> int:
     ).stdout.strip()
     dev = cs.torch.device("cuda")
     cs.cuda_build.build()
+    if args.shape:
+        row, bad = search64(cs, dev, cs.Flush(dev), args.seed)
+        print(json.dumps({"mesh_device_time": {
+            "package": str(root / "dss_tpu_torch"), "shape": args.shape,
+            "search64": row, "mismatches": bad, "card": smi}}), flush=True)
+        if bad:
+            print(f"mesh_device_time: {bad} outputs differ from the plain "
+                  f"version", file=sys.stderr)
+        return 1 if bad else 0
     variants = build_variants(cs, chosen) if args.variants else {}
     recs, _ = cs.make_records(cs.N_ENTITIES, cs.N_CELLS, cs.KPE)
     q = cs.make_batch(500, cs.BATCH, cs.N_CELLS, cs.WIDTH)
@@ -298,10 +463,15 @@ def main() -> int:
         max_results=cs.MESH_MAX_RESULTS) for dp, sp in MESHES}
     flush = cs.Flush(dev)
     rows, bad = measure(cs, dars, q, flush)
+    widths, bad_widths = width_sweep(
+        cs, dev, lambda i, n: row_args(cs, dars["1x1"],
+                                       tuple(a[i:i + n] for a in q))[:2],
+        HEADLINE_ITEMS, flush)
+    bad += bad_widths
     shape_rows, bad_shapes = shapes(cs, dev, flush)
     bad += bad_shapes
     out = {"package": str(root / "dss_tpu_torch"), "kernels": rows,
-           "shapes": shape_rows,
+           "widths_1x1": widths, "shapes": shape_rows,
            "batch_device_ms": {
                name: cs.device_ms(lambda: dar.query_batch(*q, now=cs.NOW),
                                   flush, n=10)[0]

@@ -21,8 +21,14 @@ every answer equals two federated stores on the CPU.  The mesh
 route's kernels (ops/mesh_cuda.py: K1 mesh_query, K2 mesh_merge) against
 their plain versions on every case of chip_smoke.mesh_cases(), on
 outputs handed back dirty, over 40 launches back to back and over a
-scratch split into several launches, refusing inputs they do not take;
+scratch split into several launches, each with K1 a warp an item and a
+block of warps an item, refusing inputs they do not take;
 K1 at the mesh headline's shape class in one launch;
+K1 with a block of warps an item (the spread path) and a warp an item
+against its plain version at 1 to 512 items on hits past a block's
+tile, runs past the cap, delta postings, the owner filter and all-pad
+rows; the spread path on dirty outputs and back to back, and chosen
+only where a launch is narrow;
 a cuda ShardedDar on a virtual 2x4 mesh equals the CPU one, one K1 and
 one K2 launch a dp row; a replica
 refreshes in a loop while the GraphCache captures on another thread,
@@ -1105,6 +1111,19 @@ def mesh_cases():
     return dict(cases)
 
 
+@pytest.fixture(params=("one_warp", "spread"))
+def k1_warps(request, monkeypatch):
+    """K1's width for the test, whatever a call's size: a warp an item
+    (mesh_query_kernel), or SPREAD_MAX_WARPS warps an item
+    (mesh_query_kernel_spread); count mode takes a warp an item at
+    both."""
+    from dss_tpu_torch.ops import mesh_cuda as mc
+
+    warps = 1 if request.param == "one_warp" else mc.SPREAD_MAX_WARPS
+    monkeypatch.setattr(mc, "spread_warps", lambda items, sms: warps)
+    return warps
+
+
 def _mesh_run(mc, c, cuda, plain=False):
     """K1 (and, after a compact K1, K2 on its shard lists) on a case's
     card tensors -> their results."""
@@ -1119,20 +1138,25 @@ def _mesh_run(mc, c, cuda, plain=False):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", cs.MESH_CASE_NAMES)
-def test_mesh_kernels_match_plain(cuda, mesh_cases, name):
+def test_mesh_kernels_match_plain(cuda, mesh_cases, name, k1_warps):
     """K1 and K2 against their plain versions on the same card tensors,
     slot for slot, each case of chip_smoke.mesh_cases() (K*cap and
-    n_sp*sr past one block's shared memory among them)."""
+    n_sp*sr past one block's shared memory among them), with K1 a warp
+    an item and a block an item, the spread counter naming the kernel
+    that ran."""
     from dss_tpu_torch.ops import mesh_cuda as mc
 
     c = mesh_cases[name]
-    before = (mc.mesh_query.launches, mc.mesh_merge.launches)
+    before = (mc.mesh_query.launches, mc.mesh_query.spread_launches,
+              mc.mesh_merge.launches)
     got = _mesh_run(mc, c, cuda)
     want = _mesh_run(mc, c, cuda, plain=True)
     torch.cuda.synchronize()
+    spread = int(k1_warps > 1 and not c["count"])
     assert (mc.mesh_query.launches - before[0],
-            mc.mesh_merge.launches - before[1]) == (
-                (1, 0) if c["count"] else (1, 1))
+            mc.mesh_query.spread_launches - before[1],
+            mc.mesh_merge.launches - before[2]) == (
+                (1, 0, 0) if c["count"] else (1, spread, 1))
     for g, w in zip(got, want):
         assert g.is_cuda and g.dtype == w.dtype
         assert torch.equal(g, w), name
@@ -1143,9 +1167,11 @@ def test_mesh_kernels_on_dirty_outputs_and_back_to_back(cuda):
     """chip_smoke.mesh_kernel_checks: every case, then outputs that the
     allocator hands back full of -1 (the kernels write every pad
     themselves), then 40 launches over the cases with no sync between
-    them, each equal to its plain version, with no mismatch tallied."""
-    tallies = (cs.TALLY["mesh_query"], cs.TALLY["mesh_merge"],
-               cs.MESH_TALLY)
+    them, each equal to its plain version, with no mismatch tallied:
+    once with K1 a warp an item and once a block an item, both kernels
+    tallied."""
+    tallies = (cs.TALLY["mesh_query"], cs.TALLY["mesh_query_spread"],
+               cs.TALLY["mesh_merge"], cs.MESH_TALLY)
     before = [(t.compared, t.mismatches) for t in tallies]
     cs.mesh_kernel_checks(cuda)
     for t, (compared, mismatches) in zip(tallies, before):
@@ -1155,31 +1181,37 @@ def test_mesh_kernels_on_dirty_outputs_and_back_to_back(cuda):
 
 @pytest.mark.gpu
 def test_mesh_query_splits_a_scratch_past_its_limit(cuda, mesh_cases,
-                                                    monkeypatch):
+                                                    monkeypatch, k1_warps):
     """Hit buffers past one block's shared memory live in a global
     scratch; past SCRATCH_LIMIT bytes the batch runs as several launches
-    over its items, equal to the plain version."""
+    over its items, equal to the plain version: with K1 a warp an item
+    and a block an item (whose tile is larger)."""
     from dss_tpu_torch.ops import mesh_cuda as mc
 
     args, kw, _ = cs.mesh_case_args(mesh_cases["k1_past_shared_memory"],
                                     cuda)
     buf = args[5].keys.shape[1] * kw["cap"]
+    assert buf > mc.query_tile(k1_warps)
     monkeypatch.setattr(mc, "SCRATCH_LIMIT", 3 * 4 * buf)  # 3 items
-    before = mc.mesh_query.launches
+    before = (mc.mesh_query.launches, mc.mesh_query.spread_launches)
     got = mc.mesh_query(*args, **kw)
     want = mc.mesh_query_torch(*args, **kw)
     torch.cuda.synchronize()
-    assert mc.mesh_query.launches - before == 3  # 8 items, 3 a launch
+    assert mc.mesh_query.launches - before[0] == 3  # 8 items, 3 a launch
+    assert mc.mesh_query.spread_launches - before[1] == (
+        3 if k1_warps > 1 else 0)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
 
 @pytest.mark.gpu
-def test_mesh_query_from_threads_with_other_buffer_sizes(cuda, mesh_cases):
+def test_mesh_query_from_threads_with_other_buffer_sizes(cuda, mesh_cases,
+                                                         k1_warps):
     """Nine threads launch K1 at once with items of three buffer sizes
-    (16 cells at cap 512 and at cap 256, each past the shared tile and
-    so with global scratches of their own, and K 16 at a small cap,
-    inside the tile), each on its own stream, under a short switch
+    (16 cells at cap 512 and at cap 256 with K1 a warp an item, at cap
+    1024 and 768 with a block an item: each past that width's shared
+    tile and so with global scratches of their own, and K 16 at a small
+    cap, inside the tile), each on its own stream, under a short switch
     interval: every answer equals the plain version and every launch
     is counted."""
     import sys
@@ -1191,12 +1223,15 @@ def test_mesh_query_from_threads_with_other_buffer_sizes(cuda, mesh_cases):
         mesh_cases["k1_past_shared_memory"], cuda)
     small_args, small_kw, _ = cs.mesh_case_args(
         mesh_cases["random_k16_sp8"], cuda)
-    # 16 cells x cap 512 and x cap 256: 32 KB and 16 KB of scratch an item
-    runs = [(big_args, dict(big_kw, cap=512)),
-            (big_args, dict(big_kw, cap=256)), (small_args, small_kw)]
+    # 16 cells x cap 512 and x cap 256: 32 KB and 16 KB of scratch an
+    # item; a block an item holds 8,192 in its tile, so 1024 and 768
+    caps = (512, 256) if k1_warps == 1 else (1024, 768)
+    assert 16 * min(caps) > mc.query_tile(k1_warps)
+    runs = [(big_args, dict(big_kw, cap=caps[0])),
+            (big_args, dict(big_kw, cap=caps[1])), (small_args, small_kw)]
     want = [mc.mesh_query_torch(*a, **k) for a, k in runs]
     torch.cuda.synchronize()
-    before = mc.mesh_query.launches
+    before = (mc.mesh_query.launches, mc.mesh_query.spread_launches)
     bad, iters = [], 25
 
     def work(i):
@@ -1222,7 +1257,9 @@ def test_mesh_query_from_threads_with_other_buffer_sizes(cuda, mesh_cases):
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
     assert not bad
-    assert mc.mesh_query.launches - before == 9 * iters
+    assert mc.mesh_query.launches - before[0] == 9 * iters
+    assert mc.mesh_query.spread_launches - before[1] == (
+        9 * iters if k1_warps > 1 else 0)
 
 
 @pytest.mark.gpu
@@ -1258,11 +1295,229 @@ def test_mesh_query_at_the_headline_shape_is_one_launch(cuda):
     assert mc.mesh_query.launches - before == 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    fits = cuda_build.function("dss_mesh_query_fits", [ctypes.c_longlong] * 2)
+    fits = cuda_build.function("dss_mesh_query_fits", [ctypes.c_longlong] * 3)
     tile = mc.query_tile()
-    assert (fits(tile, 0), fits(tile + 1, 0)) == (1, 0)
+    assert (fits(tile, 0, 1), fits(tile + 1, 0, 1)) == (1, 0)
+    wide = mc.query_tile(mc.SPREAD_MAX_WARPS)
+    assert wide > tile and (fits(wide, 0, mc.SPREAD_MAX_WARPS),
+                            fits(wide + 1, 0, mc.SPREAD_MAX_WARPS),
+                            fits(wide + 1, 1, 1)) == (1, 0, 1)
     occ = mc.occupancy()
     assert occ["blocks_per_sm"] >= 1 and occ["registers"] > 0
+
+
+# -- K1 with a block of warps an item (the spread path) --------------------
+
+SPREAD_ITEMS = (1, 8, 64, 128, 512)
+SPREAD_CASE_NAMES = ("spill_first_chunk", "spill_second_chunk",
+                     "run_past_cap", "delta_own_cap", "owner_sp2",
+                     "all_pad_rows")
+
+
+def _same_window(n, key_of, prefix="s"):
+    """n records that every open query hits, record i in cells
+    key_of(i)."""
+    return [Record(f"{prefix}{i}", np.asarray(key_of(i), np.int32), 0.0,
+                   100.0, NOW - HOUR, NOW + HOUR, 1) for i in range(n)]
+
+
+def _spread_queries(seed, nq, k, key_space, open_rows=()):
+    """nq queries of up to k - 1 distinct cells in [0, key_space) (pad
+    -1); rows in `open_rows` all pad with open bounds."""
+    r = np.random.default_rng(seed)
+    keys = np.full((nq, k), -1, np.int32)
+    for i in range(nq):
+        u = np.unique(r.integers(0, key_space, int(r.integers(1, k))))
+        keys[i, : len(u)] = u
+    alo = r.uniform(0, 3000, nq).astype(np.float32)
+    ahi = (alo + 900).astype(np.float32)
+    t0 = (NOW + r.integers(-3, 3, nq) * HOUR).astype(np.int64)
+    t1 = t0 + 2 * HOUR
+    alo[::5], ahi[::5] = -np.inf, np.inf
+    for i in open_rows:
+        keys[i] = -1
+        alo[i], ahi[i], t0[i], t1[i] = (-np.inf, np.inf, cs.NO_TIME_LO,
+                                        cs.NO_TIME_HI)
+    return keys, alo, ahi, t0, t1
+
+
+def _open_query(keys, k):
+    rows = np.full((1, k), -1, np.int32)
+    rows[0, : len(keys)] = keys
+    return (rows, np.full(1, -np.inf, np.float32),
+            np.full(1, np.inf, np.float32), np.full(1, cs.NO_TIME_LO),
+            np.full(1, cs.NO_TIME_HI))
+
+
+def _spread_cases(spread_tile):
+    """The spread path's cases (numpy, from seeds), each with the most
+    items it was built for; `_tiled` repeats its queries."""
+    rng = np.random.default_rng(78)
+    recs = []
+    for i in range(400):
+        keys = np.unique(rng.integers(0, 40, int(rng.integers(1, 7))))
+        alo = float(np.float32(rng.uniform(0, 3000)))
+        t0 = NOW + int(rng.integers(-5, 5)) * HOUR
+        recs.append(Record(f"r{i}", keys.astype(np.int32), alo,
+                           float(np.float32(alo + 600.0)), t0,
+                           t0 + int(rng.integers(1, 7)) * HOUR,
+                           int(rng.integers(0, 5))))
+    hot = _same_window(600, lambda i: [9], "h")  # a run of 600: cap 1024
+    # 16 cells of 600 slots each: 9,600 hits past the block's tile in the
+    # first chunk of 32 cells
+    first = _same_window(9600, lambda i: [i // 600])
+    # chunk 0: 32 cells of 100 slots (3,200 hits in the tile); chunk 1: 16
+    # cells of 400 postings, each slot in two of them (6,400 hits, 3,200
+    # unique), which pass the tile beside the first 3,200
+    second = (_same_window(3200, lambda i: [i // 100], "a")
+              + _same_window(3200, lambda i: [32 + i % 16, 32 + (i + 1) % 16],
+                             "b"))
+    assert 9600 > spread_tile and 3200 <= spread_tile < 3200 + 6400
+    return [
+        ("spill_first_chunk", cs.mesh_case(
+            first, _open_query(np.arange(16), 16), r=64, dead=0)),
+        ("spill_second_chunk", cs.mesh_case(
+            second, _open_query(np.arange(48), 48), r=1024, dead=0)),
+        ("run_past_cap", cs.mesh_case(
+            hot + recs, _spread_queries(1, 24, 16, 40), r=64, cap=256)),
+        ("delta_own_cap", cs.mesh_case(
+            hot + recs, _spread_queries(2, 24, 16, 40),
+            delta=list(range(0, 1000, 2)), delta_cap=64, r=64, cap=512)),
+        ("owner_sp2", cs.mesh_case(
+            recs, _spread_queries(3, 24, 32, 40), n_sp=2, r=16, merge_r=32,
+            owner=np.random.default_rng(4).integers(0, 5, 24))),
+        ("all_pad_rows", cs.mesh_case(
+            hot + recs, _spread_queries(5, 24, 16, 40,
+                                        open_rows=range(0, 24, 3)), r=64)),
+    ]
+
+
+def _tiled(c, items):
+    """Case c with its queries repeated to items // n_sp of them (at
+    least one)."""
+    nq = max(1, items // c["n_sp"])
+    out = dict(c)
+    for k in ("keys", "qalo", "qahi", "qt0", "qt1", "now", "owner"):
+        if c[k] is not None:
+            out[k] = np.resize(c[k], (nq,) + c[k].shape[1:])
+    return out
+
+
+@pytest.fixture(scope="module")
+def spread_cases():
+    from dss_tpu_torch.ops import mesh_cuda as mc
+
+    if not torch.cuda.is_available():  # before cuda: this scope is wider
+        pytest.skip("needs a CUDA card")
+    cases = _spread_cases(mc.query_tile(mc.SPREAD_MAX_WARPS))
+    assert [n for n, _ in cases] == list(SPREAD_CASE_NAMES)
+    return dict(cases)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("items", SPREAD_ITEMS)
+@pytest.mark.parametrize("name", SPREAD_CASE_NAMES)
+def test_mesh_query_spread_matches_plain(cuda, spread_cases, name, items,
+                                        k1_warps):
+    """K1 at 1 to 512 items, and K2 on its lists, against their plain
+    versions slot for slot: hits past a spread block's tile (in the
+    first chunk of cells, and in the second beside the tile's), runs
+    past the cap, delta postings with their own cap, the owner filter
+    on two shards, query rows all pad; with K1 a block an item (as
+    spread_warps chooses at these sizes) and a warp an item."""
+    from dss_tpu_torch.ops import mesh_cuda as mc
+
+    c = _tiled(spread_cases[name], items)
+    wide = k1_warps
+    before = (mc.mesh_query.launches, mc.mesh_query.spread_launches,
+              mc.mesh_merge.launches)
+    got = _mesh_run(mc, c, cuda)
+    want = _mesh_run(mc, c, cuda, plain=True)
+    torch.cuda.synchronize()
+    assert (mc.mesh_query.launches - before[0],
+            mc.mesh_query.spread_launches - before[1],
+            mc.mesh_merge.launches - before[2]) == (1, int(wide > 1), 1)
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == w.dtype
+        assert torch.equal(g, w), (name, items)
+
+
+@pytest.mark.gpu
+def test_mesh_query_spread_on_dirty_outputs_and_back_to_back(cuda,
+                                                            spread_cases):
+    """The spread kernel writes every pad of an output the allocator
+    hands back full of -1, and 40 launches over the cases at 64 items
+    with no sync between them each equal the plain version."""
+    from dss_tpu_torch.ops import mesh_cuda as mc
+
+    runs = [cs.mesh_case_args(_tiled(spread_cases[n], 64), cuda)
+            for n in SPREAD_CASE_NAMES]
+    want = [mc.mesh_query_torch(*a, **kw) for a, kw, _ in runs]
+    torch.cuda.synchronize()
+    args, kw, _ = runs[4]
+    dirty = torch.full((2, 32, kw["max_results"]), -1, dtype=torch.int32,
+                       device=cuda)
+    ptr = dirty.data_ptr()
+    del dirty
+    spread = mc.mesh_query.spread_launches
+    got = mc.mesh_query(*args, **kw)
+    torch.cuda.synchronize()
+    assert got[0].data_ptr() == ptr, "the -1 block was not handed back"
+    assert all(torch.equal(g, w) for g, w in zip(got, want[4]))
+    outs = [mc.mesh_query(*runs[i % len(runs)][0], **runs[i % len(runs)][1])
+            for i in range(40)]
+    torch.cuda.synchronize()
+    assert mc.mesh_query.spread_launches - spread == 41
+    for i, got in enumerate(outs):
+        for g, w in zip(got, want[i % len(runs)]):
+            assert torch.equal(g, w), i
+
+
+@pytest.mark.gpu
+def test_mesh_query_spreads_narrow_launches_only(cuda):
+    """By the launch counters: at the benchmark cell's shape (64
+    searches of 8 cells in a key width of 16, base_cap 1024) K1 is one
+    launch, of the spread kernel; at 8,192 such searches (cap 128, the
+    headline's) one launch of the one-warp kernel; count mode takes a
+    warp an item at 64; launch_stats exports the spread count."""
+    from dss_tpu_torch.ops import conflict as pc
+    from dss_tpu_torch.ops import mesh_cuda as mc
+
+    rng = np.random.default_rng(41)
+    recs = _mesh_records(rng, 20000, 4000) + _same_window(600, lambda i: [7])
+    p = pack_records(recs, pad_postings=False)
+    assert p.base_cap == 1024
+    q = _mesh_queries(rng, 8192, 4000)
+    keys = np.full((8192, 16), -1, np.int32)
+    keys[:, :8] = q[0]
+    keys[::16, 7] = 7  # some searches reach the run of 600
+    keys[:, :8].sort(axis=1)
+    ents = pc._u8(pc.entity_table(p, cuda))
+    post = [torch.from_numpy(a).to(cuda)[None] for a in (p.post_key,
+                                                         p.post_ent)]
+    rows = mc.pack_entity_rows(ents)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for n, cap, count in ((64, 1024, False), (8192, 128, False),
+                          (64, 1024, True)):
+        spec = pc.query_spec(keys[:n], *(a[:n] for a in q[1:]), cuda)
+        now = torch.full((n,), NOW, dtype=torch.int64, device=cuda)
+        args = (*post, None, None, ents, spec, now, None)
+        kw = dict(rows=rows, cap=cap, delta_cap=0, max_results=512,
+                  count=count)
+        want = mc.mesh_query_torch(*args, **kw)
+        before = (mc.mesh_query.launches, mc.mesh_query.spread_launches)
+        got = mc.mesh_query(*args, **kw)
+        torch.cuda.synchronize()
+        spread = mc.spread_warps(n, sms) > 1 and not count
+        assert spread == (n == 64 and not count)
+        assert (mc.mesh_query.launches - before[0],
+                mc.mesh_query.spread_launches - before[1]) == (1, int(spread))
+        for g, w in zip((got,) if count else got, (want,) if count else want):
+            assert torch.equal(g, w), (n, count)
+    assert (mc.launch_stats()["dss_mesh_query_spread_launches"]
+            == mc.mesh_query.spread_launches)
+    occ = mc.occupancy()["spread"]
+    assert occ["warps"] == mc.SPREAD_MAX_WARPS and occ["blocks_per_sm"] >= 1
 
 
 @pytest.mark.gpu
