@@ -81,15 +81,11 @@ class QuerySpec(NamedTuple):
     t_end: torch.Tensor  # i64[Q], NO_TIME_HI if unbounded
 
 
-def entity_table(packed, device) -> EntityTable:
-    """The entity columns of a `dar.pack.PackedRecords` on `device`
-    (pageable host copies: no pinned block of PyTorch's caching host
-    allocator is involved)."""
-    return EntityTable(*(
-        torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        for a in (packed.alt_lo, packed.alt_hi, packed.t_start,
-                  packed.t_end, packed.active, packed.owner)
-    ))
+def entity_columns(packed) -> list:
+    """The host columns of a `dar.pack.PackedRecords`, in EntityTable's
+    order (`parallel/sharded.py` `place` puts them on a device)."""
+    return [packed.alt_lo, packed.alt_hi, packed.t_start, packed.t_end,
+            packed.active, packed.owner]
 
 
 def query_spec(keys, alt_lo, alt_hi, t_start, t_end, device) -> QuerySpec:

@@ -45,7 +45,7 @@ entry allocates all its units' pinned and device buffers first, and
 units are allocated and captured only under one cache-wide lock, so no
 replay unit's pinned allocation ever overlaps a capture.  The units'
 pinned buffers are registered host memory, outside PyTorch's caching
-host allocator (see _locked_host), and every capture runs on one
+host allocator (see locked_host), and every capture runs on one
 high-priority stream of the cache's, never a resident loop's stream.  A capture
 that fails anyway is counted (`capture_failures`,
 co_res_graph_capture_failures); its bucket launches B1 eagerly.
@@ -133,7 +133,7 @@ def max_words_for(window_bucket: int) -> int:
     return max(1 << 16, int(window_bucket))
 
 
-def _locked_host(nbytes: int) -> torch.Tensor:
+def locked_host(nbytes: int) -> torch.Tensor:
     """Zeroed host memory page-locked with cudaHostRegister, as a uint8
     tensor, outside PyTorch's caching host allocator.  That allocator,
     when a pinned block is freed, records an event on every stream the
@@ -159,7 +159,7 @@ class _Instance:
     list, then the four query-bound vectors, in one buffer), their
     device twin, B1's output and its pinned copy, B1's scratch, and the
     captured graph (None on the CPU).  On the card the pinned buffers
-    are registered host memory (_locked_host)."""
+    are registered host memory (locked_host)."""
 
     __slots__ = ("entry", "cols", "mw", "h_in", "h_views", "d_in",
                  "d_views", "out", "host", "scratch", "graph", "busy")
@@ -177,14 +177,14 @@ class _Instance:
         nbytes = sum(int(np.prod(shape)) * dt.itemsize for dt, shape in parts)
         # zeroed: pad windows (meta 0) match nothing, so the warm-up
         # launch before a capture reads a well-formed empty batch
-        self.h_in = (_locked_host(nbytes) if cuda
+        self.h_in = (locked_host(nbytes) if cuda
                      else torch.zeros(nbytes, dtype=torch.uint8))
         self.d_in = (torch.zeros(nbytes, dtype=torch.uint8, device=device)
                      if cuda else self.h_in)
         self.h_views = self._views(self.h_in, parts)
         self.d_views = self._views(self.d_in, parts)
         self.out = torch.zeros(1 + 2 * mw, dtype=torch.int32, device=device)
-        self.host = (_locked_host(4 * (1 + 2 * mw)).view(torch.int32)
+        self.host = (locked_host(4 * (1 + 2 * mw)).view(torch.int32)
                      if cuda else self.out)
         self.scratch = ff.new_scratch(device, -(-wb // ff.TILE_WINDOWS))
 

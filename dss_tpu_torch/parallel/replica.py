@@ -36,8 +36,36 @@ Sources (exactly one):
 On a card, a rebuild's host->device copies finish (its stream is
 synchronized, `ShardedDar`) before the atomic swap publishes the
 snapshot, so a reader on any stream sees whole postings; the copies
-come from pageable numpy memory, never from pinned blocks of
-PyTorch's caching host allocator.
+come from registered host memory (one copy a device: `ShardedDar`),
+never from pinned blocks of PyTorch's caching host allocator.  A
+replica keeps one such staging buffer (`Staging`) for all its folds.
+It grows to the largest dar built so far, a major fold's whole base
+tier (about 93 MB for 1M corridor intents of 8 cells each, where a
+minor fold of 18,432 records takes 1.7 MB of it), and stays page-locked
+for the replica's life.
+
+With tracing on (`obs/trace.py`), the write path records, wherever its
+tail and folds run (the background loop, or a caller's `sync()`):
+
+    replica.poll          poll_once: the log's new records applied
+                          attrs: records, errors (records that failed)
+    replica.plan          plan_rebalance's scan (every key of every
+                          class concatenated and sorted), when the
+                          move-interval rate limit lets it run
+    replica.refresh       one class's fold
+                          attrs: cls, major (0: the delta tier only),
+                          records, bytes (the dar built)
+      dar.pack            ShardedDar: pack_records, shard_postings
+      dar.upload          the copies to the cards, K1's entity rows,
+                          until the copies are complete
+      replica.warm        the warm searches of the new dar (their own
+                          mesh.* phases beneath)
+
+`stats()` (and so `/metrics`) counts the folds' cost beside
+`replica_delta_refreshes` and `replica_major_rebuilds`:
+`replica_fold_h2d_bytes` (host->device bytes of every dar built, the
+sum of their `nbytes`) and `replica_minor_fold_records` (the records
+the minor folds built).
 """
 
 from __future__ import annotations
@@ -62,6 +90,7 @@ from dss_tpu_torch.obs import trace as _trace
 from dss_tpu_torch.ops.conflict import NO_TIME_HI, NO_TIME_LO
 from dss_tpu_torch.parallel.sharded import (
     ShardedDar,
+    Staging,
     imbalance_factor,
     shard_of_keys,
     weighted_boundaries,
@@ -421,8 +450,12 @@ class ShardedReplica:
         # refresh traffic: on a multi-host mesh this is what each
         # process ships to its addressable shards per refresh)
         self.device_bytes_built = 0
+        # the page-locked buffer every dar build's upload goes through,
+        # registered once (builds run one at a time, under _refresh_mu)
+        self._staging = Staging()
         self._rebuilds = 0
         self._delta_refreshes = 0
+        self._minor_fold_records = 0  # records the minor folds built
         self._major_rebuilds = 0
         self._warm_ms_total = 0.0  # publish-gating warm time per
         #                            rebuild
@@ -611,8 +644,12 @@ class ShardedReplica:
         """Ingest any new log records; -> number applied.  One record
         that fails to apply (version skew, corrupt doc) is skipped and
         counted — it must not drop the rest of its batch (the tail
-        cursor has already advanced past it)."""
-        with self._mu:
+        cursor has already advanced past it).
+
+        With tracing on, a `replica.poll` span covers the call, with
+        the records read and the ones that failed to apply."""
+        with _trace.span("replica.poll") as sp, self._mu:
+            errors = self._apply_errors
             recs = self._tail.poll(limit=limit)
             for rec in recs:
                 try:
@@ -623,6 +660,9 @@ class ShardedReplica:
                         "replica failed to apply record %r; skipped",
                         rec.get("t"),
                     )
+            if sp.span_id is not None:
+                sp.set(records=len(recs),
+                       errors=self._apply_errors - errors)
             return len(recs)
 
     # -- skew-aware placement -------------------------------------------------
@@ -676,7 +716,10 @@ class ShardedReplica:
         per-shard load) exceeds `rebalance_ratio`.  Move-rate cap: at
         most one move per `move_interval_s`.  A move forces a major
         rebuild of every class at the NEXT fold — the cost an operator
-        trades for spreading the hot range."""
+        trades for spreading the hot range.
+
+        With tracing on, a `replica.plan` span covers each planning
+        scan that the rate limit lets through."""
         t = time.monotonic() if now is None else now
         # the whole planning scan (concat+sort of every class's keys)
         # is rate-limited to the move cadence: a 0.5s refresh loop
@@ -685,6 +728,12 @@ class ShardedReplica:
         if t - max(self._last_plan, self._last_move) < self.move_interval_s:
             return False
         self._last_plan = t
+        with _trace.span("replica.plan"):
+            return self._plan(t)
+
+    def _plan(self, t: float) -> bool:
+        """plan_rebalance's scan at monotonic time `t`, past its rate
+        limit."""
         # decay runs even with rebalancing disabled: the load map (and
         # its gauges) must not grow without bound under a static split
         if t - self._last_decay >= self.move_interval_s:
@@ -880,9 +929,24 @@ class ShardedReplica:
         return bool(getattr(self._tail, "errors", 0))
 
     def _refresh_class(self, cls: str) -> bool:
+        """Fold `cls` when it is dirty or has no snapshot yet -> whether
+        a snapshot was published.  With tracing on, a `replica.refresh`
+        span covers the fold (`cls`; `major`, `records` and `bytes` of
+        the dar it built), with `replica.warm` inside it."""
         with self._mu:
             if not self._dirty[cls] and self._snapshots[cls] is not None:
                 return False
+        with _trace.span("replica.refresh", cls=cls) as sp:
+            major, records, built = self._fold(cls)
+            if sp.span_id is not None:
+                sp.set(major=int(major), records=records,
+                       bytes=0 if built is None else built.nbytes)
+        return True
+
+    def _fold(self, cls: str) -> tuple:
+        """Build, warm and publish a fresh snapshot of `cls` -> (major,
+        records in the dar built, the dar built or None)."""
+        with self._mu:
             prev = self._snapshots[cls]
             churn = len(self._delta[cls]) + len(self._shadow[cls])
             major = (
@@ -906,6 +970,7 @@ class ShardedReplica:
                         max_results=self.max_results,
                         shard_results=self._build_shard_results(),
                         boundaries=bounds,
+                        staging=self._staging,
                     )
                     if recs
                     else None
@@ -932,6 +997,7 @@ class ShardedReplica:
                         max_results=self.max_results,
                         shard_results=self._build_shard_results(),
                         boundaries=bounds,
+                        staging=self._staging,
                     )
                     if drecs
                     else None
@@ -944,6 +1010,7 @@ class ShardedReplica:
                     delta_ids=[r.entity_id for r in drecs],
                 )
             built = snap.delta if not major else snap.base
+            records = len(recs) if major else len(drecs)
             # records ingested while we build/warm re-mark dirty and
             # are picked up by the next refresh
             self._dirty[cls] = False
@@ -957,18 +1024,19 @@ class ShardedReplica:
         # operator trades for a stall-free first query.
         if built is not None:
             t_warm = time.perf_counter()
-            for wb in self.warm_batches:
-                try:
-                    built.query_batch(
-                        np.full((wb, 16), -1, np.int32),
-                        np.full(wb, -np.inf, np.float32),
-                        np.full(wb, np.inf, np.float32),
-                        np.full(wb, NO_TIME_LO, np.int64),
-                        np.full(wb, NO_TIME_HI, np.int64),
-                        now=0,
-                    )
-                except Exception:  # noqa: BLE001 — warmup best-effort
-                    pass
+            with _trace.span("replica.warm"):
+                for wb in self.warm_batches:
+                    try:
+                        built.query_batch(
+                            np.full((wb, 16), -1, np.int32),
+                            np.full(wb, -np.inf, np.float32),
+                            np.full(wb, np.inf, np.float32),
+                            np.full(wb, NO_TIME_LO, np.int64),
+                            np.full(wb, NO_TIME_HI, np.int64),
+                            now=0,
+                        )
+                    except Exception:  # noqa: BLE001 — warmup best-effort
+                        pass
             self._warm_ms_total += (time.perf_counter() - t_warm) * 1000
         with self._mu:
             old = self._snapshots[cls]
@@ -991,7 +1059,8 @@ class ShardedReplica:
                 self._major_rebuilds += 1
             else:
                 self._delta_refreshes += 1
-        return True
+                self._minor_fold_records += records
+        return major, records, built
 
     def sync(self) -> None:
         """poll + refresh in one call (tests / benchmarks)."""
@@ -1341,6 +1410,10 @@ class ShardedReplica:
             "replica_rebuilds": self._rebuilds,
             "replica_delta_refreshes": self._delta_refreshes,
             "replica_major_rebuilds": self._major_rebuilds,
+            # host->device bytes of every snapshot built, and the
+            # records the minor (delta tier) folds built
+            "replica_fold_h2d_bytes": self.device_bytes_built,
+            "replica_minor_fold_records": self._minor_fold_records,
             "replica_warm_ms_total": round(self._warm_ms_total, 1),
             "replica_refresh_skips": self._refresh_skips,
             "replica_demand_idle": int(

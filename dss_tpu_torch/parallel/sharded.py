@@ -56,7 +56,7 @@ from dss_tpu_torch.ops.conflict import (
     Postings,
     QuerySpec,
     _u8,
-    entity_table,
+    entity_columns,
     query_spec,
 )
 from dss_tpu_torch.ops.mesh_cuda import (
@@ -64,6 +64,7 @@ from dss_tpu_torch.ops.mesh_cuda import (
     mesh_query,
     pack_entity_rows,
 )
+from dss_tpu_torch.ops.resident import locked_host
 from dss_tpu_torch.parallel.mesh import Mesh, mesh_spans_processes
 
 
@@ -256,19 +257,66 @@ def imbalance_factor(loads) -> float:
     return float(arr.max() / arr.mean())
 
 
+class Staging:
+    """A page-locked host buffer that uploads go through (`place`),
+    grown to the largest upload so far and registered once: registered
+    host memory (`ops/resident.py` `locked_host`), outside PyTorch's
+    caching host allocator.  It stays page-locked until the Staging is
+    garbage.  One upload at a time (a replica builds its dars under its
+    refresh lock)."""
+
+    def __init__(self):
+        self._host: Optional[torch.Tensor] = None
+
+    def take(self, nbytes: int) -> torch.Tensor:
+        if self._host is None or self._host.numel() < nbytes:
+            self._host = None  # unregistered once garbage
+            self._host = locked_host(nbytes)
+        return self._host[:nbytes]
+
+
+def place(dev: torch.device, arrays: Sequence[np.ndarray],
+          staging: Staging) -> list:
+    """Host arrays -> tensors on `dev`.  On a card they cross in one
+    copy, from `staging`'s page-locked buffer into one device buffer
+    that each tensor views (16-byte aligned); the copy is complete when
+    this returns."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    if dev.type != "cuda":
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+    offs, end = [], 0
+    for a in arrays:
+        end += -end % 16
+        offs.append(end)
+        end += a.nbytes
+    end = max(end, 16)
+    host = staging.take(end)
+    staged = host.numpy()
+    for a, o in zip(arrays, offs):
+        staged[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    buf = torch.empty(end, dtype=torch.uint8, device=dev)
+    buf.copy_(host)
+    return [buf[o:o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
+            .view(a.shape) for a, o in zip(arrays, offs)]
+
+
+def held_shards(mesh: Mesh, dev: torch.device) -> List[int]:
+    """The shards (sp columns) whose positions `dev` holds."""
+    return sorted({
+        s for (d, s), pd in np.ndenumerate(mesh.devices) if pd == dev
+    })
+
+
 class ShardRows:
     """A [n_sp, ...] host array placed on a mesh: each distinct device
     holds, stacked, the rows (shards) its positions need — the
-    reference's P("sp", None) layout."""
+    reference's P("sp", None) layout.  `parts`: {device: (its shards
+    (`held_shards`), the [S, ...] tensor of their rows (`place`))}."""
 
-    def __init__(self, mesh: Mesh, arr: np.ndarray):
-        self.parts: Dict[torch.device, Tuple[List[int], torch.Tensor]] = {}
-        for dev in mesh.distinct_devices():
-            rows = sorted({
-                s for (d, s), pd in np.ndenumerate(mesh.devices) if pd == dev
-            })
-            host = np.ascontiguousarray(arr[rows])
-            self.parts[dev] = (rows, torch.from_numpy(host).to(dev))
+    def __init__(
+        self, parts: Dict[torch.device, Tuple[List[int], torch.Tensor]]
+    ):
+        self.parts = parts
 
     def rows(self, dev: torch.device, shards: Sequence[int]) -> torch.Tensor:
         held, t = self.parts[dev]
@@ -276,12 +324,6 @@ class ShardRows:
             return t
         idx = torch.tensor([held.index(s) for s in shards], device=dev)
         return t.index_select(0, idx)
-
-
-def put_replicated(mesh: Mesh, packed) -> Dict[torch.device, EntityTable]:
-    """The EntityTable columns once on every distinct device (the
-    reference's P() layout)."""
-    return {dev: entity_table(packed, dev) for dev in mesh.distinct_devices()}
 
 
 def sync_devices(mesh: Mesh) -> None:
@@ -541,7 +583,11 @@ class ShardedDar:
         max_results: int = 512,
         shard_results: Optional[int] = None,
         boundaries: Optional[np.ndarray] = None,
+        staging: Optional[Staging] = None,
     ):
+        """`staging`: the page-locked buffer the upload goes through
+        (`place`; a replica passes one for all its folds), else one
+        of this build's own."""
         self.mesh = mesh
         self.n_sp = mesh.shape["sp"]
         self.dp = mesh.shape["dp"]
@@ -566,15 +612,18 @@ class ShardedDar:
         self.shard_hits = np.zeros(self.n_sp, np.int64)
         self._hits_mu = threading.Lock()
 
-        packed = pack_records(records, pad_postings=False)
+        # with tracing on, `dar.pack` covers the host's packing and
+        # `dar.upload` the copies to the cards, until they are complete
+        with _trace.span("dar.pack"):
+            packed = pack_records(records, pad_postings=False)
+            skey, sent = shard_postings(
+                packed.post_key,
+                packed.post_ent,
+                self.n_sp,
+                packed.capacity,
+                boundaries=self.boundaries,
+            )
         self.cap = packed.base_cap
-        skey, sent = shard_postings(
-            packed.post_key,
-            packed.post_ent,
-            self.n_sp,
-            packed.capacity,
-            boundaries=self.boundaries,
-        )
         # host->device bytes this snapshot materializes (refresh
         # traffic accounting): this process's shard rows and the
         # replicated entity columns (per host on a process-spanning
@@ -584,22 +633,28 @@ class ShardedDar:
         self.nbytes = int(
             skey[held].nbytes
             + sent[held].nbytes
-            + sum(
-                np.asarray(a).nbytes
-                for a in (
-                    packed.alt_lo, packed.alt_hi, packed.t_start,
-                    packed.t_end, packed.active, packed.owner,
-                )
-            )
+            + sum(np.asarray(a).nbytes for a in entity_columns(packed))
         )
-        self.post_key = ShardRows(mesh, skey)
-        self.post_ent = ShardRows(mesh, sent)
-        self.ents = put_replicated(mesh, packed)
-        # K1's entity rows beside the columns (not in nbytes, which
-        # counts what crosses from the host)
-        self.rows = {dev: pack_entity_rows(e) for dev, e in self.ents.items()}
-        # the copies are complete before anyone can see this dar
-        sync_devices(mesh)
+        with _trace.span("dar.upload"):
+            # each device's shard rows of the postings and the entity
+            # columns (the reference's P("sp", None) and P() layouts),
+            # in one transfer a device
+            staging = staging or Staging()
+            keys, ents, self.ents = {}, {}, {}
+            for dev in mesh.distinct_devices():
+                rows = held_shards(mesh, dev)
+                t = place(dev, [skey[rows], sent[rows],
+                                *entity_columns(packed)], staging)
+                keys[dev], ents[dev] = (rows, t[0]), (rows, t[1])
+                self.ents[dev] = EntityTable(*t[2:])
+            self.post_key = ShardRows(keys)
+            self.post_ent = ShardRows(ents)
+            # K1's entity rows beside the columns (not in nbytes, which
+            # counts what crosses from the host)
+            self.rows = {dev: pack_entity_rows(e)
+                         for dev, e in self.ents.items()}
+            # the copies are complete before anyone can see this dar
+            sync_devices(mesh)
 
     def query_batch(
         self,

@@ -30,7 +30,8 @@ tile, runs past the cap, delta postings, the owner filter and all-pad
 rows; the spread path on dirty outputs and back to back, and chosen
 only where a launch is narrow;
 a cuda ShardedDar on a virtual 2x4 mesh equals the CPU one, one K1 and
-one K2 launch a dp row; a replica
+one K2 launch a dp row, and its columns cross in one staged copy; a
+replica
 refreshes in a loop while the GraphCache captures on another thread,
 with 0 capture failures; a reader on its own stream never sees a
 snapshot whose copies have not finished.  The autotune sweep
@@ -1032,6 +1033,16 @@ def _mesh_records(rng, n, n_cells, prefix="e"):
     return out
 
 
+def _ents(packed, device):
+    """A PackedRecords' entity columns on `device`, placed as ShardedDar
+    places them (parallel/sharded.py `place`)."""
+    from dss_tpu_torch.ops import conflict as pc
+    from dss_tpu_torch.parallel.sharded import Staging, place
+
+    return pc.EntityTable(*place(torch.device(device),
+                                 pc.entity_columns(packed), Staging()))
+
+
 def _mesh_queries(rng, q, n_cells):
     k0 = rng.integers(0, n_cells - 8, q)
     keys = (k0[:, None] + np.arange(8)).astype(np.int32)
@@ -1081,7 +1092,7 @@ def test_cuda_sharded_dar_on_a_virtual_mesh_equals_cpu(cuda):
     post = [pc.Postings(torch.from_numpy(packed.post_key),
                         torch.from_numpy(packed.post_ent))]
     post.append(pc.Postings(post[0].post_key[:0], post[0].post_ent[:0]))
-    ents = pc.entity_table(packed, "cpu")
+    ents = _ents(packed, "cpu")
     caps = dict(base_cap=packed.base_cap, delta_cap=8)
     dev = lambda p: pc.Postings(*(t.to(cuda) for t in p))  # noqa: E731
     cents = pc.EntityTable(*(c.to(cuda) for c in ents))
@@ -1280,7 +1291,7 @@ def test_mesh_query_at_the_headline_shape_is_one_launch(cuda):
     keys = np.full((8192, 16), -1, np.int32)
     keys[:, : cs.WIDTH] = q[0]
     spec = pc.query_spec(keys, *q[1:], cuda)
-    ents = pc._u8(pc.entity_table(p, cuda))
+    ents = pc._u8(_ents(p, cuda))
     post = [torch.from_numpy(a).to(cuda)[None] for a in (p.post_key,
                                                          p.post_ent)]
     now = torch.full((8192,), NOW, dtype=torch.int64, device=cuda)
@@ -1492,7 +1503,7 @@ def test_mesh_query_spreads_narrow_launches_only(cuda):
     keys[:, :8] = q[0]
     keys[::16, 7] = 7  # some searches reach the run of 600
     keys[:, :8].sort(axis=1)
-    ents = pc._u8(pc.entity_table(p, cuda))
+    ents = pc._u8(_ents(p, cuda))
     post = [torch.from_numpy(a).to(cuda)[None] for a in (p.post_key,
                                                          p.post_ent)]
     rows = mc.pack_entity_rows(ents)
@@ -1588,6 +1599,42 @@ def test_sharded_dar_runs_the_mesh_kernels(cuda):
     for g, w in zip(mc.mesh_merge(*got, **mkw),
                     mc.mesh_merge_torch(*got, **mkw)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_sharded_dar_uploads_in_one_staged_copy(cuda):
+    """A cuda ShardedDar's shard rows and entity columns cross in one
+    copy from registered host memory (parallel/sharded.py `place`): each
+    is a view of one device buffer, 16-byte aligned and equal to the
+    CPU dar's arrays, whether the build registers its own staging or
+    two builds share one (`Staging`); the answers equal the CPU dar's."""
+    from dss_tpu_torch.parallel import ShardedDar, make_mesh
+    from dss_tpu_torch.parallel.mesh import virtual_devices
+    from dss_tpu_torch.parallel.sharded import Staging
+
+    rng = np.random.default_rng(43)
+    recs = _mesh_records(rng, 3000, 800)
+    b = ShardedDar(recs, make_mesh(2, dp=1, sp=2,
+                                   devices=virtual_devices("cpu", 2)))
+    staging = Staging()
+    for st in (None, staging, staging):
+        a = ShardedDar(recs, make_mesh(2, dp=1, sp=2,
+                                       devices=virtual_devices(cuda, 2)),
+                       staging=st)
+        dev = a.mesh.devices[0, 0]
+        got = [a.post_key.parts[dev][1], a.post_ent.parts[dev][1],
+               *a.ents[dev]]
+        want = [b.post_key.parts[torch.device("cpu")][1],
+                b.post_ent.parts[torch.device("cpu")][1],
+                *b.ents[torch.device("cpu")]]
+        base = got[0].untyped_storage().data_ptr()
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda" and g.dtype == w.dtype
+            assert torch.equal(g.cpu(), w)
+            assert g.untyped_storage().data_ptr() == base
+            assert (g.storage_offset() * g.element_size()) % 16 == 0
+    q = _mesh_queries(rng, 64, 800)
+    assert a.query_batch(*q, now=NOW) == b.query_batch(*q, now=NOW)
 
 
 def _card_replica(cuda, tmp_path, recs, sp=4):

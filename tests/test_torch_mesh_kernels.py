@@ -124,6 +124,16 @@ def _ref_k2(slots, n_uni, sr, r):
             jnp.max(kept) if kept.size else 0)
 
 
+def _shard_rows(mesh, arr):
+    """`arr` [n_sp, ...] on `mesh` as ShardedDar places its postings."""
+    staging = ps.Staging()
+    return ps.ShardRows({
+        dev: (ps.held_shards(mesh, dev),
+              ps.place(dev, [arr[ps.held_shards(mesh, dev)]], staging)[0])
+        for dev in mesh.distinct_devices()
+    })
+
+
 def _same(got, want, what):
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want),
                                   err_msg=what)
@@ -219,7 +229,7 @@ def _routes_equal_reference(c):
         jnp.asarray(c["now"]), None if owner is None else jnp.asarray(owner),
         mesh=rmesh, **kw)
     got = ps.sharded_conflict_query_batch(
-        ps.ShardRows(pmesh_, c["pk"]), ps.ShardRows(pmesh_, c["pe"]),
+        _shard_rows(pmesh_, c["pk"]), _shard_rows(pmesh_, c["pe"]),
         {d: ents_p for d in pmesh_.distinct_devices()},
         pc.query_spec(*(c[f] for f in fields), "cpu"),
         torch.from_numpy(c["now"]),

@@ -74,7 +74,8 @@ def _bits_equal(a, b):
 @pytest.mark.parametrize("n", [0, 1, 37, 400])
 @pytest.mark.parametrize("active_dtype", [torch.bool, torch.uint8])
 def test_rows_decode_to_the_columns_bit_for_bit(n, active_dtype):
-    ents = pc.entity_table(pack_records(_records(n, n)), "cpu")
+    ents = pc.EntityTable(*ps.place(torch.device("cpu"), pc.entity_columns(
+        pack_records(_records(n, n))), ps.Staging()))
     ents = ents._replace(active=ents.active.to(active_dtype))
     rows = mc.pack_entity_rows(ents)
     assert rows.shape == (ents.alt_lo.shape[0], 8)

@@ -99,10 +99,12 @@ def _same_placement(ref, port):
 def _same_stats(ref, port):
     """Equal gauges, but for the ones that hold times.  The port also
     counts, per class, the searches it answered, the slots it decoded
-    and the shadow's drops, which the reference has no gauge for."""
+    and the shadow's drops, and the folds' host->device bytes and
+    minor-fold records, which the reference has no gauge for."""
     a, b = ref.stats(), port.stats()
     served = {f"replica_{c}_{k}" for c in pr.CLASSES
               for k in ("queries", "hits", "shadow_drops")}
+    served |= {"replica_fold_h2d_bytes", "replica_minor_fold_records"}
     assert set(a) == set(b) - served and served <= set(b)
     for k in a:
         if k in ("replica_warm_ms_total", "replica_staleness_s"):
